@@ -1,0 +1,6 @@
+# PyTorch port of repro.core: the key-domain helpers, the k-ary tree and
+# the NitroGen select network that the tiered engine's top tier uses, and
+# the public facade (build_index / IndexConfig / LookupResult).
+from .api import (Index, IndexConfig, LookupResult, build_index,  # noqa: F401
+                  from_reference_arrays, KINDS)
+from . import kary, nitrogen, util  # noqa: F401

@@ -1,0 +1,212 @@
+"""Public facade over the index-search core — PyTorch port of
+``repro/core/api.py`` for ``kind="tiered"``.
+
+    idx = build_index(keys, values, IndexConfig(kind="tiered"))  # on cuda
+    hit = idx.lookup(queries)        # -> LookupResult(rank, found, values)
+
+``build_index`` places the index on the CUDA card unless the caller passes
+``device``; without a card it raises unless ``device="cpu"``. Kinds,
+options and methods that are not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that brings them; none falls back to something
+else.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..engine import tiered
+from .util import as_queries, resolve_device
+
+KINDS = ("binary", "css", "kary", "fast", "nitrogen", "tiered")
+PORTED_KINDS = ("tiered",)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet; it comes with ROADMAP "
+        f"Queue 1 {item}")
+
+
+@dataclass(frozen=True)
+class IndexConfig:
+    kind: str = "css"
+    node_width: int = 128        # css/kary/fast: keys per node
+    leaf_width: Optional[int] = None
+    linear_cutoff: int = 1       # binary: switch-to-linear threshold
+    page_depth: int = 2          # fast: directory levels per page
+    levels: int = 3              # nitrogen: compiled levels
+    compiled_node_width: int = 3  # nitrogen: separators per compiled node
+    bottom: str = "binary"       # nitrogen: base approach under the code
+    intra: str = "vector"        # css: intra-node search style
+    top: str = "auto"            # tiered: top tier ('auto'|'nitrogen'|'kary')
+    tile: int = 128              # tiered: queries per bucket / grid step
+    plan: str = "device"         # tiered: schedule placement ('device'|'host')
+    specialize: bool = False     # compile the index into the program
+    mutable: bool = False        # delta-merge write path
+    delta_capacity: int = 1024   # mutable: delta buffer size (rounded to pow2)
+    maintenance: str = "deferred"  # 'deferred'|'inline'|'thread' fold policy
+    maintenance_interval_s: float = 0.05  # thread mode: fold timer delay
+    ckpt_dir: Optional[str] = None  # journal + snapshot dir (None = off)
+    ckpt_keep: int = 3           # snapshots retained by Index.save rotation
+    journal_fsync: str = "rotate"  # WAL sync: 'never'|'rotate'|'always'
+    queue_capacity: int = 4096   # hard flush trigger (pending queries)
+    queue_deadline_s: float = 0.002  # max time a submit may wait in-queue
+    queue_min_flush: int = 64    # floor of the adaptive flush threshold
+    queue_adapt: bool = True     # occupancy feedback steers the threshold
+    queue_max_share: float = 1.0  # hard cap on one tenant's share of a flush
+    queue_adaptive_deadline: bool = True  # EWMA rate scales the flush window
+    queue_deadline_floor_s: float = 1e-4  # lower bound of the scaled window
+    queue_max_backlog: int = 0   # per-tenant pending-query limit (0 = off)
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown index kind {self.kind!r}; want one of {KINDS}")
+        if self.plan not in ("device", "host"):
+            raise ValueError(
+                f"unknown plan mode {self.plan!r}; want 'device' or 'host'")
+        if self.specialize and self.kind == "tiered" and self.plan == "host":
+            raise ValueError(
+                "specialize=True requires the device plan for kind='tiered' "
+                "(the host BucketPlan reads per-batch stats that cannot be "
+                "baked into the executable); use plan='device'")
+        if self.mutable and self.delta_capacity <= 0:
+            raise ValueError(
+                f"delta_capacity must be positive, got {self.delta_capacity}")
+        if self.maintenance not in ("deferred", "inline", "thread"):
+            raise ValueError(
+                f"unknown maintenance mode {self.maintenance!r}; want "
+                "'deferred', 'inline' or 'thread'")
+        if self.maintenance_interval_s < 0:
+            raise ValueError(
+                f"maintenance_interval_s must be >= 0, got "
+                f"{self.maintenance_interval_s}")
+        if self.ckpt_keep <= 0:
+            raise ValueError(
+                f"ckpt_keep must be positive, got {self.ckpt_keep}")
+        if self.journal_fsync not in ("never", "rotate", "always"):
+            raise ValueError(
+                f"unknown journal_fsync policy {self.journal_fsync!r}; "
+                "want 'never', 'rotate' or 'always'")
+        if self.queue_capacity <= 0:
+            raise ValueError(
+                f"queue_capacity must be positive, got {self.queue_capacity}")
+        if self.queue_deadline_s < 0:
+            raise ValueError(
+                f"queue_deadline_s must be >= 0, got {self.queue_deadline_s}")
+        if not (0.0 < self.queue_max_share <= 1.0):
+            raise ValueError(
+                f"queue_max_share must be in (0, 1], got "
+                f"{self.queue_max_share}")
+        if self.queue_deadline_floor_s < 0:
+            raise ValueError(
+                f"queue_deadline_floor_s must be >= 0, got "
+                f"{self.queue_deadline_floor_s}")
+        if self.queue_max_backlog < 0:
+            raise ValueError(
+                f"queue_max_backlog must be >= 0, got "
+                f"{self.queue_max_backlog}")
+
+    @classmethod
+    def from_tuned(cls, platform: Optional[str] = None, **overrides):
+        raise _not_ported("IndexConfig.from_tuned",
+                          "item 11 (specialization and autotune)")
+
+
+@dataclass(frozen=True)
+class LookupResult:
+    rank: torch.Tensor           # searchsorted-left rank, int32 [Q]
+    found: torch.Tensor          # bool [Q]
+    values: Optional[torch.Tensor]  # payload for hits (arbitrary for misses)
+
+
+@dataclass(frozen=True)
+class Index:
+    config: IndexConfig
+    impl: Any
+    keys_sorted: torch.Tensor
+    values_sorted: Optional[torch.Tensor]
+    n: int
+
+    def search(self, queries) -> torch.Tensor:
+        return tiered.search(self.impl, queries)
+
+    def lookup(self, queries) -> LookupResult:
+        q = as_queries(queries, self.keys_sorted)
+        rank = self.search(q)
+        safe = rank.clamp_max(self.n - 1).long()
+        found = (rank < self.n) & (self.keys_sorted[safe] == q)
+        vals = None
+        if self.values_sorted is not None:
+            vals = self.values_sorted[safe]
+        return LookupResult(rank=rank, found=found, values=vals)
+
+    def search_range(self, lo, hi):
+        raise _not_ported("Index.search_range", "item 6 (range scans)")
+
+    def scan_range(self, lo, hi, *, aggs=None, materialize=None):
+        raise _not_ported("Index.scan_range", "item 6 (range scans)")
+
+    def scan_groups(self, lo, hi, num_groups, *, aggs=None, top_k=None,
+                    candidates=None):
+        raise _not_ported("Index.scan_groups",
+                          "item 7 (grouped and composite analytics)")
+
+    def scan_multi(self, ranges, *, op="union", aggs=None):
+        raise _not_ported("Index.scan_multi",
+                          "item 7 (grouped and composite analytics)")
+
+
+def _check_ported(config: IndexConfig) -> None:
+    if config.mutable:
+        raise _not_ported("IndexConfig(mutable=True)",
+                          "item 5 (mutable store)")
+    if config.kind not in PORTED_KINDS:
+        raise _not_ported(f"kind={config.kind!r}",
+                          "item 12 (the other index kinds)")
+    if config.specialize:
+        raise _not_ported("IndexConfig(specialize=True)",
+                          "item 11 (specialization and autotune)")
+
+
+def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
+                device=None) -> Index:
+    """Build an index on ``device`` (default: the CUDA card)."""
+    _check_ported(config)
+    device = resolve_device(device)
+    keys = np.asarray(keys)
+    order = np.argsort(keys, kind="stable")
+    srt = keys[order]
+    vals = None
+    if values is not None:
+        values = np.asarray(values)
+        if values.shape[0] != keys.shape[0]:
+            raise ValueError("values must align with keys")
+        vals = torch.from_numpy(values[order]).to(device)
+    c = config
+    impl = tiered.build(srt, leaf_width=c.leaf_width, tile=c.tile, top=c.top,
+                        plan=c.plan, device=device)
+    return Index(config=c, impl=impl, keys_sorted=torch.from_numpy(srt)
+                 .to(device), values_sorted=vals, n=int(srt.size))
+
+
+def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(
+        kind="tiered"), *, device) -> Index:
+    """The port's Index from the numpy form of a reference tiered Index:
+    the arrays ``tiered.from_reference_arrays`` takes, plus
+    ``keys_sorted`` and optionally ``values_sorted``."""
+    _check_ported(config)
+    device = resolve_device(device)
+    srt = np.array(state["keys_sorted"])
+    vals = state.get("values_sorted")
+    return Index(
+        config=config,
+        impl=tiered.from_reference_arrays(dict(state, plan=config.plan),
+                                          device=device),
+        keys_sorted=torch.from_numpy(srt).to(device),
+        values_sorted=None if vals is None else torch.from_numpy(
+            np.array(vals)).to(device),
+        n=int(srt.size))

@@ -1,0 +1,93 @@
+"""Shared helpers for the index-search core (PyTorch port of
+``repro/core/util.py``).
+
+Key-domain conventions (DESIGN.md §2.3), unchanged from the reference:
+  * keys are int32 or float32, sorted ascending;
+  * the sentinel (int32 max / +inf) pads incomplete structures — user keys
+    must be strictly below it;
+  * every searcher returns the searchsorted-left rank: the index of the
+    first key >= q in the sorted array.
+
+Device placement: entry points take ``device=None``, which means the CUDA
+card. Without one they raise rather than quietly run on the CPU; callers
+that want the CPU (the parity tests) pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_INT_SENTINELS = {
+    np.dtype(np.int32): np.int32(np.iinfo(np.int32).max),
+    np.dtype(np.int64): np.int64(np.iinfo(np.int64).max),
+}
+
+
+def sentinel_for(dtype) -> np.generic:
+    """Largest representable value for ``dtype``; pads incomplete nodes."""
+    dtype = np.dtype(dtype)
+    if dtype in _INT_SENTINELS:
+        return _INT_SENTINELS[dtype]
+    if np.issubdtype(dtype, np.floating):
+        return dtype.type(np.inf)
+    raise TypeError(f"unsupported key dtype {dtype}")
+
+
+def as_sorted_numpy(keys) -> np.ndarray:
+    keys = np.asarray(keys)
+    if keys.ndim != 1:
+        raise ValueError("keys must be 1-D")
+    if keys.size == 0:
+        raise ValueError("empty key set")
+    return np.sort(keys, kind="stable")
+
+
+def ceil_to(x: int, m: int) -> int:
+    """Round x up to a multiple of m (tile/lane alignment everywhere)."""
+    return -(-x // m) * m
+
+
+def next_pow(base: int, n: int) -> int:
+    """Smallest base**L with base**L >= n; returns the exponent L."""
+    level, cap = 0, 1
+    while cap < n:
+        cap *= base
+        level += 1
+    return level
+
+
+def pad_to(keys: np.ndarray, size: int) -> np.ndarray:
+    if keys.size > size:
+        raise ValueError("cannot pad down")
+    out = np.full(size, sentinel_for(keys.dtype), dtype=keys.dtype)
+    out[: keys.size] = keys
+    return out
+
+
+def take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather along axis 0 with the index clamped into range — the torch
+    form of ``jnp.take(mode="clip")``. On CUDA an out-of-range index is a
+    device-side assert that kills the context, so the clamp is not
+    optional."""
+    return arr[idx.clamp(0, arr.shape[0] - 1).long()]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raise when there is none, so that no
+    entry point falls back to the CPU without being asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def as_queries(queries, like: torch.Tensor) -> torch.Tensor:
+    """Queries as a 1-D tensor on ``like``'s device in its dtype (the
+    reference's ``jnp.asarray`` canonicalises 64-bit inputs to 32 bits the
+    same way). A tensor already on the device in that dtype is used as is,
+    so no copy or host sync is added."""
+    q = torch.as_tensor(queries, device=like.device)
+    return q if q.dtype == like.dtype else q.to(like.dtype)

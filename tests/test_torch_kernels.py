@@ -1,0 +1,232 @@
+"""Kernel modules of the PyTorch port against the reference Pallas kernels.
+
+The same numpy inputs go through the reference kernel (interpret mode, as
+tests/test_kernels.py runs it) and the port's plain PyTorch version on the
+CPU; ranks must be bit-identical. The CUDA kernels themselves are held
+against these plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import kary as ref_kary_core
+from repro.engine import schedule as ref_schedule
+from repro.kernels import kary_search as ref_kary
+from repro.kernels import ops as ref_ops
+from repro.kernels import page_search as ref_page
+
+from repro_torch.core import kary as pt_kary_core
+from repro_torch.kernels import kary_search as pt_kary
+from repro_torch.kernels import ops as pt_ops
+from repro_torch.kernels import page_search as pt_page
+
+torch.set_num_threads(1)
+
+I32 = np.iinfo(np.int32)
+
+
+# ------------------------------------------------------------- page search
+def page_case(dtype, leaf_width, num_pages, q_n, tile, seed, skew=False):
+    """Sentinel-padded pages, a query batch bucketed by page with the
+    reference host plan: (qb [G, tile], step_pages [G], pages)."""
+    rng = np.random.default_rng(seed)
+    n = leaf_width * num_pages - leaf_width // 3          # partial last page
+    if dtype == np.int32:
+        keys = np.sort(rng.integers(-2**30, 2**30, n)).astype(np.int32)
+        q = rng.integers(-2**30, 2**30, q_n).astype(np.int32)
+        sent = I32.max
+    else:
+        keys = np.sort(rng.normal(scale=1e3, size=n)).astype(np.float32)
+        q = rng.normal(scale=1e3, size=q_n).astype(np.float32)
+        sent = np.inf
+    if skew:
+        q[: q_n * 3 // 4] = keys[leaf_width + 5]          # one hot page
+    lw_pad = -(-leaf_width // 128) * 128
+    pages = np.full((num_pages, lw_pad), sent, dtype)
+    flat = np.full(num_pages * leaf_width, sent, dtype)
+    flat[:n] = keys
+    pages[:, :leaf_width] = flat.reshape(num_pages, leaf_width)
+    pids = np.minimum(np.searchsorted(pages[:, leaf_width - 1], q),
+                      num_pages - 1).astype(np.int32)
+    plan = ref_schedule.bucket_plan(pids, tile)
+    src = q if q_n else np.zeros(1, dtype)
+    qb = src[plan.gather].reshape(plan.grid, tile)
+    return qb, plan.step_pages, pages, lw_pad
+
+
+def ref_page_search(qb, step_pages, pages, stride):
+    return np.asarray(ref_page.page_search_bucketed(
+        jnp.asarray(qb), jnp.asarray(step_pages), jnp.asarray(pages),
+        stride=stride, interpret=True))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("leaf_width", [100, 200])        # lw_pad 128, 256
+@pytest.mark.parametrize("stride_of", ["leaf_width", "lw_pad"])
+def test_page_search_plain_matches_reference(dtype, leaf_width, stride_of):
+    qb, sp, pages, lw_pad = page_case(dtype, leaf_width, 12, 700, 64,
+                                      seed=leaf_width)
+    stride = leaf_width if stride_of == "leaf_width" else lw_pad
+    got = pt_page.page_search_plain(torch.from_numpy(qb),
+                                    torch.from_numpy(sp),
+                                    torch.from_numpy(pages), stride=stride)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref_page_search(qb, sp, pages, stride))
+
+
+def test_page_search_plain_skewed_buckets():
+    """Most queries hit one page, so its bucket spans several steps."""
+    qb, sp, pages, _ = page_case(np.int32, 128, 9, 900, 64, seed=5,
+                                 skew=True)
+    assert (sp == 1).sum() >= 2                           # page 1 is hot
+    got = pt_page.page_search_plain(torch.from_numpy(qb),
+                                    torch.from_numpy(sp),
+                                    torch.from_numpy(pages), stride=128)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref_page_search(qb, sp, pages, 128))
+
+
+def test_page_search_plain_chunks_over_steps(monkeypatch):
+    """Chunking the [steps, TQ, lw_pad] compare changes nothing."""
+    qb, sp, pages, _ = page_case(np.float32, 128, 20, 1500, 32, seed=9)
+    args = (torch.from_numpy(qb), torch.from_numpy(sp),
+            torch.from_numpy(pages))
+    whole = pt_page.page_search_plain(*args, stride=128)
+    monkeypatch.setattr(pt_page, "_PLAIN_CHUNK_ELEMS", 32 * 128 * 3)
+    np.testing.assert_array_equal(
+        pt_page.page_search_plain(*args, stride=128).numpy(), whole.numpy())
+
+
+def test_page_search_empty_batch():
+    """Q == 0: the host plan's one all-masked step, and a zero-step grid."""
+    qb, sp, pages, _ = page_case(np.int32, 128, 4, 0, 64, seed=1)
+    assert qb.shape == (1, 64)
+    got = pt_page.page_search_bucketed(torch.from_numpy(qb),
+                                       torch.from_numpy(sp),
+                                       torch.from_numpy(pages), stride=128)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref_page_search(qb, sp, pages, 128))
+    none = pt_page.page_search_bucketed(
+        torch.zeros((0, 64), dtype=torch.int32),
+        torch.zeros(0, dtype=torch.int32), torch.from_numpy(pages),
+        stride=128)
+    assert none.shape == (0, 64)
+
+
+def test_page_search_wrapper_takes_plain_on_cpu():
+    qb, sp, pages, _ = page_case(np.int32, 128, 6, 300, 64, seed=2)
+    before = pt_page.page_search_bucketed.launches
+    args = (torch.from_numpy(qb), torch.from_numpy(sp),
+            torch.from_numpy(pages))
+    got = pt_page.page_search_bucketed(*args, stride=128)
+    assert pt_page.page_search_bucketed.launches == before == 0
+    np.testing.assert_array_equal(
+        got.numpy(), pt_page.page_search_plain(*args, stride=128).numpy())
+
+
+# ------------------------------------------------------------- k-ary search
+def kary_keys(kind, n, rng):
+    if kind == "int32":
+        return np.unique(rng.integers(-2**30, 2**30, n)).astype(np.int32)
+    if kind == "int32_extremes":
+        lo = I32.min + np.arange(n // 2)
+        hi = I32.max - 1 - np.arange(n - n // 2)
+        return np.unique(np.concatenate([lo, hi])).astype(np.int32)
+    # no subnormals: XLA's CPU backend flushes them to zero in compares, so
+    # the reference is not IEEE there (test_kary_plain_subnormal_keys)
+    mags = rng.normal(size=n) * 10.0 ** rng.integers(-30, 30, n)
+    vals = np.concatenate([mags, [0.0, -0.0, -1.0, 3.4e38, -3.4e38]])
+    return np.sort(vals.astype(np.float32), kind="stable")
+
+
+def kary_queries(keys, rng, q_n=900):
+    if keys.dtype == np.int32:
+        extra = np.array([I32.min, I32.min + 1, I32.max - 1, I32.max - 2, 0,
+                          -1], np.int32)
+        rand = rng.integers(I32.min, I32.max - 1, q_n,
+                            dtype=np.int64).astype(np.int32)
+    else:
+        extra = np.array([0.0, -0.0, -np.inf, 3.4e38, -3.4e38, 1.2e-38,
+                          -1.2e-38], np.float32)
+        rand = (rng.normal(size=q_n) * 10.0 ** rng.integers(-30, 30, q_n)
+                ).astype(np.float32)
+    return np.concatenate([rand, keys[::7], extra]).astype(keys.dtype)
+
+
+@pytest.mark.parametrize("kind", ["int32", "int32_extremes", "float32"])
+@pytest.mark.parametrize("n_keys", [100, 8192])             # depth 1 and 2
+def test_kary_plain_matches_reference(kind, n_keys):
+    rng = np.random.default_rng(n_keys)
+    keys = kary_keys(kind, n_keys, rng)
+    ref_idx = ref_kary_core.build(keys, node_width=127)
+    pt_idx = pt_kary_core.build(keys, node_width=127, device="cpu")
+    assert pt_idx.depth == ref_idx.depth == (1 if n_keys < 127 else 2)
+    np.testing.assert_array_equal(pt_idx.tree.numpy(),
+                                  np.asarray(ref_idx.tree))
+    ref_levels = ref_ops.kary_levels(ref_idx, 128)
+    pt_levels = pt_ops.kary_levels(pt_idx, 128)
+    for a, b in zip(pt_levels, ref_levels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    q = kary_queries(keys, rng)
+    pad = -(-q.size // 1024) * 1024 - q.size
+    want = np.asarray(ref_kary.kary_search_tiled(
+        jnp.asarray(np.concatenate([q, np.zeros(pad, q.dtype)]))
+        .reshape(-1, 128), ref_levels, fanout=128, tile_rows=8,
+        interpret=True)).reshape(-1)[:q.size]
+    flat, offsets = pt_kary.flatten_levels(pt_levels)
+    got = pt_kary.kary_search_plain(torch.from_numpy(q), flat, offsets,
+                                    fanout=128, wpad=128)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the core's plain search gives the same rank, clipped to n
+    np.testing.assert_array_equal(
+        pt_kary_core.search(pt_idx, torch.from_numpy(q)).numpy(),
+        np.minimum(want, keys.size))
+
+
+def test_kary_plain_subnormal_keys():
+    """Subnormal keys compare as IEEE says (as numpy does), where the
+    reference on XLA's CPU backend flushes them to zero."""
+    tiny = np.float32(1e-45)
+    keys = np.array([-2 * tiny, -tiny, -0.0, tiny, 2 * tiny, 1.0], np.float32)
+    idx = pt_kary_core.build(keys, node_width=3, device="cpu")
+    q = np.concatenate([keys, [0.0, 3 * tiny, -3 * tiny]]).astype(np.float32)
+    np.testing.assert_array_equal(
+        pt_kary_core.search(idx, torch.from_numpy(q)).numpy(),
+        np.searchsorted(keys, q, side="left"))
+
+
+@pytest.mark.parametrize("w", [3, 7])
+def test_kary_plain_narrow_nodes_match_reference(w):
+    """Narrow nodes and lanes (tests/test_kernels.py's shapes): depth > 2."""
+    rng = np.random.default_rng(w)
+    keys = np.unique(rng.integers(-2**30, 2**30, 257)).astype(np.int32)
+    ref_idx = ref_kary_core.build(keys, node_width=w)
+    pt_idx = pt_kary_core.build(keys, node_width=w, device="cpu")
+    ref_levels = ref_ops.kary_levels(ref_idx, 8)
+    q = kary_queries(keys, rng, q_n=100)[:112]
+    want = np.asarray(ref_kary.kary_search_tiled(
+        jnp.asarray(q).reshape(-1, 8), ref_levels, fanout=w + 1,
+        tile_rows=2, interpret=True)).reshape(-1)
+    flat, offsets = pt_kary.flatten_levels(pt_ops.kary_levels(pt_idx, 8))
+    got = pt_kary.kary_search_levels(torch.from_numpy(q), flat, offsets,
+                                     fanout=w + 1, wpad=8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kary_wrapper_takes_plain_on_cpu_and_empty_batch():
+    keys = np.arange(0, 40000, 5, dtype=np.int32)
+    idx = pt_kary_core.build(keys, node_width=127, device="cpu")
+    flat, offsets = pt_kary.flatten_levels(pt_ops.kary_levels(idx, 128))
+    q = torch.arange(-3, 40010, 7, dtype=torch.int32)
+    got = pt_kary.kary_search_levels(q, flat, offsets, fanout=128, wpad=128)
+    assert pt_kary.kary_search_levels.launches == 0
+    np.testing.assert_array_equal(
+        got.numpy(), np.searchsorted(keys, q.numpy(), side="left"))
+    empty = pt_kary.kary_search_levels(torch.zeros(0, dtype=torch.int32),
+                                       flat, offsets, fanout=128, wpad=128)
+    assert empty.shape == (0,) and empty.dtype == torch.int32
