@@ -23,7 +23,22 @@ Phases, in order; any failure exits non-zero with its traceback:
      lookup under torch.profiler (device time by op, summed kernel time);
   5. coverage runs against the oracle: 32,768 keys (NitroGen top), 2^20
      float32 keys, a duplicate-heavy key set, plan="host";
-  6. one line {"kernels": [...]} with each kernel's launches, times and
+  6. the page-scan kernel in each of count, sum and full mode, with and
+     without a value mask, and the page-prefix kernel with and without
+     values, against their plain versions: int32 and float32, lw_pad 128
+     and 2048, steps_used < grid, skewed buckets, inert bound pairs, int32
+     sums that wrap, Q = 0; counts, int32 sums, min and max bit for bit,
+     float sums to rtol 1e-4;
+  7. the range-scan path at full size on phase 4's index: scan_range over
+     2^18 ranges (full aggregates), search_range, scan_range with
+     materialize=64, scan_groups with G = 64 (count/sum through the prefix
+     kernel, full through the span expansion, top_k=8), scan_multi (union
+     and intersect), all under set_sync_debug_mode("error") with the
+     launch counters set to 0 before and read after; every result against
+     a numpy oracle (counts, ranks and wrapped int32 sums on every query,
+     min, max, rows and top-K on a 4096-query subset); then CUDA-event
+     times of each entry point, its stages and each new kernel;
+  8. one line {"kernels": [...]} with each kernel's launches, times and
      bound; the last line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -37,6 +52,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -354,7 +370,8 @@ def main_path(dev, rng):
              impl.leaf_width, "num_pages": P, "top": impl.top_kind,
              "grid": g_cap, "steps_used": used, "pages_touched": touched,
              "build_s": build_s}
-    return [page_row, kary_row], dict(shape, **stages)
+    return [page_row, kary_row], dict(shape, **stages), \
+        (idx, keys_sorted, values_sorted)
 
 
 # --------------------------------------------------------------- phase 5
@@ -405,6 +422,582 @@ def coverage(dev, rng) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6
+MASK_VALUE = -7          # a value sentinel the masked kernel modes drop
+
+
+def bucketed_lanes(index, bounds: list):
+    """[Q] bound arrays scattered into [g_cap, tile] kernel lanes, bucketed
+    by the page of the first array as the device plan buckets them:
+    (lanes, step_pages, steps_used, plan)."""
+    from repro_torch.engine import schedule
+    q = bounds[0]
+    g_cap = schedule.ladder_grid(q.shape[0], index.tile, index.num_pages)
+    plan = schedule.edge_scan_plan(index.page_of(q), index.tile, g_cap,
+                                   index.num_pages)
+    lanes = [torch.zeros(g_cap * index.tile, dtype=b.dtype, device=b.device)
+             .scatter_(0, plan.dest.long(), b).view(g_cap, index.tile)
+             for b in bounds]
+    return lanes, plan.step_pages, plan.steps_used, plan
+
+
+def compare_outputs(got, want, used: int, sum_at: int, what: str,
+                    worst: dict) -> None:
+    """Counts, int32 sums, min and max bit for bit; float sums to rtol
+    1e-4 (the kernel adds in slot order, the plain version in torch's).
+    Folds the largest errors into ``worst``."""
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, want "
+          f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g[:used], w[:used]
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: output {i} is {g.dtype} {tuple(g.shape)}")
+        if g.numel() == 0:
+            continue
+        if i == sum_at and g.dtype == torch.float32:
+            check(torch.allclose(g, w, rtol=1e-4, atol=1e-4),
+                  f"{what}: float sums beyond rtol 1e-4")
+            rel = float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+            worst["float_sum_rel_err"] = max(worst["float_sum_rel_err"], rel)
+        else:
+            check(torch.equal(g, w), f"{what}: output {i} != plain")
+            worst["max_abs_err"] = max(worst["max_abs_err"],
+                                       max_abs_err(g, w))
+
+
+def phase_scan_kernels(dev, rng) -> dict:
+    from repro_torch.engine import scan as escan
+    from repro_torch.engine import tiered
+    from repro_torch.kernels import page_scan as ps
+    worst = {"max_abs_err": 0, "float_sum_rel_err": 0.0, "cases": 0}
+    surplus = wrapped = False
+    for dtype in (np.int32, np.float32):
+        lo_min, hi_cap, inert_lo, inert_hi = escan._domain_consts(dtype)
+        for leaf_width in (100, 2000):                    # lw_pad 128, 2048
+            n, q_n = leaf_width * 300 - 17, 20000
+            if dtype == np.int32:
+                keys = rng.integers(I32.min + 1, I32.max - 1, n)
+                lo = rng.integers(I32.min + 1, I32.max - 1, q_n)
+                hi = np.clip(lo + rng.integers(-2**20, 2**26, q_n), I32.min,
+                             I32.max - 1)
+            else:
+                keys = rng.normal(size=n) * 1e4
+                lo = rng.normal(size=q_n) * 1e4
+                hi = lo + rng.normal(size=q_n) * 300
+            keys, lo, hi = (a.astype(dtype) for a in (keys, lo, hi))
+            idx = tiered.build(keys, leaf_width=leaf_width, device=dev)
+            lo[: q_n * 3 // 4] = np.sort(keys)[leaf_width * 7 + 3]  # hot page
+            lo[-8:-4], hi[-8:-4] = inert_lo, inert_hi      # inert pairs
+            lo[-4:], hi[-4:] = lo_min, hi_cap              # whole domain
+            if dtype == np.int32:                          # sums that wrap
+                vals = rng.integers(I32.min, I32.max, idx.pages.shape,
+                                    dtype=np.int64).astype(dtype)
+                live = idx.pages.cpu().numpy() < I32.max
+                wrapped |= bool((np.abs(np.where(live, vals, 0).astype(
+                    np.int64).sum(1)) > I32.max).any())
+            else:
+                vals = rng.normal(size=idx.pages.shape).astype(dtype)
+            vals.reshape(-1)[::13] = MASK_VALUE
+            vp = torch.from_numpy(vals).to(dev)
+            lanes, sp, used_t, _ = bucketed_lanes(
+                idx, [torch.from_numpy(a).to(dev) for a in (lo, hi)])
+            used = int(used_t)
+            surplus |= used < sp.shape[0]
+            what = f"{dtype.__name__} lw_pad {idx.lw_pad}"
+            for mode in ps.MODES:
+                for mask in (None,) if mode == "count" else (None, MASK_VALUE):
+                    vpm = None if mode == "count" else vp
+                    got = ps.page_scan_bucketed(*lanes, sp, idx.pages, vpm,
+                                                mode=mode, mask_value=mask,
+                                                steps_used=used_t)
+                    want = ps.page_scan_plain(*lanes, sp, idx.pages, vpm,
+                                              mode=mode, mask_value=mask)
+                    torch.cuda.synchronize()
+                    compare_outputs(got, want, used, 2, f"page_scan {mode} "
+                                    f"mask {mask} {what}", worst)
+                    worst["cases"] += 1
+            every = ps.page_scan_bucketed(*lanes, sp, idx.pages, vp,
+                                          mode="full")
+            compare_outputs(every, ps.page_scan_plain(*lanes, sp, idx.pages,
+                                                      vp, mode="full"),
+                            sp.shape[0], 2, f"page_scan every step {what}",
+                            worst)
+            for vpm, mask in ((None, None), (vp, None), (vp, MASK_VALUE)):
+                got = ps.page_prefix_bucketed(lanes[0], sp, idx.pages, vpm,
+                                              mask_value=mask,
+                                              steps_used=used_t)
+                want = ps.page_prefix_plain(lanes[0], sp, idx.pages, vpm,
+                                            mask_value=mask)
+                torch.cuda.synchronize()
+                if vpm is None:
+                    got, want = (got,), (want,)
+                compare_outputs(got, want, used, 1, f"page_prefix values "
+                                f"{vpm is not None} mask {mask} {what}",
+                                worst)
+                worst["cases"] += 1
+    # Q = 0: the plan's one empty step (steps_used 0), and a zero-step grid
+    z = torch.zeros(0, dtype=idx.pages.dtype, device=dev)
+    lanes, sp, used_t, _ = bucketed_lanes(idx, [z, z])
+    check(int(used_t) == 0 and sp.shape[0] == 1, "Q = 0 plan")
+    for mode in ps.MODES:
+        ps.page_scan_bucketed(*lanes, sp, idx.pages, vp, mode=mode,
+                              steps_used=used_t)
+    ps.page_prefix_bucketed(lanes[0], sp, idx.pages, vp, steps_used=used_t)
+    none = ps.page_scan_bucketed(lanes[0][:0], lanes[1][:0], sp[:0],
+                                 idx.pages, vp, mode="full")
+    torch.cuda.synchronize()
+    check(all(t.shape == (0, idx.tile) for t in none), "zero-step grid")
+    check(surplus, "no case had steps_used below the grid")
+    check(wrapped, "no case had an int32 page sum that wraps")
+    return worst
+
+
+# --------------------------------------------------------------- phase 7
+N_RANGES = 1 << 18
+N_MAT, MAT_K = 1 << 16, 64
+N_GROUP_RANGES, N_GROUPS = 1 << 14, 64
+N_TOPK_RANGES, TOP_K = 1 << 12, 8
+N_MULTI, MULTI_R = 1 << 16, 4
+N_SUBSET = 4096
+MAX_WIDTH = 1 << 17          # keys a scan range matches, at most
+MULTI_HALF_WIDTH = 1 << 15
+
+
+def wrap32(x: np.ndarray) -> np.ndarray:
+    """int64 -> int32 with two's-complement wrap (numpy's int32 sums)."""
+    return (np.asarray(x, np.int64) & 0xFFFFFFFF).astype(np.uint32) \
+        .view(np.int32)
+
+
+def log_uniform(rng, hi: int, size) -> np.ndarray:
+    """Integers log-uniform over [1, hi]."""
+    return np.minimum(np.exp(rng.uniform(0, np.log(hi + 1), size))
+                      .astype(np.int64), hi)
+
+
+def scan_ranges(rng, ks: np.ndarray, q_n: int):
+    """lo drawn from the keys, widths log-uniform from 1 to 2^17 matching
+    keys (spans of one to about 64 pages), every 16th range inverted, and
+    four whole-domain or empty ranges first."""
+    n = ks.size
+    w = log_uniform(rng, MAX_WIDTH, q_n)
+    r = rng.integers(0, n - w + 1)
+    lo, hi = ks[r], ks[r + w - 1]
+    inv = np.arange(0, q_n, 16)
+    lo[inv], hi[inv] = hi[inv], lo[inv] - 1
+    lo[:4] = [I32.min, I32.min, ks[-1] + 1, ks[0]]
+    hi[:4] = [I32.max - 1, ks[0] - 1, I32.max - 1, ks[-1]]
+    return lo, hi
+
+
+def range_oracle(ks, cs, lo, hi):
+    """(r_lo, r_hi_excl, count, wrapped int32 sum) per range."""
+    r_lo = np.searchsorted(ks, lo, "left")
+    r_hi = np.where(lo > hi, r_lo, np.searchsorted(ks, hi, "right"))
+    return r_lo, r_hi, r_hi - r_lo, wrap32(cs[r_hi] - cs[r_lo])
+
+
+def seg_minmax(vs, a, b):
+    """min / max of vs[a[i]:b[i]] per i (identities when empty)."""
+    mn = np.full(len(a), I32.max, np.int32)
+    mx = np.full(len(a), I32.min, np.int32)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if y > x:
+            mn[i], mx[i] = vs[x:y].min(), vs[x:y].max()
+    return mn, mx
+
+
+def group_oracle(ks, cs, lo, hi, G):
+    """Bucket edges by their definition (e_g = min(lo + g * width, hi + 1),
+    width = (hi - lo) // G + 1, int64), ranks, counts, wrapped sums."""
+    l64 = lo.astype(np.int64)[:, None]
+    s = hi.astype(np.int64)[:, None] - l64
+    g = np.arange(G + 1)[None, :]
+    e = np.minimum(l64 + g * (s // G + 1), l64 + s + 1)
+    e = np.where((lo > hi)[:, None], l64, e).astype(np.int32)
+    r_edge = np.searchsorted(ks, e, "left")
+    return (e, r_edge, np.diff(r_edge, axis=1),
+            wrap32(np.diff(cs[r_edge], axis=1)))
+
+
+def bucket_minmax(vs, r_edge):
+    """Per-bucket min / max over consecutive rank intervals of each row."""
+    Q, G = r_edge.shape[0], r_edge.shape[1] - 1
+    mn = np.full((Q, G), I32.max, np.int32)
+    mx = np.full((Q, G), I32.min, np.int32)
+    for q in range(Q):
+        a, b = r_edge[q, :-1], r_edge[q, 1:]
+        ne = b > a
+        if ne.any():
+            seg = vs[a[0]:b[-1]]
+            st = a[ne] - a[0]
+            mn[q, ne] = np.minimum.reduceat(seg, st)
+            mx[q, ne] = np.maximum.reduceat(seg, st)
+    return mn, mx
+
+
+def topk_oracle(vs, r_edge, K, C):
+    """Per bucket the top-K of its first C values (descending, ties to the
+    lower rank), their ranks, and the overflow flag."""
+    s = r_edge[:, :-1].reshape(-1)
+    cnt = np.diff(r_edge, axis=1).reshape(-1)
+    ranks = s[:, None] + np.arange(C)[None, :]
+    valid = np.arange(C)[None, :] < cnt[:, None]
+    cand = np.where(valid, vs[np.minimum(ranks, vs.size - 1)].astype(
+        np.int64), -2**40)
+    order = np.argsort(-cand, axis=1, kind="stable")[:, :K]
+    kvalid = np.arange(K)[None, :] < np.minimum(cnt, C)[:, None]
+    topv = np.where(kvalid, np.take_along_axis(cand, order, 1), 0)
+    topr = np.where(kvalid, np.take_along_axis(ranks, order, 1), -1)
+    return topv.astype(np.int32), topr.astype(np.int32), cnt > C
+
+
+def multi_ranges(rng, ks, q_n, R):
+    """R ranges per query around one shared key (so intersections are not
+    empty), half-widths log-uniform up to 2^15 keys, every 16th member
+    inverted."""
+    n = ks.size
+    c = rng.integers(0, n, q_n)[:, None]
+    a = np.clip(c - log_uniform(rng, MULTI_HALF_WIDTH, (q_n, R)) + 1, 0,
+                n - 1)
+    b = np.clip(c + log_uniform(rng, MULTI_HALF_WIDTH, (q_n, R)) - 1, 0,
+                n - 1)
+    lo, hi = ks[a], ks[b]
+    flo, fhi = lo.reshape(-1), hi.reshape(-1)
+    flo[::16], fhi[::16] = fhi[::16], flo[::16] - 1
+    return np.stack([lo, hi], axis=-1)
+
+
+def multi_oracle(ks, cs, ranges, op):
+    """(count, wrapped sum, hull r_lo, hull r_hi, pieces) per query in rank
+    space; pieces are the disjoint [start, end) rank runs of the match."""
+    lo, hi = ranges[..., 0], ranges[..., 1]
+    a = np.searchsorted(ks, lo, "left")
+    b = np.where(lo > hi, a, np.searchsorted(ks, hi, "right"))
+    if op == "union":
+        order = np.argsort(a, axis=1, kind="stable")
+        a, b = np.take_along_axis(a, order, 1), np.take_along_axis(b, order, 1)
+        prev = np.concatenate([np.full((a.shape[0], 1), -1),
+                               np.maximum.accumulate(b, axis=1)[:, :-1]], 1)
+        start = np.maximum(a, prev)
+        live = b > start
+        ne = b > a
+        r_lo = np.where(ne, a, I32.max).min(1)
+        r_hi = np.where(ne, b, -1).max(1)
+    else:
+        ok = ~(lo > hi).any(1) & (lo.max(1) <= hi.min(1))
+        start = np.searchsorted(ks, lo.max(1), "left")[:, None]
+        b = np.where(ok, np.searchsorted(ks, hi.min(1), "right"),
+                     start[:, 0])[:, None]
+        live = b > start
+        r_lo, r_hi = start[:, 0], b[:, 0]
+    cnt = np.where(live, b - start, 0).sum(1)
+    vsum = wrap32(np.where(live, cs[b] - cs[np.minimum(start, b)], 0).sum(1))
+    r_lo, r_hi = np.where(cnt > 0, r_lo, 0), np.where(cnt > 0, r_hi, 0)
+    return cnt, vsum, r_lo, r_hi, (start, b, live)
+
+
+def pieces_minmax(vs, pieces, rows):
+    start, end, live = pieces
+    mn = np.full(len(rows), I32.max, np.int32)
+    mx = np.full(len(rows), I32.min, np.int32)
+    for i, q in enumerate(rows):
+        segs = [vs[x:y] for x, y, ok in zip(start[q], end[q], live[q]) if ok]
+        if segs:
+            mn[i] = min(sg.min() for sg in segs)
+            mx[i] = max(sg.max() for sg in segs)
+    return mn, mx
+
+
+def same(got, want, what: str) -> None:
+    got = got.cpu().numpy()
+    check(got.shape == np.shape(want) and np.array_equal(got, want),
+          f"scan path: {what} differs from the numpy oracle")
+
+
+def capture_call(caller, name: str, fn):
+    """Run ``fn`` with the kernel module that ``caller`` knows as
+    ``_pscan`` swapped for a copy whose ``name`` also keeps its last
+    call's arguments: the kernel's operands exactly as the path built
+    them. The kernel module itself is left alone (its wrappers count
+    launches on their own function objects)."""
+    kernels = caller._pscan
+    orig = getattr(kernels, name)
+    seen = {}
+
+    def record(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        return orig(*args, **kw)
+
+    caller._pscan = types.SimpleNamespace(**{**vars(kernels), name: record})
+    try:
+        fn()
+    finally:
+        caller._pscan = kernels
+    torch.cuda.synchronize()
+    return seen["args"], seen["kw"]
+
+
+def kernel_row(name, mode, launches, args, kw, plain, n_items, real,
+               sum_at, library):
+    """One ``kernels`` row: the kernel on the path's own operands against
+    its plain version, times, and the bound from this run's inputs."""
+    from repro_torch.kernels import page_scan as ps
+    kernel = getattr(ps, name)
+    used_t = kw["steps_used"]
+    used = int(used_t)
+    pkw = {k: v for k, v in kw.items() if k != "steps_used"}
+    got = kernel(*args, **kw)
+    want = plain(*args, **pkw)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    worst = {"max_abs_err": 0, "float_sum_rel_err": 0.0}
+    compare_outputs(got, want, used, sum_at, f"{name}[{mode}] at the path's "
+                    "shapes", worst)
+    lanes = got[0].shape[1]
+    kpages = args[3 if name == "page_scan_bucketed" else 2]
+    vpages = args[4 if name == "page_scan_bucketed" else 3] \
+        if len(args) > (4 if name == "page_scan_bucketed" else 3) else None
+    step_pages = args[2 if name == "page_scan_bucketed" else 1]
+    touched = int(torch.unique(step_pages[:used]).numel())
+    lw_pad = kpages.shape[1]
+    real = real.view(-1, lanes)[:used]
+    n_in = 2 if name == "page_scan_bucketed" else 1
+    value_pages = vpages is not None and mode != "count"
+    bytes_moved = (n_items * 4 * (n_in + len(got)) + used * 4
+                   + touched * lw_pad * 4 * (2 if value_pages else 1))
+    compares = n_items * n_in * sorted_count_compares(lw_pad)
+    if value_pages:
+        # one add per in-range slot (sum), plus a min and a max (full)
+        if name == "page_scan_bucketed":
+            slots = (got[1][:used] - got[0][:used]).clamp_min(0)
+        else:
+            slots = got[0][:used]
+        per_slot = 3 if mode == "full" else 1
+        compares += per_slot * int(slots[real].sum())
+    b = bound(bytes_moved, compares)
+    return {
+        "name": f"{name}[{mode}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/page_scan.cu",
+        "replaces": "src/repro/kernels/page_scan.py:"
+                    + ("155" if name == "page_scan_bucketed" else "230"),
+        "launches": launches,
+        "max_abs_err": worst["max_abs_err"],
+        "float_sum_rel_err": worst["float_sum_rel_err"],
+        "ms": cuda_ms(lambda: kernel(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: plain(*args, **pkw), reps=3, warmup=1),
+        "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": None if library is None else cuda_ms(library),
+        "steps_used": used, "grid": int(step_pages.shape[0]),
+        "pages_touched": touched, "items": n_items,
+        "bytes_bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        "ops_bound_ms": compares / COMPARES_PER_S * 1e3,
+    }
+
+
+def scan_path(dev, rng, idx, ks, vs):
+    from repro_torch.engine import groupby, scan, schedule
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_scan as ps
+    from repro_torch.kernels import page_search as pk
+    impl = idx.impl
+    n, tile, P = ks.size, impl.tile, impl.num_pages
+    cs = np.zeros(n + 1, np.int64)
+    cs[1:] = np.cumsum(vs.astype(np.int64))
+    lo, hi = scan_ranges(rng, ks, N_RANGES)
+    ranges = multi_ranges(rng, ks, N_MULTI, MULTI_R)
+    lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
+    glo, ghi = lo_d[:N_GROUP_RANGES], hi_d[:N_GROUP_RANGES]
+    tlo, thi = lo_d[:N_TOPK_RANGES], hi_d[:N_TOPK_RANGES]
+    r_d = torch.from_numpy(ranges).to(dev)
+    G = N_GROUPS
+    calls = {
+        "scan_range": lambda: idx.scan_range(lo_d, hi_d),
+        "search_range": lambda: idx.search_range(lo_d, hi_d),
+        "scan_range_sum": lambda: idx.scan_range(lo_d, hi_d,
+                                                 aggs=("count", "sum")),
+        "scan_range_materialize": lambda: idx.scan_range(
+            lo_d[:N_MAT], hi_d[:N_MAT], materialize=MAT_K),
+        "scan_groups_count": lambda: idx.scan_groups(glo, ghi, G,
+                                                     aggs=("count",)),
+        "scan_groups_sum": lambda: idx.scan_groups(glo, ghi, G,
+                                                   aggs=("count", "sum")),
+        "scan_groups_full": lambda: idx.scan_groups(glo, ghi, G),
+        "scan_groups_top_k": lambda: idx.scan_groups(tlo, thi, G,
+                                                     top_k=TOP_K),
+        "scan_multi_union": lambda: idx.scan_multi(r_d, op="union"),
+        "scan_multi_intersect": lambda: idx.scan_multi(r_d,
+                                                       op="intersect"),
+    }
+    t0 = time.perf_counter()
+    for fn in calls.values():               # builds the scanner, warms up
+        fn()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    counters = (pk.page_search_bucketed, kk.kary_search_levels,
+                ps.page_scan_bucketed, ps.page_prefix_bucketed)
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "mode_launches"):
+            c.mode_launches = dict.fromkeys(c.mode_launches, 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = {k: fn() for k, fn in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {c.__name__: c.launches for c in counters}
+    mode_launches = {
+        "page_scan_bucketed": dict(ps.page_scan_bucketed.mode_launches),
+        "page_prefix_bucketed": dict(ps.page_prefix_bucketed.mode_launches)}
+    torch.cuda.synchronize()
+    check(all(v > 0 for m in mode_launches.values() for v in m.values()),
+          f"a scan kernel mode did not launch on the path: {mode_launches}")
+    check(launches["kary_search_levels"] > 0, "the span descent did not go "
+          "through the k-ary kernel")
+
+    # ---- every query: counts, ranks, wrapped int32 sums
+    r_lo, r_hi, cnt, vsum = range_oracle(ks, cs, lo, hi)
+    for key in ("scan_range", "scan_range_sum"):
+        r = res[key]
+        same(r.count, cnt, f"{key} count")
+        same(r.r_lo, r_lo, f"{key} r_lo")
+        same(r.r_hi_excl, r_hi, f"{key} r_hi_excl")
+        same(r.vsum, vsum, f"{key} vsum")
+    check(res["scan_range_sum"].vmin is None, "sum depth returned a min")
+    for got, want, f in zip(res["search_range"], (r_lo, r_hi, cnt),
+                            ("r_lo", "r_hi_excl", "count")):
+        same(got, want, f"search_range {f}")
+    sub = np.arange(N_SUBSET)
+    mn, mx = seg_minmax(vs, r_lo[sub], r_hi[sub])
+    same(res["scan_range"].vmin[:N_SUBSET], mn, "scan_range vmin")
+    same(res["scan_range"].vmax[:N_SUBSET], mx, "scan_range vmax")
+
+    m = res["scan_range_materialize"]
+    mr = r_lo[:N_MAT, None] + np.arange(MAT_K)[None, :]
+    mvalid = np.arange(MAT_K)[None, :] < cnt[:N_MAT, None]
+    same(m.ranks, np.where(mvalid, mr, -1), "materialized ranks")
+    same(m.values, np.where(mvalid, vs[np.minimum(mr, n - 1)], 0),
+         "materialized values")
+    same(m.overflow, cnt[:N_MAT] > MAT_K, "materialize overflow")
+    same(m.count, cnt[:N_MAT], "materialize count")
+
+    e, r_edge, gcnt, gsum = group_oracle(ks, cs, lo[:N_GROUP_RANGES],
+                                         hi[:N_GROUP_RANGES], G)
+    for key in ("scan_groups_count", "scan_groups_sum", "scan_groups_full"):
+        g = res[key]
+        same(g.edges, e, f"{key} edges")
+        same(g.r_edge, r_edge, f"{key} r_edge")
+        same(g.count, gcnt, f"{key} count")
+        if key != "scan_groups_count":
+            same(g.vsum, gsum, f"{key} vsum")
+    check(res["scan_groups_count"].vsum is None, "count depth gave sums")
+    gmn, gmx = bucket_minmax(vs, r_edge[:N_SUBSET])
+    same(res["scan_groups_full"].vmin[:N_SUBSET], gmn, "scan_groups vmin")
+    same(res["scan_groups_full"].vmax[:N_SUBSET], gmx, "scan_groups vmax")
+    t = res["scan_groups_top_k"]
+    C = max(2 * TOP_K, 32)
+    topv, topr, over = topk_oracle(vs, r_edge[:N_TOPK_RANGES], TOP_K, C)
+    same(t.topk_values.reshape(-1, TOP_K), topv, "top-K values")
+    same(t.topk_ranks.reshape(-1, TOP_K), topr, "top-K ranks")
+    same(t.overflow.reshape(-1), over, "top-K overflow")
+    same(t.count, gcnt[:N_TOPK_RANGES], "top-K bucket counts")
+
+    multi = {}
+    for op in ("union", "intersect"):
+        mc, msum, mlo, mhi, pieces = multi_oracle(ks, cs, ranges, op)
+        r = res[f"scan_multi_{op}"]
+        same(r.count, mc, f"scan_multi {op} count")
+        same(r.vsum, msum, f"scan_multi {op} vsum")
+        same(r.r_lo, mlo, f"scan_multi {op} r_lo")
+        same(r.r_hi_excl, mhi, f"scan_multi {op} r_hi_excl")
+        pmn, pmx = pieces_minmax(vs, pieces, sub)
+        same(r.vmin[:N_SUBSET], pmn, f"scan_multi {op} vmin")
+        same(r.vmax[:N_SUBSET], pmx, f"scan_multi {op} vmax")
+        multi[op] = {"empty": int((mc == 0).sum()), "matches": int(mc.sum())}
+
+    # ---- times: each entry point, its stages, each kernel and mode
+    sc = scan.scanner_for(impl, idx.values_sorted)
+    times = {f"{k}_ms": cuda_ms(fn, reps=7, warmup=1)
+             for k, fn in calls.items()}
+    plo, phi = sc.span_of(lo_d, hi_d)
+    g_cap = schedule.ladder_grid(2 * N_RANGES, tile, P)
+    _, plan = schedule.span_scan_plan(plo, phi, tile, g_cap, P)
+    aux = sc.aux
+
+    def interior():
+        a, b = plo + 1, phi
+        has = b > a
+        al, bl = a.long(), b.long()
+        return (torch.where(has, aux.cum_cnt[bl] - aux.cum_cnt[al], 0),
+                torch.where(has, aux.cum_sum[bl] - aux.cum_sum[al], 0),
+                scan._table_range(aux.st_min, a, b, torch.minimum, I32.max),
+                scan._table_range(aux.st_max, a, b, torch.maximum, I32.min))
+
+    edges = groupby.group_edges(glo, ghi, G, np.int32).reshape(-1)
+    epids = impl.page_of(edges)
+    e_cap = schedule.ladder_grid(edges.shape[0], tile, P)
+    eplan = schedule.edge_scan_plan(epids, tile, e_cap, P)
+    times.update({
+        "span_descent_ms": cuda_ms(lambda: sc.span_of(lo_d, hi_d)),
+        "span_plan_ms": cuda_ms(lambda: schedule.span_scan_plan(
+            plo, phi, tile, g_cap, P)),
+        "interior_ms": cuda_ms(interior),
+        "group_edges_ms": cuda_ms(lambda: groupby.group_edges(
+            glo, ghi, G, np.int32)),
+        "edge_descent_ms": cuda_ms(lambda: impl.page_of(edges)),
+        "edge_plan_ms": cuda_ms(lambda: schedule.edge_scan_plan(
+            epids, tile, e_cap, P)),
+    })
+    times["ranges_per_s"] = N_RANGES / (times["scan_range_ms"] * 1e-3)
+    times["profile_scan_range"] = device_profile(calls["scan_range"])
+    times["profile_scan_groups_sum"] = device_profile(
+        calls["scan_groups_sum"])
+
+    real = torch.zeros(g_cap * tile, dtype=torch.bool, device=dev) \
+        .index_fill_(0, plan.dest.long(), True)
+    ereal = torch.zeros(e_cap * tile, dtype=torch.bool, device=dev) \
+        .index_fill_(0, eplan.dest.long(), True)
+    item_lo = torch.cat([lo_d, lo_d])        # the library call's operands
+    item_hi = torch.cat([hi_d, hi_d])
+    rows = []
+    for mode, key in (("count", "search_range"), ("sum", "scan_range_sum"),
+                      ("full", "scan_range")):
+        args, kw = capture_call(scan, "page_scan_bucketed", calls[key])
+        lib = (lambda: (torch.searchsorted(idx.keys_sorted, item_lo),
+                        torch.searchsorted(idx.keys_sorted, item_hi,
+                                           right=True))) \
+            if mode == "count" else None
+        rows.append(kernel_row(
+            "page_scan_bucketed", mode,
+            mode_launches["page_scan_bucketed"][mode], args, kw,
+            ps.page_scan_plain, 2 * N_RANGES, real, 2, lib))
+    for mode, key in (("count", "scan_groups_count"),
+                      ("sum", "scan_groups_sum")):
+        args, kw = capture_call(groupby, "page_prefix_bucketed",
+                                calls[key])
+        lib = (lambda: torch.searchsorted(idx.keys_sorted, edges)) \
+            if mode == "count" else None
+        rows.append(kernel_row(
+            "page_prefix_bucketed", mode,
+            mode_launches["page_prefix_bucketed"][mode], args, kw,
+            ps.page_prefix_plain, edges.shape[0], ereal, 1, lib))
+    check(all(r["max_abs_err"] == 0 for r in rows), "a scan kernel "
+          "disagrees with its plain version at the path's shapes")
+    shape = {"ranges": N_RANGES, "materialize": [N_MAT, MAT_K],
+             "group_ranges": N_GROUP_RANGES, "groups": G,
+             "top_k_ranges": N_TOPK_RANGES, "top_k": TOP_K,
+             "multi": [N_MULTI, MULTI_R], "span_grid": g_cap,
+             "span_steps_used": int(plan.steps_used), "edges":
+             int(edges.shape[0]), "edge_grid": e_cap,
+             "edge_steps_used": int(eplan.steps_used),
+             "empty_ranges": int((cnt == 0).sum()),
+             "matches": int(cnt.sum()), "multi": multi,
+             "launches": launches, "mode_launches": mode_launches,
+             "warm_up_s": warm_s}
+    return rows, dict(shape, **times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -430,10 +1023,14 @@ def main() -> int:
           f"{phase_page(dev, rng)}", flush=True)
     print(f"phase 3: k-ary kernel == plain, max_abs_err "
           f"{phase_kary(dev, rng)}", flush=True)
-    rows, main = main_path(dev, rng)
+    rows, main, state = main_path(dev, rng)
     print("phase 4: main path " + json.dumps(main), flush=True)
     print("phase 5: coverage " + json.dumps(coverage(dev, rng)), flush=True)
-    print(json.dumps({"kernels": rows}))
+    print("phase 6: scan kernels == plain " + json.dumps(
+        phase_scan_kernels(dev, rng)), flush=True)
+    scan_rows, scan_main = scan_path(dev, rng, *state)
+    print("phase 7: scan path " + json.dumps(scan_main), flush=True)
+    print(json.dumps({"kernels": rows + scan_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,7 @@
 
     idx = build_index(keys, values, IndexConfig(kind="tiered"))  # on cuda
     hit = idx.lookup(queries)        # -> LookupResult(rank, found, values)
+    r = idx.scan_range(lo, hi)       # -> engine.scan.ScanResult
 
 ``build_index`` places the index on the CUDA card unless the caller passes
 ``device``; without a card it raises unless ``device="cpu"``. Kinds,
@@ -18,17 +19,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..engine import tiered
-from .util import as_queries, resolve_device
+from ..engine import scan, tiered
+from .util import as_queries, not_ported, resolve_device
 
 KINDS = ("binary", "css", "kary", "fast", "nitrogen", "tiered")
 PORTED_KINDS = ("tiered",)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it comes with ROADMAP "
-        f"Queue 1 {item}")
 
 
 @dataclass(frozen=True)
@@ -112,8 +107,8 @@ class IndexConfig:
 
     @classmethod
     def from_tuned(cls, platform: Optional[str] = None, **overrides):
-        raise _not_ported("IndexConfig.from_tuned",
-                          "item 11 (specialization and autotune)")
+        raise not_ported("IndexConfig.from_tuned",
+                         "item 11 (specialization and autotune)")
 
 
 @dataclass(frozen=True)
@@ -144,32 +139,63 @@ class Index:
             vals = self.values_sorted[safe]
         return LookupResult(rank=rank, found=found, values=vals)
 
-    def search_range(self, lo, hi):
-        raise _not_ported("Index.search_range", "item 6 (range scans)")
+    def search_range(self, lo, hi) -> tuple:
+        """Range query: for each pair, the half-open rank interval
+        [r_lo, r_hi_excl) of keys with lo <= key <= hi, plus the match
+        count. Exact under duplicate keys at either endpoint; ``lo > hi``
+        normalizes to the empty interval at r_lo. Runs through the
+        range-scan subsystem (``engine/scan.py``): both endpoints descend
+        the top tier in one pass, with no host sync."""
+        return tiered.search_range(self.impl, lo, hi)
 
-    def scan_range(self, lo, hi, *, aggs=None, materialize=None):
-        raise _not_ported("Index.scan_range", "item 6 (range scans)")
+    def scan_range(self, lo, hi, *, aggs=None,
+                   materialize: Optional[int] = None):
+        """Batched range scan with aggregation pushdown: per query the
+        match count, rank interval and, when the index carries
+        int32/float32 values, their sum / min / max, without materializing
+        matches. ``aggs`` (e.g. ``("count", "sum")``) caps the pushdown
+        depth: the kernel then reads and computes strictly less.
+        ``materialize=K`` also returns the first K matching ranks (and
+        values) per query with an overflow flag. Returns
+        ``engine.scan.ScanResult``."""
+        return self._scanner().scan_range(lo, hi, aggs=aggs,
+                                          materialize=materialize)
 
-    def scan_groups(self, lo, hi, num_groups, *, aggs=None, top_k=None,
-                    candidates=None):
-        raise _not_ported("Index.scan_groups",
-                          "item 7 (grouped and composite analytics)")
+    def scan_groups(self, lo, hi, num_groups, *, aggs=None,
+                    top_k: Optional[int] = None,
+                    candidates: Optional[int] = None):
+        """Grouped range analytics: each ``(lo, hi)`` range splits into
+        ``num_groups`` equal-width key buckets with per-bucket count / sum /
+        min / max (``aggs`` caps the depth) and optional per-bucket
+        ``top_k`` values (``candidates`` bounds the window read per
+        bucket). Count/sum ride a (G+1)-edge prefix pipeline that never
+        scans interior pages. Returns ``engine.groupby.GroupScanResult``."""
+        return self._scanner().scan_groups(lo, hi, num_groups, aggs=aggs,
+                                           top_k=top_k,
+                                           candidates=candidates)
 
-    def scan_multi(self, ranges, *, op="union", aggs=None):
-        raise _not_ported("Index.scan_multi",
-                          "item 7 (grouped and composite analytics)")
+    def scan_multi(self, ranges, *, op: str = "union", aggs=None):
+        """Composite multi-range predicates: ``ranges`` is [Q, R, 2]
+        inclusive (lo, hi) pairs per query, combined as a union (IN-list of
+        ranges) or an intersection (conjunctive predicate). Returns
+        ``engine.scan.ScanResult`` whose r_lo/r_hi_excl are the rank hull
+        of the matching set."""
+        return self._scanner().scan_multi(ranges, op=op, aggs=aggs)
+
+    def _scanner(self):
+        return scan.scanner_for(self.impl, self.values_sorted)
 
 
 def _check_ported(config: IndexConfig) -> None:
     if config.mutable:
-        raise _not_ported("IndexConfig(mutable=True)",
-                          "item 5 (mutable store)")
+        raise not_ported("IndexConfig(mutable=True)",
+                         "item 5 (mutable store)")
     if config.kind not in PORTED_KINDS:
-        raise _not_ported(f"kind={config.kind!r}",
-                          "item 12 (the other index kinds)")
+        raise not_ported(f"kind={config.kind!r}",
+                         "item 12 (the other index kinds)")
     if config.specialize:
-        raise _not_ported("IndexConfig(specialize=True)",
-                          "item 11 (specialization and autotune)")
+        raise not_ported("IndexConfig(specialize=True)",
+                         "item 11 (specialization and autotune)")
 
 
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),

@@ -19,8 +19,10 @@
 //   * all levels come flattened into one tensor; their offsets travel by
 //     value, so depth is a kernel argument (at most kMaxDepth).
 //
-// What bounds it: operations (depth * wpad compares a query). The bytes it
-// must move, the queries in and the ranks out, are a few MB.
+// What bounds it: its least time on the H100 is set by bytes (the queries
+// in, the ranks out and the levels, a few MB), at one binary search a
+// level. The kernel does depth * wpad compares a query instead; whether
+// those or memory limit it was not measured.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

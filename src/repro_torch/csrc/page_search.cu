@@ -18,11 +18,13 @@
 //     at least *steps_used (read from device memory, no host round trip)
 //     returns at once. The outputs of those steps are never read back.
 //
-// What bounds it: operations. Every lane compares against all lw_pad keys
-// of its page (TQ * lw_pad compares a step), while each page row is read
-// from device memory about once per step. The shared-memory reads are
-// broadcasts. A binary search per lane would do log2(lw_pad) compares
-// instead; that is a later change, not this port.
+// What bounds it: its least time on the H100 is set by bytes (the lanes
+// in and out and each touched page row once), at one binary search a
+// lane. The kernel does the linear count instead: every lane compares
+// against all lw_pad keys of its page (TQ * lw_pad compares a step; the
+// shared-memory reads are broadcasts). That those compares, and not
+// memory, limit it is a guess that was not measured. A binary search per
+// lane would do log2(lw_pad) compares; that is a later change.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -180,6 +180,30 @@ def run_scheduled(plan: DevicePlan, q: torch.Tensor, tile: int, g_cap: int,
     return out
 
 
+def span_scan_plan(page_lo: torch.Tensor, page_hi: torch.Tensor, tile: int,
+                   grid: int, num_pages: int | None = None,
+                   method: str | None = None):
+    """Span expansion + scan-step plan (DESIGN.md §8): a query's inclusive
+    page span ``[page_lo, page_hi]`` contributes exactly its two boundary
+    scan items (item i is query i's lower-boundary page, item Q+i its
+    upper one), so a span is a pair of page buckets and the point-lookup
+    device plan applies unchanged; interior pages are aggregated, never
+    scanned. Returns (item_pages [2Q], DevicePlan over the 2Q items) at the
+    static grid ``grid`` (use ``ladder_grid(2Q, tile, num_pages)``)."""
+    pages = torch.cat([page_lo, page_hi]).int()
+    return pages, device_plan(pages, tile, grid, num_pages, method=method)
+
+
+def edge_scan_plan(pages: torch.Tensor, tile: int, grid: int,
+                   num_pages: int | None = None,
+                   method: str | None = None) -> DevicePlan:
+    """Single-ended twin of :func:`span_scan_plan` for the grouped-scan edge
+    pipeline (DESIGN.md §8.3): each item is one edge targeting one page, so
+    the plan is the point-lookup device plan at the static grid ``grid``
+    (use ``ladder_grid(N, tile, num_pages)``)."""
+    return device_plan(pages.int(), tile, grid, num_pages, method=method)
+
+
 def _empty_plan(tile: int) -> BucketPlan:
     # Q == 0: one fully-masked step on page 0 keeps every downstream shape
     # non-degenerate (the page kernel still launches; all lanes drop).

@@ -16,9 +16,13 @@ Composition per batch:
      one leaf page per grid step; steps past the plan's count exit at once.
   4. **Un-permute** — gather the ranks back to request order, clip to n.
 
+Range queries (``search_range``) descend both endpoints of each range in
+one pass (``_make_span_of``) and run through the range-scan subsystem,
+``engine/scan.py``.
+
 Tier sizing (``plan_tiers``) keeps the reference's arithmetic, so the
-layout matches it for every n. The range functions come with the scan
-slice, and telemetry spans with the telemetry slice (ROADMAP).
+layout matches it for every n. Telemetry spans come with the telemetry
+slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -272,3 +276,45 @@ def searcher(index: TieredIndex) -> Callable:
     def run(queries):
         return search(index, queries)
     return run
+
+
+# ---------------------------------------------------------------- ranges
+def _make_span_of(page_of_raw: Callable, key_dtype) -> Callable:
+    """Doubled-endpoint descent (DESIGN.md §8): ``(lo, hi) -> (page_lo,
+    page_hi)``, the inclusive boundary pages of each query's page span,
+    both endpoint batches in one 2Q descent. The upper endpoint descends
+    as its successor (``hi+1`` for ints, ``nextafter`` for floats:
+    searchsorted-right routing), since separators repeat across pages when
+    a key run crosses a boundary and routing ``hi`` itself would close the
+    span one page early."""
+    is_float = np.issubdtype(np.dtype(key_dtype), np.floating)
+
+    def span_of(lo, hi):
+        q_n = lo.shape[0]
+        hi_next = torch.nextafter(hi, torch.full_like(hi, float("inf"))) \
+            if is_float else hi + 1
+        pids = page_of_raw(torch.cat([lo, hi_next]))
+        plo = pids[:q_n].int()
+        # the max only disciplines inverted (empty) ranges: the descent is
+        # monotone, so hi >= lo gives page_hi >= page_lo already
+        phi = torch.maximum(pids[q_n:].int(), plo)
+        return plo, phi
+
+    return span_of
+
+
+def search_range_raw(index: TieredIndex) -> Callable:
+    """``(lo, hi, pages) -> (r_lo, r_hi_excl, count)`` over the range-scan
+    subsystem (``engine/scan.py``): the doubled descent, the boundary-page
+    kernel in count mode and the interior count prefix."""
+    from .scan import scanner_for
+    return scanner_for(index).range_raw
+
+
+def search_range(index: TieredIndex, lo, hi):
+    """Batched range ranks: for each ``lo[i] <= hi[i]`` the half-open rank
+    interval [r_lo, r_hi_excl) of keys in ``[lo, hi]`` plus the count, exact
+    for duplicate keys at either endpoint; ``lo > hi`` normalizes to the
+    empty interval at r_lo. No host sync."""
+    from .scan import scanner_for
+    return scanner_for(index).search_range(lo, hi)

@@ -9,8 +9,9 @@ searchsorted rank among the tree's keys (callers clip it).
 
 The TPU kernel fetched row j through an exact one-hot f32 matmul only to
 use its matrix unit; the CUDA kernel loads the row directly, one thread a
-query. On the H100 it is bound by operations (``depth * wpad`` compares a
-query); the bytes it must move are the queries and ranks only.
+query. Its bound on the H100 is set by bytes (queries, ranks and levels),
+at one binary search a level; the kernel does ``depth * wpad`` compares a
+query, and whether those or memory limit it was not measured.
 
 The levels travel flattened into one contiguous tensor, level-major, with
 the element offset of each level (``flatten_levels``). ``kary_search_plain``

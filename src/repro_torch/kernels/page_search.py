@@ -7,11 +7,13 @@ queries of ``queries_bucketed[g]``, which all live in leaf page
 ``page_ids[g]``; each lane returns
 ``page_ids[g] * stride + min(#{s : page[s] < q}, stride)``.
 
-On the H100 the kernel is bound by operations: every lane compares against
-all ``lw_pad`` keys of its page, while the page row is read about once per
-step. Its design (one block per step, one thread per lane, the row staged
-through shared memory in fixed 8 KB chunks, an early exit for steps past
-``steps_used``) and the reasons for it are in the source.
+Its bound on the H100 is set by bytes: the lanes in and out and the
+touched page rows, at one binary search a lane. The kernel does more work
+than that: every lane compares against all ``lw_pad`` keys of its page.
+Whether those compares or memory limit it was not measured. Its design
+(one block per step, one thread per lane, the row staged through shared
+memory in fixed 8 KB chunks, an early exit for steps past ``steps_used``)
+and the reasons for it are in the source.
 
 ``page_search_plain`` is the same function in plain PyTorch. The wrapper
 uses it for CPU tensors only; for a CUDA tensor it launches the kernel or

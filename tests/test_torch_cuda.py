@@ -14,6 +14,7 @@ from repro_torch.core import kary as kary_core
 from repro_torch.engine import schedule, tiered
 from repro_torch.kernels import kary_search as kk
 from repro_torch.kernels import ops
+from repro_torch.kernels import page_scan as ps
 from repro_torch.kernels import page_search as pk
 
 I32 = np.iinfo(np.int32)
@@ -72,3 +73,75 @@ def test_kary_kernel_matches_plain(cuda, dtype):
     assert torch.equal(got, want)
     assert kk.kary_search_levels(qd[:0], flat, offsets, fanout=128,
                                  wpad=128).shape == (0,)
+
+
+def scan_lanes(cuda, dtype, leaf_width, rng):
+    """Bound pairs bucketed by page as the span pipeline buckets them:
+    (index, lo_b, hi_b, step_pages, steps_used, value pages)."""
+    keys = rng.normal(size=leaf_width * 300) * 1e6
+    idx = tiered.build(keys.astype(dtype), leaf_width=leaf_width, device=cuda)
+    lo = torch.from_numpy((rng.normal(size=5000) * 1e6).astype(dtype)).to(cuda)
+    hi = lo + torch.from_numpy(
+        (rng.normal(size=5000) * 1e4).astype(dtype)).to(cuda)
+    g_cap = schedule.ladder_grid(lo.shape[0], idx.tile, idx.num_pages)
+    plan = schedule.edge_scan_plan(idx.page_of(lo), idx.tile, g_cap,
+                                   idx.num_pages)
+    lanes = [torch.zeros(g_cap * idx.tile, dtype=lo.dtype, device=cuda)
+             .scatter_(0, plan.dest.long(), x).view(g_cap, idx.tile)
+             for x in (lo, hi)]
+    vals = rng.integers(-2**31, 2**31 - 1, idx.pages.shape) \
+        if dtype == np.int32 else rng.normal(size=idx.pages.shape)
+    vpages = torch.from_numpy(vals.astype(dtype)).to(cuda)
+    vpages.view(-1)[::13] = -7
+    return idx, *lanes, plan.step_pages, plan.steps_used, vpages
+
+
+def assert_kernel_matches(got, want, used, sum_at):
+    """Counts, int32 sums, min and max bit for bit; float sums to rtol 1e-4
+    (the kernel adds in slot order, the plain version in torch's)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == sum_at and g.dtype == torch.float32:
+            torch.testing.assert_close(g[:used], w[:used], rtol=1e-4,
+                                       atol=1e-4)
+        else:
+            assert torch.equal(g[:used], w[:used])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [None, -7])
+@pytest.mark.parametrize("mode", ["count", "sum", "full"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("leaf_width", [100, 2000])       # lw_pad 128, 2048
+def test_page_scan_kernel_matches_plain(cuda, dtype, leaf_width, mode, mask):
+    rng = np.random.default_rng(leaf_width + 7)
+    idx, lo_b, hi_b, sp, used_t, vpages = scan_lanes(cuda, dtype, leaf_width,
+                                                      rng)
+    used = int(used_t)
+    assert used < sp.shape[0]
+    got = ps.page_scan_bucketed(lo_b, hi_b, sp, idx.pages, vpages, mode=mode,
+                                mask_value=mask, steps_used=used_t)
+    want = ps.page_scan_plain(lo_b, hi_b, sp, idx.pages,
+                              None if mode == "count" else vpages, mode=mode,
+                              mask_value=None if mode == "count" else mask)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    assert_kernel_matches(got, want, used, sum_at=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [None, -7])
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_page_prefix_kernel_matches_plain(cuda, dtype, with_values, mask):
+    rng = np.random.default_rng(11)
+    idx, e_b, _, sp, used_t, vpages = scan_lanes(cuda, dtype, 2000, rng)
+    used = int(used_t)
+    vp = vpages if with_values else None
+    got = ps.page_prefix_bucketed(e_b, sp, idx.pages, vp, mask_value=mask,
+                                  steps_used=used_t)
+    want = ps.page_prefix_plain(e_b, sp, idx.pages, vp,
+                                mask_value=mask if with_values else None)
+    torch.cuda.synchronize()
+    if not with_values:
+        got, want = (got,), (want,)
+    assert_kernel_matches(got, want, used, sum_at=1)

@@ -222,7 +222,7 @@ def test_defaults_match_reference():
 
 
 @pytest.mark.parametrize("what", ["mutable", "kind", "specialize",
-                                  "from_tuned", "scan"])
+                                  "from_tuned"])
 def test_unported_surface_raises(what):
     keys = np.arange(300, dtype=np.int32)
     cfg = {"mutable": dict(kind="tiered", mutable=True),
@@ -232,12 +232,8 @@ def test_unported_surface_raises(what):
         if cfg is not None:
             pt_core.build_index(keys, config=pt_core.IndexConfig(**cfg),
                                 device="cpu")
-        elif what == "from_tuned":
-            pt_core.IndexConfig.from_tuned("cpu")
         else:
-            idx = pt_core.build_index(
-                keys, config=pt_core.IndexConfig(kind="tiered"), device="cpu")
-            idx.scan_range(keys[:2], keys[:2])
+            pt_core.IndexConfig.from_tuned("cpu")
 
 
 def test_build_index_needs_a_card_by_default():
