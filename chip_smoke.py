@@ -38,7 +38,31 @@ Phases, in order; any failure exits non-zero with its traceback:
      a numpy oracle (counts, ranks and wrapped int32 sums on every query,
      min, max, rows and top-K on a 4096-query subset); then CUDA-event
      times of each entry point, its stages and each new kernel;
-  8. one line {"kernels": [...]} with each kernel's launches, times and
+  8. the CDF-inversion kernel against its plain version and
+     np.searchsorted(..., "left") clipped to V - 1, bit for bit: B in
+     {1, 3, 8, 64, 256} by V in {100, 1000, 2048, 152,064} and each V - 1
+     (the scalar path), softmax-sorted rows with flat runs and +inf tails,
+     u at 0, 1e-6, on a cdf entry, above cdf[-1] and in a flat run, B = 0;
+  9. the serving path at qwen3-0.6b's full width (28 layers, d_model
+     1024, vocab 151,936 padded to 152,064; 596,180,992 float32
+     parameters from the seed): ServeEngine over the immutable tiered
+     prefix store, 8 prompts of 48 tokens sharing 32 (the reference
+     launcher's prompts), 32 sampled decode steps (temperature 0.8,
+     top-p 0.9), two rounds, with the launch counters set to 0 before and
+     read after. Checks: (a) prefill computed/reused 288/480 and the
+     store stats the reference launcher prints; (b) warm prefill logits
+     equal cold ones within 2e-3; (c) greedy tokens equal the argmax of a
+     full forward where the top-2 margin exceeds 2e-3; (d) every sampled
+     token inside its top-p nucleus (float64, 1e-4 slack); (e) one
+     cdf_search launch per decode step, and the kernel equal to its plain
+     version on every captured (cdf, u), and the page kernel equal to its
+     plain version on every probe the prefix store made, at the store's
+     own shapes; (f) one decode step (sample +
+     decode_step) under set_sync_debug_mode("error"). Then CUDA-event
+     times of prefill (cold, warm), the decode step and its parts, the
+     kernel at B in {8, 64, 256} beside torch.searchsorted, their bounds,
+     and one profiled decode step;
+ 10. one line {"kernels": [...]} with each kernel's launches, times and
      bound; the last line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -110,6 +134,25 @@ def device_profile(fn, top: int = 8) -> dict:
     return {"kernels_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
             "ops_ms": {e.key: e.device_time_total / 1e3 for e in ops[:top]}}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn`: the summed time of the kernels it
+    launches, over `reps` calls under torch.profiler, per call. Unlike a
+    per-call event time it leaves out the gaps in which the device waits
+    for the host, which set the event time of a call of a few
+    microseconds of device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def bound(bytes_moved: float, compares: float) -> tuple[float, str]:
@@ -998,6 +1041,364 @@ def scan_path(dev, rng, idx, ks, vs):
     return rows, dict(shape, **times)
 
 
+# --------------------------------------------------------------- phase 8
+CDF_BATCHES = (1, 3, 8, 64, 256)
+CDF_VOCABS = (100, 1000, 2048, 152_064)
+
+
+def cdf_rows(rng, B: int, V: int):
+    """(cdf, u) on the host: rows from softmax + sort + cumsum of seeded
+    logits; every 4th row with a flat run over [V/4, V/2); every 5th
+    padded with +inf from 3V/4; u at 0, at 1e-6, equal to a cdf entry,
+    above cdf[-1] (which gives V - 1) and inside a flat run."""
+    x = rng.normal(size=(B, V)).astype(np.float32) * 3
+    p = np.exp(x - x.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    cdf = np.cumsum(-np.sort(-p, axis=-1), -1).astype(np.float32)
+    cdf[1::4, V // 4:V // 2] = cdf[1::4, V // 4:V // 4 + 1]
+    u = rng.uniform(0, 1, B).astype(np.float32)
+    u[0::6], u[1::6] = 0.0, 1e-6
+    u[2::6] = cdf[2::6, V // 3]
+    u[3::6] = cdf[3::6, -1] + 0.25
+    u[5::6] = cdf[5::6, V // 4]                 # row 5 mod 4 == 1: flat run
+    cdf[4::5, 3 * V // 4:] = np.inf
+    return cdf, u
+
+
+def phase_cdf(dev, rng) -> dict:
+    """The CDF kernel against its plain version and np.searchsorted(...,
+    "left") clipped to V - 1, bit for bit; each shape also as an odd
+    width V - 1 (the kernel's scalar path)."""
+    from repro_torch.kernels import cdf_search as cs
+    cases, worst = 0, 0
+    for B in CDF_BATCHES:
+        for V in CDF_VOCABS:
+            cdf, u = cdf_rows(rng, B, V)
+            for c in (cdf, np.ascontiguousarray(cdf[:, 1:])):
+                cd = torch.from_numpy(c).to(dev)
+                ud = torch.from_numpy(u).to(dev)
+                got = cs.cdf_search(cd, ud)
+                want = cs.invert_cdf(cd, ud)
+                torch.cuda.synchronize()
+                ref = np.minimum([np.searchsorted(c[b], u[b], "left")
+                                  for b in range(B)], c.shape[1] - 1)
+                check(got.dtype == torch.int32 and torch.equal(got, want),
+                      f"cdf kernel != plain (B {B}, V {c.shape[1]})")
+                check(np.array_equal(got.cpu().numpy(), ref),
+                      f"cdf kernel != np.searchsorted (B {B}, V "
+                      f"{c.shape[1]})")
+                worst = max(worst, max_abs_err(got, want))
+                cases += 1
+    empty = cs.cdf_search(torch.zeros((0, 8), device=dev),
+                          torch.zeros(0, device=dev))
+    check(empty.shape == (0,), "B = 0")
+    return {"cases": cases, "max_abs_err": worst}
+
+
+# --------------------------------------------------------------- phase 9
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_STEPS, SERVE_ROUNDS = 32, 2
+TOP_P, TEMPERATURE = 0.9, 0.8
+GREEDY_TOL = 2e-3          # the reference's warm/cold prefill tolerance
+# what the reference launcher prints for --wholesale --no-decode-queue
+# --rounds 2 with its default prompts (8 x 48 tokens, 32 shared): the
+# counts depend on the prompt structure only, not on the model's width
+WANT_REUSE = (288, 480)
+WANT_STORE = {"lookups": 23, "hits": 15, "rebuilds": 9, "verify_rejects": 0}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of fn() ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def in_nucleus(logits: np.ndarray, tokens: np.ndarray) -> bool:
+    """Every token inside its row's top-p nucleus, in float64: the mass of
+    the strictly more probable tokens stays below top_p (+1e-4 slack)."""
+    x = logits.astype(np.float64) / TEMPERATURE
+    p = np.exp(x - x.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    pt = np.take_along_axis(p, tokens[:, None].astype(np.int64), -1)
+    above = np.where(p > pt, p, 0.0).sum(-1)
+    return bool((above < TOP_P + 1e-4).all())
+
+
+def serve_path(dev, seed: int):
+    """Phase 9: ServeEngine.generate at qwen3-0.6b's full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import IndexConfig
+    from repro_torch.engine import tiered
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_scan as ps
+    from repro_torch.kernels import page_search as pk
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import sampler as S
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    check(n_params == 596_180_992, f"{n_params} parameters")
+    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
+
+    def engine(sampler):
+        return ServeEngine(cfg, params, max_len=256, page_size=16,
+                           index_config=IndexConfig(kind="tiered",
+                                                    plan="device",
+                                                    mutable=False),
+                           decode_batching=False, sampler=sampler)
+
+    prompts = make_prompts(cfg.vocab)
+    eng = engine(scfg)
+
+    # ---- the counted run, with the sampler's logits and (cdf, u) kept
+    seen = {"logits": [], "tokens": [], "cdf_u": []}
+    real_sample, real_kops = E.sample, S.kops
+
+    def rec_sample(logits, cfg_, *, generator=None):
+        seen["logits"].append(logits.clone())
+        tok = real_sample(logits, cfg_, generator=generator)
+        seen["tokens"].append(tok)
+        return tok
+
+    def rec_topp(cdf, u):
+        seen["cdf_u"].append((cdf.clone(), u.clone()))
+        return real_kops.topp_search(cdf, u)
+
+    # the prefix store's probes reach the page kernel through the tiered
+    # engine's ``_page``: keep each call's operands as the path built them
+    seen["probes"] = []
+    real_page = tiered._page
+
+    def rec_page(qb, step_pages, pages, *, stride, steps_used=None):
+        seen["probes"].append((qb.clone(), step_pages.clone(), pages.clone(),
+                               stride, None if steps_used is None
+                               else steps_used.clone()))
+        return real_page.page_search_bucketed(qb, step_pages, pages,
+                                              stride=stride,
+                                              steps_used=steps_used)
+
+    counters = (pk.page_search_bucketed, kk.kary_search_levels,
+                ps.page_scan_bucketed, ps.page_prefix_bucketed, cs.cdf_search)
+    for c in counters:
+        c.launches = 0
+    E.sample = rec_sample
+    S.kops = types.SimpleNamespace(topp_search=rec_topp)
+    tiered._page = types.SimpleNamespace(
+        **{**vars(real_page), "page_search_bucketed": rec_page})
+    gen = torch.Generator(dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    try:
+        for _ in range(SERVE_ROUNDS):
+            out = eng.generate(prompts, SERVE_STEPS, generator=gen)
+    finally:
+        E.sample, S.kops, tiered._page = real_sample, real_kops, real_page
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    steps = SERVE_STEPS * SERVE_ROUNDS
+    check(launches["cdf_search"] == steps, f"cdf_search launched "
+          f"{launches['cdf_search']} times, want one a decode step ({steps})")
+    check(launches["page_search_bucketed"] > 0,
+          "the prefix store's probes did not reach the page kernel")
+    # (a) prefix reuse as the reference launcher counts it
+    st = eng.stats
+    reuse, store_stats = (st.prefill_tokens, st.reused_tokens), \
+        dict(eng.store.stats)
+    check(reuse == WANT_REUSE, f"prefill computed/reused {reuse}")
+    check(store_stats == WANT_STORE, f"store stats {store_stats}")
+    check(st.decode_tokens == steps * len(prompts), "decode tokens")
+    check(tuple(out.shape) == (len(prompts), SERVE_STEPS)
+          and out.dtype == torch.int32, f"tokens out {tuple(out.shape)}")
+    # (d) every sampled token in its nucleus, (e) kernel == plain on every
+    # captured (cdf, u)
+    check(len(seen["logits"]) == steps and len(seen["cdf_u"]) == steps,
+          "captured steps")
+    for lg, tok in zip(seen["logits"], seen["tokens"]):
+        tok = tok.cpu().numpy()
+        check(bool((tok < cfg.vocab).all()), "a padded vocabulary column "
+              "was sampled")
+        check(in_nucleus(lg.cpu().numpy(), tok), "a sampled token lies "
+              "outside its top-p nucleus")
+    cdf_err = 0
+    for cdf, u in seen["cdf_u"]:
+        got, want = cs.cdf_search(cdf, u), cs.invert_cdf(cdf, u)
+        check(torch.equal(got, want), "cdf kernel != plain on a captured "
+              "decode step")
+        cdf_err = max(cdf_err, max_abs_err(got, want))
+    # the page kernel == plain on every probe the store made, at the store's
+    # own shapes (a few pages, ~24 hashes a probe, few steps of the grid)
+    check(len(seen["probes"]) == launches["page_search_bucketed"],
+          "captured store probes")
+    probe_err, probe_shapes = 0, set()
+    for qb, sp, pages, stride, used_t in seen["probes"]:
+        got = pk.page_search_bucketed(qb, sp, pages, stride=stride,
+                                      steps_used=used_t)
+        want = pk.page_search_plain(qb, sp, pages, stride=stride)
+        u = sp.shape[0] if used_t is None else int(used_t)
+        check(torch.equal(got[:u], want[:u]), "page kernel != plain on a "
+              f"store probe (grid {tuple(qb.shape)}, {pages.shape[0]} "
+              f"pages, {u} steps used)")
+        probe_err = max(probe_err, max_abs_err(got[:u], want[:u]))
+        probe_shapes.add((*qb.shape, pages.shape[0], u))
+
+    # (b) warm prefill (two pages reused) == cold prefill
+    warm, _ = eng.prefill_one(prompts[0])
+    cold_eng = engine(scfg)
+    cold, _ = cold_eng.prefill_one(prompts[0])
+    check(torch.allclose(warm, cold, atol=GREEDY_TOL, rtol=GREEDY_TOL),
+          "warm prefill logits differ from cold beyond 2e-3: "
+          f"{float((warm - cold).abs().max())}")
+    warm_err = float((warm - cold).abs().max())
+
+    # (c) greedy tokens are the argmax of a full forward, where the top-2
+    # margin exceeds the tolerance
+    greedy = engine(SamplerConfig(temperature=0.0))
+    g_out = greedy.generate(prompts[:2], 4).cpu().numpy()
+    checked = 0
+    for b in range(2):
+        toks = np.concatenate([prompts[b], g_out[b]]).astype(np.int32)
+        h, _ = T.forward(cfg, params, torch.from_numpy(toks[None, :-1])
+                         .to(dev), compute_dtype=torch.float32)
+        lg = T.logits_of(cfg, params, h)[0, -4:]
+        top2 = torch.topk(lg, 2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        arg = top2.indices[:, 0].cpu().numpy()
+        ok = margin > GREEDY_TOL
+        check(np.array_equal(arg[ok], g_out[b][ok]), "a greedy token is "
+              "not the argmax of the full forward")
+        checked += int(ok.sum())
+    check(checked > 0, "no greedy token had a top-2 margin above 2e-3")
+
+    # (f) no host sync inside one decode step: sample + decode_step on the
+    # batch prefill of the same prompts
+    tok8 = torch.from_numpy(np.stack(prompts).astype(np.int32)).to(dev)
+    lg8, cache = T.prefill(cfg, params, tok8, max_len=256,
+                           compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+
+    def step():
+        nxt = S.sample(lg8, scfg, generator=gen)
+        return T.decode_step(cfg, params, nxt, cache,
+                             compute_dtype=torch.float32)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # ---- times
+    B, V = lg8.shape
+    order, cdf8 = S.nucleus_cdf(lg8, scfg)
+    u8 = S.draw_u(cdf8, scfg, gen)
+    probs = torch.softmax(lg8 / TEMPERATURE, dim=-1)
+    p_sorted = torch.sort(probs, dim=-1, descending=True, stable=True)[0]
+    nxt = S.sample(lg8, scfg, generator=gen)
+    times = {
+        "prefill_cold_ms": host_ms(
+            lambda: cold_eng.prefill_one(prompts[0], probe=(0, []))),
+        "prefill_warm_ms": host_ms(lambda: eng.prefill_one(prompts[0])),
+        "decode_step_ms": cuda_ms(step),
+        "model_ms": cuda_ms(lambda: T.decode_step(
+            cfg, params, nxt, cache, compute_dtype=torch.float32)),
+        "sample_ms": cuda_ms(lambda: S.sample(lg8, scfg, generator=gen)),
+        "softmax_ms": cuda_ms(lambda: torch.softmax(lg8 / TEMPERATURE,
+                                                    dim=-1)),
+        "argsort_ms": cuda_ms(lambda: torch.sort(
+            probs, dim=-1, descending=True, stable=True)),
+        "cumsum_ms": cuda_ms(lambda: torch.cumsum(p_sorted, dim=-1)),
+        "cdf_kernel_ms": cuda_ms(lambda: cs.cdf_search(cdf8, u8)),
+        "sample_device_ms": device_ms(
+            lambda: S.sample(lg8, scfg, generator=gen), reps=5),
+        "model_device_ms": device_ms(lambda: T.decode_step(
+            cfg, params, nxt, cache, compute_dtype=torch.float32), reps=3),
+    }
+    times["tokens_per_s"] = B / (times["decode_step_ms"] * 1e-3)
+    times["sampler_share"] = times["sample_ms"] / times["decode_step_ms"]
+    times["engine_decode_ms_per_step"] = st.decode_s / steps * 1e3
+    times["engine_tokens_per_s"] = st.decode_tokens / st.decode_s
+    prof = device_profile(step)
+    prof["idle_share"] = 1 - prof["kernels_ms"] / times["decode_step_ms"]
+    times["profile_decode_step"] = prof
+
+    sweep = {}
+    for b in (8, 64, 256):
+        x = torch.randn((b, V), generator=gen, device=dev) * 3
+        _, c = S.nucleus_cdf(x, scfg)
+        uu = S.draw_u(c, scfg, gen)
+        got, want = cs.cdf_search(c, uu), cs.invert_cdf(c, uu)
+        check(torch.equal(got, want), f"cdf kernel != plain at B {b}")
+        bnd = bound(b * V * 4 + 8 * b, b * V)
+        sweep[b] = {"ms": cuda_ms(lambda: cs.cdf_search(c, uu)),
+                    "device_ms": device_ms(lambda: cs.cdf_search(c, uu)),
+                    "plain_ms": cuda_ms(lambda: cs.invert_cdf(c, uu)),
+                    "plain_device_ms": device_ms(
+                        lambda: cs.invert_cdf(c, uu)),
+                    "searchsorted_ms": cuda_ms(
+                        lambda: torch.searchsorted(c, uu[:, None])),
+                    "searchsorted_device_ms": device_ms(
+                        lambda: torch.searchsorted(c, uu[:, None])),
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "compares_ms": b * V / COMPARES_PER_S * 1e3}
+    times["cdf_kernel_sweep"] = sweep
+
+    # bounds: the float32 weights once a step, plus the KV cache read
+    L = int(cache["lengths"][0]) + 1
+    kv_bytes = B * cfg.n_layers * L * cfg.n_kv_heads * cfg.hd * 2 * 4
+    w_bytes = n_params * 4
+    times["decode_step_bound_ms"] = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    times["decode_step_bound_bytes"] = w_bytes + kv_bytes
+
+    cdf_p, u_p = seen["cdf_u"][-1]           # the path's own operands
+    k_bound = bound(cdf_p.numel() * 4 + 8 * cdf_p.shape[0], cdf_p.numel())
+    row = {
+        "name": "cdf_search", "route": "cuda",
+        "source": "src/repro_torch/csrc/cdf_search.cu",
+        "replaces": "src/repro/kernels/cdf_search.py:47",
+        "launches": launches["cdf_search"], "max_abs_err": cdf_err,
+        "ms": cuda_ms(lambda: cs.cdf_search(cdf_p, u_p)),
+        "plain_ms": cuda_ms(lambda: cs.invert_cdf(cdf_p, u_p)),
+        "bound_ms": k_bound[0], "bound_by": k_bound[1],
+        "library_ms": cuda_ms(lambda: torch.searchsorted(cdf_p,
+                                                         u_p[:, None])),
+        "shape": list(cdf_p.shape),
+        # the kernel's, the plain version's and the library call's device
+        # time (the event times above are set by the host at this size)
+        "device_ms": device_ms(lambda: cs.cdf_search(cdf_p, u_p)),
+        "plain_device_ms": device_ms(lambda: cs.invert_cdf(cdf_p, u_p)),
+        "library_device_ms": device_ms(
+            lambda: torch.searchsorted(cdf_p, u_p[:, None])),
+    }
+    shape = {"arch": SERVE_ARCH, "params": n_params, "requests": len(prompts),
+             "prompt_len": int(prompts[0].size), "steps": SERVE_STEPS,
+             "rounds": SERVE_ROUNDS, "launches": launches,
+             "prefill_computed_reused": list(reuse),
+             "prefix_store": store_stats,
+             "store_probes_checked": len(seen["probes"]),
+             "store_probe_max_abs_err": probe_err,
+             "store_probe_shapes_g_tq_pages_used": sorted(probe_shapes),
+             "greedy_tokens_checked": checked,
+             "warm_cold_max_abs_diff": warm_err, "init_s": init_s,
+             "generate_s": generate_s, "kv_len": L}
+    return row, dict(shape, **times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1030,7 +1431,12 @@ def main() -> int:
         phase_scan_kernels(dev, rng)), flush=True)
     scan_rows, scan_main = scan_path(dev, rng, *state)
     print("phase 7: scan path " + json.dumps(scan_main), flush=True)
-    print(json.dumps({"kernels": rows + scan_rows}))
+    del state
+    print("phase 8: cdf kernel == plain " + json.dumps(phase_cdf(dev, rng)),
+          flush=True)
+    cdf_row, serve_main = serve_path(dev, args.seed)
+    print("phase 9: serve path " + json.dumps(serve_main), flush=True)
+    print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

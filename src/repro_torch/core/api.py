@@ -186,7 +186,9 @@ class Index:
         return scan.scanner_for(self.impl, self.values_sorted)
 
 
-def _check_ported(config: IndexConfig) -> None:
+def check_ported(config: IndexConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item when
+    ``config`` asks for a kind or option the port does not have yet."""
     if config.mutable:
         raise not_ported("IndexConfig(mutable=True)",
                          "item 5 (mutable store)")
@@ -201,7 +203,7 @@ def _check_ported(config: IndexConfig) -> None:
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
                 device=None) -> Index:
     """Build an index on ``device`` (default: the CUDA card)."""
-    _check_ported(config)
+    check_ported(config)
     device = resolve_device(device)
     keys = np.asarray(keys)
     order = np.argsort(keys, kind="stable")
@@ -224,7 +226,7 @@ def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(
     """The port's Index from the numpy form of a reference tiered Index:
     the arrays ``tiered.from_reference_arrays`` takes, plus
     ``keys_sorted`` and optionally ``values_sorted``."""
-    _check_ported(config)
+    check_ported(config)
     device = resolve_device(device)
     srt = np.array(state["keys_sorted"])
     vals = state.get("values_sorted")

@@ -1,5 +1,6 @@
-"""Layout helpers binding the k-ary kernel to the core index structures
-(PyTorch port of the sizing half of ``repro/kernels/ops.py``).
+"""Layout helpers binding the k-ary kernel to the core index structures,
+and the sampler's CDF inversion (PyTorch port of the sizing half of
+``repro/kernels/ops.py`` and of its ``topp_search``).
 
 ``VMEM_BUDGET_BYTES`` and ``kary_vmem_bytes`` keep the reference's TPU
 arithmetic on purpose: ``engine/tiered.plan_tiers`` sizes the tiers from
@@ -14,6 +15,7 @@ import torch
 
 from ..core.kary import KaryTreeIndex
 from ..core.util import ceil_to, next_pow, sentinel_for
+from . import cdf_search as _cdf
 
 VMEM_BUDGET_BYTES = 12 * 2**20     # the reference's per-core VMEM budget
 
@@ -46,3 +48,11 @@ def kary_levels(index: KaryTreeIndex, lane: int) -> list[torch.Tensor]:
         full[:, :w] = lvl.reshape(n_l, w)
         out.append(torch.from_numpy(full).to(index.tree.device))
     return out
+
+
+def topp_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Nucleus-sampling CDF inversion: [B] int32, the first index with
+    cdf >= u per row, clipped to V - 1. The reference pads batch and
+    vocabulary to its TPU tiles; the CUDA kernel takes any shape, so
+    nothing is padded."""
+    return _cdf.cdf_search(cdf, u)

@@ -1,0 +1,150 @@
+"""Serving launcher: batched generation with prefix-page reuse, on the
+CUDA card (PyTorch port of ``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --wholesale --no-decode-queue --temperature 0.8 --top-p 0.9 \
+        --rounds 2
+    # off the card, at a tiny width:
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --wholesale --no-decode-queue --device cpu
+
+The flags and defaults are the reference's, and so are the prompts
+(``np.random.default_rng(0)``); weights are random, from the seed 0.
+Flags whose subsystem is not ported yet, and the reference's defaults
+that need one (the mutable prefix store, the decode queue), exit with
+the message naming the ROADMAP Queue 1 item that brings it.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def make_prompts(vocab: int, requests: int = 8, prompt_len: int = 48,
+                 shared_prefix: int = 32) -> list:
+    """The reference launcher's prompts: ``requests`` prompts of
+    ``prompt_len`` tokens sharing their first ``shared_prefix``, drawn from
+    ``np.random.default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, shared_prefix)
+    return [np.concatenate([
+        shared, rng.integers(0, vocab, prompt_len - shared_prefix)])
+        for _ in range(requests)]
+
+
+def _unported(args) -> list:
+    """(is set, what, ROADMAP item) for every unported flag or default."""
+    return [
+        (not args.wholesale, "the mutable prefix store (pass --wholesale)",
+         "item 5 (mutable store)"),
+        (args.index != "tiered", f"--index {args.index}",
+         "item 12 (the other index kinds)"),
+        (not args.no_decode_queue and args.temperature != 0.0,
+         "the decode queue (pass --no-decode-queue)",
+         "item 9 (queue and admission)"),
+        (args.tenants > 0, "--tenants", "item 9 (queue and admission)"),
+        (args.queue_capacity != 4096 or args.queue_deadline_us != 2000
+         or args.no_queue_adapt or args.queue_max_share != 1.0
+         or args.no_adaptive_deadline,
+         "--queue-capacity/--queue-deadline-us/--no-queue-adapt/"
+         "--queue-max-share/--no-adaptive-deadline (the probe queue)",
+         "item 9 (queue and admission)"),
+        (args.ckpt_dir is not None or args.restore or args.fsync != "rotate",
+         "--ckpt-dir/--restore/--fsync", "item 8 (durability)"),
+        (args.metrics_port is not None or args.metrics_selftest
+         or args.trace_out is not None,
+         "--metrics-port/--metrics-selftest/--trace-out",
+         "item 10 (telemetry)"),
+        (args.tune or args.tuned_profile is not None,
+         "--tune/--tuned-profile", "item 11 (specialization and autotune)"),
+    ]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device; the default is the CUDA card, "
+                         "'cpu' runs the kernels' plain versions")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--shared-prefix", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="generate waves over the same prompts; rounds >= 2 "
+                         "hit a warm store")
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--index", default="tiered",
+                    choices=["binary", "css", "kary", "fast", "nitrogen",
+                             "tiered"])
+    ap.add_argument("--wholesale", action="store_true",
+                    help="rebuild the prefix index per insert batch instead "
+                         "of the delta-merge write path")
+    ap.add_argument("--queue-capacity", type=int, default=4096)
+    ap.add_argument("--queue-deadline-us", type=int, default=2000)
+    ap.add_argument("--no-queue-adapt", action="store_true")
+    ap.add_argument("--queue-max-share", type=float, default=1.0)
+    ap.add_argument("--no-adaptive-deadline", action="store_true")
+    ap.add_argument("--no-decode-queue", action="store_true",
+                    help="sample decode steps inline instead of batching "
+                         "their CDF inversions through the decode queue")
+    ap.add_argument("--tenants", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--top-p", type=float, default=0.9)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--fsync", default="rotate",
+                    choices=["never", "rotate", "always"])
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--metrics-selftest", action="store_true")
+    ap.add_argument("--trace-out", default=None, metavar="FILE")
+    ap.add_argument("--tune", action="store_true")
+    ap.add_argument("--tuned-profile", default=None, metavar="PLATFORM")
+    args = ap.parse_args()
+
+    from ..core.util import not_ported
+    for is_set, what, item in _unported(args):
+        if is_set:
+            sys.exit(str(not_ported(what, item)))
+
+    import torch
+    from ..configs import get_config
+    from ..core import IndexConfig
+    from ..core.util import resolve_device
+    from ..models import transformer as T
+    from ..serve import SamplerConfig, ServeEngine
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    print(f"arch={args.arch} params={T.param_count(params)/1e6:.1f}M "
+          f"prefix-index={args.index} device={device}")
+    index_config = IndexConfig(kind=args.index, levels=2,
+                               compiled_node_width=3, mutable=False)
+    eng = ServeEngine(
+        cfg, params, max_len=args.max_len, page_size=args.page_size,
+        index_config=index_config, decode_batching=False,
+        sampler=SamplerConfig(temperature=args.temperature, top_p=args.top_p))
+    prompts = make_prompts(cfg.vocab, args.requests, args.prompt_len,
+                           args.shared_prefix)
+    gen = torch.Generator(device).manual_seed(0)
+    for _ in range(max(args.rounds, 1)):
+        out = eng.generate(prompts, steps=args.steps, generator=gen)
+    s = eng.stats
+    print(f"tokens out: {tuple(out.shape)}")
+    print(f"prefill computed/reused: {s.prefill_tokens}/{s.reused_tokens}")
+    print(f"decode: {s.decode_tokens} tokens in {s.decode_s:.2f}s "
+          f"({s.decode_tokens/max(s.decode_s,1e-9):,.0f} tok/s)")
+    print(f"prefix store: {eng.store.stats}")
+    print(f"probe: {s.probe_s:.3f}s in batched store probes")
+
+
+if __name__ == "__main__":
+    main()

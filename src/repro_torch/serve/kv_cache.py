@@ -1,0 +1,229 @@
+"""Paged prefix KV store with index-compiled lookup (PyTorch port of
+``repro/serve/kv_cache.py``).
+
+Prompt tokens split into pages of ``page_size`` tokens; each page's
+*chained* hash identifies the whole prefix up to and including that page.
+Cached (hash -> page payload) entries sit in the port's tiered index,
+probed on the card. Every hit is verified against the stored tokens
+before reuse, so a hash collision truncates the reuse and never corrupts
+it.
+
+The port serves through the immutable tiered index: inserts mark the
+snapshot dirty and the next probe rebuilds it (the reference's
+``mutable=False`` posture). The reference's default, the mutable store,
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5; ``save`` /
+``restore`` name item 8 and per-tenant probes item 9. Payloads are
+device tensors: cloned slices of the prefill cache.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..core import IndexConfig, build_index, check_ported
+from ..core.util import not_ported, resolve_device
+
+_MASK31 = (1 << 31) - 1
+_SEED = 0x9E3779B1
+_MULT = 1_000_003
+_ADD = 0x7F4A7C15
+
+
+def chain_hashes_ref(tokens: np.ndarray, page_size: int) -> np.ndarray:
+    """Scalar reference for :func:`chain_hashes` (per-token Python loop)."""
+    tokens = np.asarray(tokens, np.int64)
+    n_pages = len(tokens) // page_size
+    hs, h = [], np.int64(_SEED)
+    for i in range(n_pages):
+        blk = tokens[i * page_size: (i + 1) * page_size]
+        for t in blk:                                  # simple polynomial mix
+            h = (h * _MULT + t + _ADD) & _MASK31
+        # emitted hashes stay strictly below the int32 sentinel (the index
+        # key-domain contract); 2^31-1 folds onto 2^31-2, one more tolerated
+        # collision, caught by token verification like any other
+        hs.append(min(int(h), _MASK31 - 1))
+    return np.asarray(hs, np.int32)
+
+
+def chain_hashes(tokens: np.ndarray, page_size: int) -> np.ndarray:
+    """Chained per-page hashes of a token sequence (int32, 31-bit).
+
+    Vectorized form of :func:`chain_hashes_ref`: a Horner pass over token
+    positions (``page_size`` steps, each vectorized across all pages)
+    computes every page's polynomial block value, then a loop over pages
+    chains them (h_i = h_{i-1}·M^s + b_i mod 2^31). Bit-identical to the
+    scalar loop: every op is +/× followed by the 31-bit mask, and int64
+    wraparound is harmless because x mod 2^64 determines x mod 2^31.
+    """
+    tokens = np.asarray(tokens, np.int64)
+    n_pages = len(tokens) // page_size
+    if n_pages == 0:
+        return np.empty(0, np.int32)
+    blk = tokens[: n_pages * page_size].reshape(n_pages, page_size)
+    b = np.zeros(n_pages, np.int64)
+    for j in range(page_size):                 # Horner, vectorized over pages
+        b = (b * _MULT + blk[:, j] + _ADD) & _MASK31
+    mult_page = pow(_MULT, page_size, 1 << 31)
+    hs = np.empty(n_pages, np.int64)
+    h = np.int64(_SEED)
+    for i in range(n_pages):                   # O(pages) chain, not O(tokens)
+        h = (h * mult_page + b[i]) & _MASK31
+        hs[i] = h
+    # clamp below the int32 sentinel (see chain_hashes_ref); the chain state
+    # itself stays unclamped in both forms
+    return np.minimum(hs, _MASK31 - 1).astype(np.int32)
+
+
+@dataclass
+class PrefixPageStore:
+    page_size: int
+    # the reference's default probe, the mutable tiered store, is not
+    # ported yet and raises; serve with mutable=False
+    index_config: IndexConfig = field(default_factory=lambda: IndexConfig(
+        kind="tiered", plan="device", mutable=True))
+    device: Any = None                               # None: the CUDA card
+    hashes: list = field(default_factory=list)       # int32 chained hash per page
+    tokens: list = field(default_factory=list)       # np [page tokens] per page
+    payloads: list = field(default_factory=list)     # per-page payload (KV slices)
+    _index: Any = None
+    _dirty: bool = True
+    _known: set = field(default_factory=set)         # hashes, kept incrementally
+    revision: int = 0                                # bumps when pages land
+    stats: dict = field(default_factory=lambda: {
+        "lookups": 0, "hits": 0, "rebuilds": 0, "verify_rejects": 0})
+
+    def __post_init__(self):
+        check_ported(self.index_config)
+        self.device = resolve_device(self.device)
+
+    # ---------------------------------------------------------------- write
+    def insert(self, prompt_tokens: np.ndarray, page_payloads: list):
+        """Store pages of a finished prefill. page_payloads[i] is the KV
+        payload for page i (len == full pages in the prompt)."""
+        hs = chain_hashes(prompt_tokens, self.page_size)
+        added = False
+        for i, h in enumerate(hs[: len(page_payloads)]):
+            h = int(h)
+            if h in self._known:
+                continue
+            self.hashes.append(h)
+            self.tokens.append(np.asarray(
+                prompt_tokens[: (i + 1) * self.page_size], np.int32))
+            self.payloads.append(page_payloads[i])
+            self._known.add(h)
+            added = True
+        if added:
+            self.revision += 1      # batched probes can tell their snapshot aged
+            self._dirty = True      # wholesale posture: rebuild on next probe
+
+    def rebuild_index(self):
+        """Batch rebuild: the read-optimized structure is regenerated over
+        every stored hash, with the slot as its value."""
+        if not self.hashes:
+            self._index = None
+        else:
+            self._index = build_index(
+                np.asarray(self.hashes, np.int32),
+                values=np.arange(len(self.hashes), dtype=np.int32),
+                config=self.index_config, device=self.device)
+        self._dirty = False
+        self.stats["rebuilds"] += 1
+
+    # ---------------------------------------------------------------- read
+    def _verify(self, prompt_tokens: np.ndarray, hs: np.ndarray,
+                found: np.ndarray, slot: np.ndarray):
+        """Turn an index probe over a prompt's chained hashes into the
+        longest *verified* payload chain (hash collisions truncate)."""
+        out = []
+        for i in range(len(hs)):
+            if not found[i]:
+                break
+            s = int(slot[i])
+            want = np.asarray(prompt_tokens[: (i + 1) * self.page_size], np.int32)
+            if (self.tokens[s].shape != want.shape) or not np.array_equal(
+                    self.tokens[s], want):
+                self.stats["verify_rejects"] += 1
+                break                                  # hash collision
+            out.append(self.payloads[s])
+        if out:
+            self.stats["hits"] += 1
+        return len(out), out
+
+    def _probe(self, hs: np.ndarray):
+        """One index lookup over the hashes -> (found, slot) on the host."""
+        res = self._index.lookup(torch.from_numpy(hs).to(self.device))
+        return res.found.cpu().numpy(), res.values.cpu().numpy()
+
+    def lookup(self, prompt_tokens: np.ndarray):
+        """Longest reusable prefix. Returns (n_pages_hit, payloads[list])."""
+        self.stats["lookups"] += 1
+        if self._dirty:
+            self.rebuild_index()
+        if self._index is None:
+            return 0, []
+        hs = chain_hashes(prompt_tokens, self.page_size)
+        if hs.size == 0:
+            return 0, []
+        return self._verify(prompt_tokens, hs, *self._probe(hs))
+
+    def lookup_batch(self, prompts: list, tenants: Optional[list] = None):
+        """Longest reusable prefix for MANY prompts with ONE index probe
+        over their concatenated hash chains (what one queue flush
+        dispatches in the reference); each prompt verifies its own slice.
+        Returns ``[(n_pages_hit, payloads), ...]`` in prompt order.
+
+        Probes in one batch see the same store snapshot: a prompt cannot
+        reuse pages another prompt of the *same* batch is about to
+        insert."""
+        if tenants is not None:
+            raise not_ported("per-tenant probes", "item 9 (queue and "
+                             "admission)")
+        self.stats["lookups"] += len(prompts)
+        if self._dirty:
+            self.rebuild_index()
+        if self._index is None:
+            return [(0, [])] * len(prompts)
+        hs_list = [chain_hashes(p, self.page_size) for p in prompts]
+        found, slot = self._probe(np.concatenate(hs_list))
+        out, at = [], 0
+        for prompt, hs in zip(prompts, hs_list):
+            n = hs.size
+            out.append(self._verify(prompt, hs, found[at:at + n],
+                                    slot[at:at + n]) if n else (0, []))
+            at += n
+        return out
+
+    # ---------------------------------------------------------------- durability
+    def save(self, ckpt_dir: str) -> str:
+        raise not_ported("PrefixPageStore.save", "item 8 (durability)")
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, index_config=None) -> "PrefixPageStore":
+        raise not_ported("PrefixPageStore.restore", "item 8 (durability)")
+
+
+# --------------------------------------------------------------- KV slicing
+def slice_cache_pages(cfg, cache: dict, n_tokens: int, page_size: int):
+    """Split a prefill cache's K/V into per-page payloads
+    ``{"k": [L, B, page_size, Hkv, hd], "v": ...}``, cloned so that later
+    writes into the cache leave them alone."""
+    payloads = []
+    for i in range(n_tokens // page_size):
+        lo, hi = i * page_size, (i + 1) * page_size
+        payloads.append({"k": cache["k"][:, :, lo:hi].clone(),
+                         "v": cache["v"][:, :, lo:hi].clone()})
+    return payloads
+
+
+def write_pages_into_cache(cache: dict, payloads: list, page_size: int):
+    """Install reused page payloads at the head of a fresh cache, in
+    place."""
+    for i, ent in enumerate(payloads):
+        lo = i * page_size
+        cache["k"][:, :, lo:lo + page_size] = ent["k"]
+        cache["v"][:, :, lo:lo + page_size] = ent["v"]
+    cache["lengths"].clamp_min_(len(payloads) * page_size)
+    return cache

@@ -145,3 +145,85 @@ def test_page_prefix_kernel_matches_plain(cuda, dtype, with_values, mask):
     if not with_values:
         got, want = (got,), (want,)
     assert_kernel_matches(got, want, used, sum_at=1)
+
+
+def cdf_rows(rng, B: int, V: int):
+    """(cdf, u) with rows from softmax + sort + cumsum of seeded logits,
+    flat runs, +inf tails, and u at 0, 1e-6, on a cdf entry, above
+    cdf[-1] and inside a flat run."""
+    x = rng.normal(size=(B, V)) * 3
+    p = np.exp(x - x.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    cdf = np.cumsum(-np.sort(-p, axis=-1), -1).astype(np.float32)
+    cdf[1::4, V // 4:V // 2] = cdf[1::4, V // 4:V // 4 + 1]
+    u = rng.uniform(0, 1, B).astype(np.float32)
+    u[0::6], u[1::6] = 0.0, 1e-6
+    u[2::6] = cdf[2::6, V // 3]
+    u[3::6] = cdf[3::6, -1] + 0.25
+    u[5::6] = cdf[5::6, V // 4]                  # row 5 is flat (5 % 4 == 1)
+    cdf[4::5, 3 * V // 4:] = np.inf
+    return cdf, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(1, 100), (3, 1000), (8, 2048),
+                                 (64, 152_064), (256, 1000)])
+def test_cdf_kernel_matches_plain(cuda, B, V):
+    from repro_torch.kernels import cdf_search as cs
+    cdf, u = cdf_rows(np.random.default_rng(B + V), B, V)
+    cd, ud = torch.from_numpy(cdf).to(cuda), torch.from_numpy(u).to(cuda)
+    got = cs.cdf_search(cd, ud)
+    want = cs.invert_cdf(cd, ud)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    ref = np.array([np.searchsorted(cdf[b], u[b], "left") for b in range(B)])
+    np.testing.assert_array_equal(got.cpu().numpy(), np.minimum(ref, V - 1))
+    # an unaligned view takes the scalar path
+    odd = torch.from_numpy(np.ascontiguousarray(cdf[:, 1:])).to(cuda)
+    assert torch.equal(cs.cdf_search(odd, ud), cs.invert_cdf(odd, ud))
+    assert cs.cdf_search(cd[:0], ud[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_sampled_generate_on_the_card(cuda, monkeypatch):
+    """A reduced qwen3-0.6b served on the card, sampled: one CDF kernel
+    launch per decode step, page-search launches for the store probes, and
+    every token inside its row's top-p nucleus."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import IndexConfig
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_config("qwen3-0.6b").reduced()
+    params = T.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    scfg = SamplerConfig(temperature=0.8, top_p=0.9)
+    eng = ServeEngine(cfg, params, max_len=64, page_size=8,
+                      index_config=IndexConfig(kind="tiered", mutable=False),
+                      sampler=scfg, decode_batching=False)
+    seen = []
+    real = engine_mod.sample
+
+    def record(logits, cfg_, *, generator=None):
+        seen.append(logits.clone())
+        tok = real(logits, cfg_, generator=generator)
+        seen.append(tok)
+        return tok
+
+    monkeypatch.setattr(engine_mod, "sample", record)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 7)])
+               for _ in range(2)]
+    cs.cdf_search.launches = pk.page_search_bucketed.launches = 0
+    for _ in range(2):
+        out = eng.generate(prompts, 4)
+    assert cs.cdf_search.launches == 8
+    assert pk.page_search_bucketed.launches > 0
+    assert out.shape == (2, 4) and out.device.type == cuda.type
+    assert eng.stats.reused_tokens > 0
+    for logits, tok in zip(seen[::2], seen[1::2]):
+        p = torch.softmax(logits.double() / 0.8, -1)
+        pt = p.gather(1, tok[:, None].long())
+        above = torch.where(p > pt, p, 0.0).sum(-1)
+        assert bool((above < 0.9 + 1e-4).all())

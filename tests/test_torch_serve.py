@@ -1,0 +1,338 @@
+"""The port's serving stack against the reference: the CDF inversion
+(``kernels/cdf_search.py``, ``ops.topp_search``), the sampler, the prefix
+page store, the engine as a whole, and the launcher.
+
+On the CPU the port's inversion is its plain version; it must be
+bit-identical to the reference's Pallas kernel (interpret mode), its jnp
+oracle ``invert_cdf`` and the numpy oracle ``cdf_search_ref``. The engine
+runs the reference's weights (``from_reference_params``) at
+``qwen3-0.6b``'s reduced width through the immutable tiered prefix store:
+greedy tokens, prefix-reuse counts and store stats must be identical."""
+import contextlib
+import io
+import sys
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as ref_get_config
+from repro.core import IndexConfig as RefIndexConfig
+from repro.kernels import cdf_search as ref_cdf
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_oracles
+from repro.models import transformer as ref_T
+from repro.serve import SamplerConfig as RefSamplerConfig
+from repro.serve import ServeEngine as RefServeEngine
+from repro.serve import kv_cache as ref_kv
+from repro.serve import sampler as ref_sampler
+
+from repro_torch.configs import get_config
+from repro_torch.core import IndexConfig
+from repro_torch.kernels import cdf_search as pt_cdf
+from repro_torch.kernels import ops as pt_ops
+from repro_torch.launch import serve as pt_launch
+from repro_torch.models import transformer as pt_T
+from repro_torch.serve import EngineStats, SamplerConfig, ServeEngine
+from repro_torch.serve import kv_cache as pt_kv
+from repro_torch.serve import sampler as pt_sampler
+
+torch.set_num_threads(1)
+
+WHOLESALE = dict(kind="tiered", plan="device", mutable=False)
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def sorted_cdfs(rng, B: int, V: int) -> np.ndarray:
+    p = rng.dirichlet(np.ones(V), size=B).astype(np.float32)
+    return np.cumsum(np.sort(p, axis=-1)[:, ::-1], axis=-1)
+
+
+def all_inversions_agree(cdf: np.ndarray, u: np.ndarray,
+                         searchable=slice(None)) -> np.ndarray:
+    """The port's three entry points against the reference's Pallas
+    kernel (interpret mode) and jnp oracle, bit for bit, and on the
+    ``searchable`` rows (nondecreasing, no NaN) against the numpy binary
+    search; returns the indices."""
+    want = np.asarray(ref_cdf.invert_cdf(jnp.asarray(cdf), jnp.asarray(u)))
+    np.testing.assert_array_equal(
+        np.asarray(ref_ops.topp_search(cdf, u, tile_b=4, chunk=128)), want)
+    np.testing.assert_array_equal(
+        ref_oracles.cdf_search_ref(cdf[searchable], u[searchable]),
+        want[searchable])
+    for fn in (pt_cdf.invert_cdf, pt_cdf.cdf_search, pt_ops.topp_search):
+        got = fn(t(cdf), t(u))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    return want
+
+
+# ------------------------------------------------------------- the kernel
+@pytest.mark.parametrize("B,V", [(4, 100), (8, 512), (3, 1000), (16, 2048)])
+def test_cdf_inversion_matches_pallas_kernel(B, V):
+    rng = np.random.default_rng(B * V)
+    cdf = sorted_cdfs(rng, B, V)
+    u = rng.uniform(0, 1, B).astype(np.float32)
+    all_inversions_agree(cdf, u)
+
+
+def test_cdf_inversion_edges():
+    """u at 0, 1e-6, on a cdf entry, above cdf[-1] (V - 1), inside a flat
+    run; rows padded with +inf; a NaN in u or cdf compares false; a row
+    that is not monotone counts, as the reference does."""
+    V = 16
+    base = np.linspace(0.05, 1.0, V).astype(np.float32)
+    flat = base.copy()
+    flat[4:10] = flat[4]
+    padded = base.copy()
+    padded[12:] = np.inf
+    rough = base[::-1].copy()                         # not monotone
+    nan_row = base.copy()
+    nan_row[3] = np.nan
+    cdf = np.stack([base, base, base, base, flat, flat, padded, padded,
+                    rough, nan_row, base])
+    u = np.array([0.0, 1e-6, base[5], 1.5, flat[4], flat[4] + 1e-3,
+                  base[11], 2.0, 0.5, 0.9, np.nan], np.float32)
+    got = all_inversions_agree(cdf, u, searchable=slice(0, 8))
+    assert (got[8], got[9]) == (8, 13)          # counts, not a binary search
+    assert got[0] == 0 and got[3] == V - 1 and got[7] == 12    # +inf tail
+    assert got[10] == 0
+    empty = pt_cdf.cdf_search(torch.zeros((0, V)), torch.zeros(0))
+    assert empty.shape == (0,) and empty.dtype == torch.int32
+
+
+def test_cdf_search_rejects_bad_operands():
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt_cdf.cdf_search(torch.zeros((1, 4), device="meta"),
+                          torch.zeros(1, device="meta"))
+
+
+# ------------------------------------------------------------- the sampler
+@pytest.mark.parametrize("temperature,top_p,top_k,V",
+                         [(1.0, 0.8, 0, 100), (0.7, 0.9, 0, 512),
+                          (0.8, 0.95, 50, 512)])
+def test_sampler_matches_reference(temperature, top_p, top_k, V):
+    """The CDF build within 1e-6 and the same order where probabilities
+    are apart; the port's inversion on the reference's (cdf, u) gives the
+    reference's tokens, bit for bit."""
+    rng = np.random.default_rng(V + top_k)
+    logits = (rng.normal(size=(16, V)) * 3).astype(np.float32)
+    rcfg = RefSamplerConfig(temperature=temperature, top_p=top_p, top_k=top_k)
+    cfg = SamplerConfig(temperature=temperature, top_p=top_p, top_k=top_k)
+    key = jax.random.PRNGKey(V)
+    r_order, r_cdf, r_u = (np.asarray(a) for a in ref_sampler._nucleus_cdf(
+        jnp.asarray(logits), key, rcfg))
+    order, cdf = pt_sampler.nucleus_cdf(t(logits), cfg)
+    np.testing.assert_allclose(cdf.numpy(), r_cdf, rtol=0, atol=1e-6)
+    p = np.take_along_axis(np.asarray(jax.nn.softmax(
+        jnp.asarray(logits) / temperature, -1)), r_order, -1)
+    apart = np.ones_like(p, bool)
+    apart[:, 1:] &= np.abs(np.diff(p, axis=-1)) > 1e-6
+    apart[:, :-1] &= np.abs(np.diff(p, axis=-1)) > 1e-6
+    if top_k:
+        apart[:, top_k:] = False                 # masked: all probability 0
+    np.testing.assert_array_equal(order.numpy()[apart], r_order[apart])
+    idx = pt_ops.topp_search(t(r_cdf), t(r_u))
+    toks = np.take_along_axis(r_order, idx.numpy()[:, None].astype(np.int64),
+                              -1)[:, 0]
+    np.testing.assert_array_equal(
+        toks, np.asarray(ref_sampler.sample(jnp.asarray(logits), key, rcfg)))
+
+
+def test_sample_greedy_and_nucleus_membership():
+    rng = np.random.default_rng(2)
+    logits = (rng.normal(size=(16, 100)) * 3).astype(np.float32)
+    g = pt_sampler.sample(t(logits), SamplerConfig(temperature=0.0))
+    np.testing.assert_array_equal(g.numpy(), logits.argmax(-1))
+    assert g.dtype == torch.int32
+    gen = torch.Generator().manual_seed(1)
+    cfg = SamplerConfig(temperature=1.0, top_p=0.8)
+    toks = pt_sampler.sample(t(logits), cfg, generator=gen)
+    assert toks.shape == (16,) and toks.dtype == torch.int32
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), -1))
+    for b in range(16):
+        order = np.argsort(-probs[b])
+        cdf = np.cumsum(probs[b][order])
+        nucleus = set(order[: int(np.searchsorted(cdf, 0.8, "left") + 1)])
+        assert int(toks[b]) in nucleus
+    _, cdf = pt_sampler.nucleus_cdf(t(logits), cfg)
+    u = pt_sampler.draw_u(cdf, cfg, torch.Generator().manual_seed(3))
+    assert bool(((u >= 1e-6 * 0.8 * 0.99) & (u < 0.8)).all())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pt_sampler.sample_queued(t(logits), cfg, None)
+
+
+# ------------------------------------------------------------- prefix store
+def test_chain_hashes_match_reference():
+    rng = np.random.default_rng(0)
+    for page in (1, 4, 8, 16):
+        for n in (0, 1, 7, 33, 128):
+            toks = rng.integers(-2**40, 2**40, n)
+            want = ref_kv.chain_hashes(toks, page)
+            np.testing.assert_array_equal(pt_kv.chain_hashes(toks, page), want)
+            np.testing.assert_array_equal(pt_kv.chain_hashes_ref(toks, page),
+                                          want)
+
+
+def test_prefix_store_forced_collision_truncates_at_verify():
+    """Tokens differing by 2^31 in page 0 collide in the 31-bit hash:
+    verification rejects the chain at page 0, on the port's tiered
+    store as on the reference's."""
+    stored = np.array([5, 6, 7], np.int64)
+    probe = np.array([5 + 2**31, 6, 7], np.int64)
+    np.testing.assert_array_equal(pt_kv.chain_hashes(stored, 1),
+                                  pt_kv.chain_hashes(probe, 1))
+    stores = [pt_kv.PrefixPageStore(1, IndexConfig(**WHOLESALE),
+                                    device="cpu"),
+              ref_kv.PrefixPageStore(1, RefIndexConfig(**WHOLESALE))]
+    for store in stores:
+        store.insert(stored, [{"pay": i} for i in range(3)])
+        assert store.lookup(probe) == (0, [])
+        n, p = store.lookup(stored)
+        assert n == 3 and [x["pay"] for x in p] == [0, 1, 2]
+        batch = store.lookup_batch([probe, stored, stored[:0]])
+        assert [b[0] for b in batch] == [0, 3, 0]
+    assert stores[0].stats == stores[1].stats
+
+
+def test_prefix_store_unported_surface_raises():
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pt_kv.PrefixPageStore(8, device="cpu")        # the mutable default
+    store = pt_kv.PrefixPageStore(8, IndexConfig(**WHOLESALE), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        store.save("unused")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pt_kv.PrefixPageStore.restore("unused")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        store.lookup_batch([np.arange(8)], tenants=["a"])
+
+
+# ------------------------------------------------------------- the engine
+@pytest.fixture(scope="module")
+def engines():
+    """The reference engine and the port's, on the same weights."""
+    rcfg = ref_get_config("qwen3-0.6b").reduced()
+    cfg = get_config("qwen3-0.6b").reduced()
+    rp = ref_T.init_params(rcfg, jax.random.PRNGKey(0))
+    pp = pt_T.from_reference_params(cfg, rp, device="cpu")
+    ref = RefServeEngine(rcfg, rp, max_len=64, page_size=8,
+                         index_config=RefIndexConfig(**WHOLESALE),
+                         decode_batching=False)
+    port = ServeEngine(cfg, pp, max_len=64, page_size=8,
+                       index_config=IndexConfig(**WHOLESALE),
+                       decode_batching=False)
+    return cfg, pp, ref, port
+
+
+def test_engine_greedy_matches_reference(engines):
+    """Two prompts sharing a 24-token prefix, 4 steps, two rounds:
+    identical tokens, reuse counts and store stats."""
+    cfg, _, ref, port = engines
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 24)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 9)])
+               for _ in range(2)]
+    for _ in range(2):
+        want = np.asarray(ref.generate(prompts, 4))
+        got = port.generate(prompts, 4)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    for f in ("prefill_tokens", "reused_tokens", "decode_tokens"):
+        assert getattr(port.stats, f) == getattr(ref.stats, f), f
+    assert port.stats.reused_tokens > 0
+    assert port.store.stats == ref.store.stats
+
+
+def test_engine_warm_prefill_matches_cold(engines):
+    cfg, pp, _, _ = engines
+    eng = ServeEngine(cfg, pp, max_len=64, page_size=8,
+                      index_config=IndexConfig(**WHOLESALE))
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, cfg.vocab, 24)
+    p1, p2 = (np.concatenate([shared, rng.integers(0, cfg.vocab, 9)])
+              for _ in range(2))
+    eng.prefill_one(p1)
+    warm, _ = eng.prefill_one(p2)
+    assert eng.stats.reused_tokens == 24
+    cold, _ = ServeEngine(cfg, pp, max_len=64, page_size=8,
+                          index_config=IndexConfig(**WHOLESALE)).prefill_one(p2)
+    np.testing.assert_allclose(warm.numpy(), cold.numpy(), atol=2e-3,
+                               rtol=2e-3)
+
+
+def test_engine_sampled_decode_stays_in_nucleus(engines):
+    cfg, pp, _, _ = engines
+    eng = ServeEngine(cfg, pp, max_len=64, page_size=8,
+                      index_config=IndexConfig(**WHOLESALE),
+                      sampler=SamplerConfig(temperature=0.8, top_p=0.9),
+                      decode_batching=False)
+    prompts = [np.arange(12) % cfg.vocab, np.arange(5, 17) % cfg.vocab]
+    a = eng.generate(prompts, 3, generator=torch.Generator().manual_seed(4))
+    b = eng.generate(prompts, 3, generator=torch.Generator().manual_seed(4))
+    assert a.shape == (2, 3) and torch.equal(a, b)   # seeded: reproducible
+    assert bool(((a >= 0) & (a < cfg.vocab)).all())
+
+
+def test_engine_unported_surface_raises(engines):
+    cfg, pp, _, _ = engines
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ServeEngine(cfg, pp)                          # the mutable default
+    queued = ServeEngine(cfg, pp, index_config=IndexConfig(**WHOLESALE),
+                         sampler=SamplerConfig(temperature=0.8))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        queued.generate([np.arange(8)], 2)
+    with pytest.raises(ValueError, match="one id per prompt"):
+        queued.generate([np.arange(8)], 2, tenants=["a", "b"])
+    for view in ("probe_batches", "probe_occupancy", "decode_flushes",
+                 "decode_occupancy", "tenants"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            getattr(EngineStats(), view)
+
+
+# ------------------------------------------------------------- the launcher
+def run_launcher(monkeypatch, *argv) -> str:
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pt_launch.main()
+    return out.getvalue()
+
+
+def test_launcher_prints_the_reference_counts(monkeypatch):
+    """The reference launcher's flags and prompts print
+    ``prefill computed/reused: 288/480`` and these store stats for two
+    rounds; they depend on the prompt structure, not on the width."""
+    out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                       "--wholesale", "--no-decode-queue", "--rounds", "2",
+                       "--steps", "2")
+    assert "tokens out: (8, 2)" in out
+    assert "prefill computed/reused: 288/480" in out
+    assert ("prefix store: {'lookups': 23, 'hits': 15, 'rebuilds': 9, "
+            "'verify_rejects': 0}") in out
+
+
+@pytest.mark.parametrize("argv,item", [
+    ((), "item 5"), (("--wholesale",), "item 9"),
+    (("--wholesale", "--no-decode-queue", "--index", "css"), "item 12"),
+    (("--wholesale", "--no-decode-queue", "--tenants", "2"), "item 9"),
+    (("--wholesale", "--no-decode-queue", "--ckpt-dir", "x"), "item 8"),
+    (("--wholesale", "--no-decode-queue", "--fsync", "always"), "item 8"),
+    (("--wholesale", "--no-decode-queue", "--queue-capacity", "16"),
+     "item 9"),
+    (("--wholesale", "--no-decode-queue", "--queue-deadline-us", "500"),
+     "item 9"),
+    (("--wholesale", "--no-decode-queue", "--no-queue-adapt"), "item 9"),
+    (("--wholesale", "--no-decode-queue", "--queue-max-share", "0.5"),
+     "item 9"),
+    (("--wholesale", "--no-decode-queue", "--no-adaptive-deadline"),
+     "item 9"),
+    (("--wholesale", "--no-decode-queue", "--trace-out", "x"), "item 10"),
+    (("--wholesale", "--no-decode-queue", "--tune"), "item 11")])
+def test_launcher_unported_flags_exit(monkeypatch, argv, item):
+    with pytest.raises(SystemExit, match=item):
+        run_launcher(monkeypatch, "--reduced", "--device", "cpu", *argv)
