@@ -6,13 +6,16 @@
 Phases, in order; any failure exits non-zero with its traceback:
 
   1. print the card's name and power limit (nvidia-smi), build the CUDA
-     kernels from src/repro_torch/csrc (one nvcc per source, in parallel);
+     kernels from src/repro_torch/csrc (one nvcc per source, in parallel)
+     and print each kernel's registers, shared memory and spills as
+     ptxas reported them;
   2. the page-search kernel against its plain PyTorch version, bit for bit:
      int32 and float32 keys, lw_pad 128 and 2048, stride leaf_width and
      lw_pad, steps_used < grid, skewed buckets, Q = 0;
-  3. the k-ary kernel against its plain version, bit for bit: depth 1 and
-     2, int32 keys near INT32_MIN and INT32_MAX - 1, float32 keys with
-     +-0, negatives, large magnitudes and subnormals;
+  3. the k-ary kernel against its plain version, bit for bit: depth 1, 2
+     and 3 (the third level searched in device memory), int32 keys near
+     INT32_MIN and INT32_MAX - 1 and with duplicate runs, float32 keys
+     with +-0, negatives, large magnitudes and subnormals;
   4. the main path at full size: build_index over 2^24 unique int32 keys
      with int32 values on the card, one lookup of 2^20 queries (half hits,
      half uniform) with both launch counters set to 0 before it and read
@@ -62,8 +65,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      times of prefill (cold, warm), the decode step and its parts, the
      kernel at B in {8, 64, 256} beside torch.searchsorted, their bounds,
      and one profiled decode step;
- 10. one line {"kernels": [...]} with each kernel's launches, times and
-     bound; the last line {"ok": true, "device": {...}}.
+ 10. one line {"kernels": [...]} with each kernel's launches, times
+     (CUDA events, and the profiler's device time beside the library
+     call's) and bound; the last line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -73,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -116,9 +121,10 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
 
 def device_profile(fn, top: int = 8) -> dict:
     """One call of `fn` under torch.profiler: the device time of the
-    heaviest aten ops (inclusive: an op's kernels and its children's) and
-    the summed time of the kernels themselves, which against the call's
-    CUDA-event time gives the idle share."""
+    heaviest aten ops (inclusive: an op's kernels and its children's), of
+    the heaviest kernels with their launch counts, and the summed time of
+    the kernels themselves, which against the call's CUDA-event time gives
+    the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -131,28 +137,38 @@ def device_profile(fn, top: int = 8) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=lambda e: e.device_time_total, reverse=True)
+    heavy = sorted(kernels, key=lambda e: e.self_device_time_total,
+                   reverse=True)[:top]
     return {"kernels_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
-            "ops_ms": {e.key: e.device_time_total / 1e3 for e in ops[:top]}}
+            "ops_ms": {e.key: e.device_time_total / 1e3 for e in ops[:top]},
+            "kernels_top_ms_count": {e.key[:60]: [
+                e.self_device_time_total / 1e3, e.count] for e in heavy}}
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float | None:
     """Device time of one call of `fn`: the summed time of the kernels it
     launches, over `reps` calls under torch.profiler, per call. Unlike a
     per-call event time it leaves out the gaps in which the device waits
     for the host, which set the event time of a call of a few
-    microseconds of device work."""
+    microseconds of device work. A profile that recorded no device event
+    is taken again, up to `tries` times; then the time is None (not
+    measured), never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def bound(bytes_moved: float, compares: float) -> tuple[float, str]:
@@ -257,9 +273,21 @@ def kary_cases(rng):
         .astype(np.float32))
     ints = np.unique(rng.integers(I32.min + 1, I32.max - 1, 8192)
                      ).astype(np.int32)
-    return [("int32 depth 1", ints[:100]), ("int32 depth 2", ints),
-            ("int32 extremes", np.concatenate([lo, hi]).astype(np.int32)),
-            ("float32 depth 1", floats[::80]), ("float32 depth 2", floats)]
+    # depth 3: level 2 (16,384 rows) is searched in device memory. Keys
+    # and queries come from a generator of their own, so the later phases'
+    # data stay as they were before these cases.
+    own = np.random.default_rng(3)
+    deep = np.sort(own.integers(I32.min + 1, I32.max - 1, 20000)
+                   ).astype(np.int32)
+    deep[1::3] = deep[::3][:deep[1::3].size]      # duplicate runs
+    return [("int32 depth 1", ints[:100], rng), ("int32 depth 2", ints, rng),
+            ("int32 extremes", np.concatenate([lo, hi]).astype(np.int32),
+             rng),
+            ("float32 depth 1", floats[::80], rng),
+            ("float32 depth 2", floats, rng),
+            ("int32 depth 3", deep, own),
+            ("float32 depth 3", deep.astype(np.float32) * np.float32(1e-3),
+             own)]
 
 
 def phase_kary(dev, rng) -> int:
@@ -267,18 +295,19 @@ def phase_kary(dev, rng) -> int:
     from repro_torch.kernels import kary_search as kk
     from repro_torch.kernels import ops
     worst = 0
-    for what, keys in kary_cases(rng):
+    for what, keys, qrng in kary_cases(rng):
         idx = kary_core.build(keys, node_width=127, device=dev)
         flat, offsets = kk.flatten_levels(ops.kary_levels(idx, 128))
         if keys.dtype == np.int32:
             q = np.concatenate([
-                rng.integers(I32.min, I32.max, 50000, dtype=np.int64),
+                qrng.integers(I32.min, I32.max, 50000, dtype=np.int64),
                 keys, np.maximum(keys.astype(np.int64) - 1, I32.min),
-                [I32.min, I32.max - 1, I32.max - 2]])
+                [I32.min, I32.max - 1, I32.max - 2, I32.max]])
         else:
-            q = np.concatenate([rng.normal(size=50000) * 1e20, keys,
+            q = np.concatenate([qrng.normal(size=50000) * 1e20, keys,
                                 np.nextafter(keys, np.float32(-np.inf)),
-                                [0.0, -0.0, -np.inf, 1e-45, -1e-45]])
+                                [0.0, -0.0, -np.inf, np.inf, 1e-45,
+                                 -1e-45]])
         q = q.astype(keys.dtype)
         qd = torch.from_numpy(q).to(dev)
         got = kk.kary_search_levels(qd, flat, offsets, fanout=128, wpad=128)
@@ -381,6 +410,10 @@ def main_path(dev, rng):
                             reps=5),
         "bound_ms": k_bound[0], "bound_by": k_bound[1],
         "library_ms": cuda_ms(lambda: torch.searchsorted(impl.seps, q_dev)),
+        "device_ms": device_ms(lambda: kk.kary_search_levels(*k_args,
+                                                              **k_kw)),
+        "library_device_ms": device_ms(
+            lambda: torch.searchsorted(impl.seps, q_dev)),
     }
 
     p_args = (qb, step_pages, impl.pages)
@@ -405,6 +438,10 @@ def main_path(dev, rng):
         "bound_ms": p_bound[0], "bound_by": p_bound[1],
         "library_ms": cuda_ms(lambda: torch.searchsorted(idx.keys_sorted,
                                                          q_dev)),
+        "device_ms": device_ms(lambda: pk.page_search_bucketed(
+            *p_args, stride=impl.leaf_width, steps_used=used_t)),
+        "library_device_ms": device_ms(
+            lambda: torch.searchsorted(idx.keys_sorted, q_dev)),
     }
     check(kary_row["max_abs_err"] == 0 and page_row["max_abs_err"] == 0,
           "a kernel disagrees with its plain version at the main path's "
@@ -831,6 +868,9 @@ def kernel_row(name, mode, launches, args, kw, plain, n_items, real,
         "plain_ms": cuda_ms(lambda: plain(*args, **pkw), reps=3, warmup=1),
         "bound_ms": b[0], "bound_by": b[1],
         "library_ms": None if library is None else cuda_ms(library),
+        "device_ms": device_ms(lambda: kernel(*args, **kw)),
+        "library_device_ms": None if library is None
+        else device_ms(library),
         "steps_used": used, "grid": int(step_pages.shape[0]),
         "pages_touched": touched, "items": n_items,
         "bytes_bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
@@ -1399,6 +1439,23 @@ def serve_path(dev, seed: int):
     return row, dict(shape, **times)
 
 
+def kernel_resources() -> dict:
+    """Registers, static shared memory, stack and spills of every kernel,
+    as ptxas reported them at the build (-Xptxas -v), by source."""
+    from repro_torch.kernels import _build
+    out = {}
+    for name in _build.sources():
+        rows = _build.resource_usage(name)
+        if rows and shutil.which("c++filt"):
+            names = subprocess.run(
+                ["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                capture_output=True, text=True, check=True).stdout.split("\n")
+            for r, demangled in zip(rows, names):
+                r["kernel"] = demangled.replace("(anonymous namespace)::", "")
+        out[name] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1419,6 +1476,7 @@ def main() -> int:
     _build.build()
     print(f"phase 1: built {_build.sources()} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("phase 1: ptxas " + json.dumps(kernel_resources()), flush=True)
 
     print(f"phase 2: page kernel == plain, max_abs_err "
           f"{phase_page(dev, rng)}", flush=True)

@@ -3,11 +3,15 @@
 Each source ``src/repro_torch/csrc/<name>.cu`` compiles on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/kernels/lib<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root (git-ignored), keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. Every source has a plain C interface: no
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source rebuilds and an unchanged one loads at once. The
+compiler's output (with ``-Xptxas -v``, each kernel's registers, shared
+memory and spills) is kept beside the library as ``lib<name>-<hash>.log``;
+``resource_usage`` reads it. Every source has a plain C interface: no
 PyTorch headers, which keeps a build to seconds. ``build()`` starts one
 ``nvcc`` per source, all together, and waits for them.
 
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +33,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -49,7 +54,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) count too: an edited header rebuilds
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -75,6 +82,7 @@ def build(names: list[str] | None = None) -> None:
         if proc.returncode:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)          # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -88,6 +96,31 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def resource_usage(name: str) -> list[dict]:
+    """Each kernel of the built csrc/<name>.cu as ptxas reported it: the
+    (mangled) kernel name, registers a thread, static shared memory, stack
+    frame and spill bytes. Empty if the library was built elsewhere."""
+    log = library_path(name).with_suffix(".log")
+    rows, row = [], None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if m := _ENTRY.search(line):
+            row = {"kernel": m.group(1)}
+            rows.append(row)
+        elif row is not None and (m := _SPILL.search(line)):
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif row is not None and (m := _USED.search(line)):
+            row.update(registers=int(m.group(1)),
+                       smem=int(m.group(2) or 0))
+    return rows
 
 
 def check(err: int, what: str) -> None:

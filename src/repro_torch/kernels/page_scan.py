@@ -13,12 +13,18 @@ hand-written CUDA kernels of ``csrc/page_scan.cu``:
   ``_kernel_prefix_sum``, ``pallas_call`` at line 230): per lane the count
   of keys below one edge and, with values, their sum.
 
-What bounds them on the H100 is the bytes of the lanes and of the touched
-pages at the algorithm's least work; the kernels do the linear count of the
-TPU kernels, and which of the two limits them was not measured. Design and
-arithmetic notes (one block a step, one thread a lane, rows staged through
-shared memory in 8 KB chunks, uint32 accumulation for the int32 wrap, an
-early exit past ``steps_used``) are in the source.
+Every page is nondecreasing with a sentinel tail (DESIGN.md §2.3). The
+scan kernel does not rely on that: it still counts linearly, as the TPU
+kernel did (every lane against all ``lw_pad`` slots), one block a step.
+The prefix kernel does: on a sorted page
+``#{k < e}`` is the lower bound of e, which it finds by a branch-free
+binary search in shared memory, bit-identical to the count. Its persistent
+blocks walk contiguous runs of the page-sorted steps and restage a page
+only when it changes; in sum mode they scan the page's (masked) values
+once and read each lane's sum at its lower bound. Both are bound on the
+H100 by the bytes of the lanes and the touched pages. Design and
+arithmetic notes (uint32 accumulation for the int32 wrap, double for float
+sums, the early exit past ``steps_used``) are in the source.
 
 ``page_scan_plain`` and ``page_prefix_plain`` are the same functions in
 plain PyTorch. The wrappers use them for CPU tensors only; for a CUDA
@@ -248,7 +254,13 @@ def page_prefix_bucketed(e_b: torch.Tensor, page_ids: torch.Tensor,
     ``page_ids[g]`` to ``lt = #{k < e}`` (int32 [G, TQ]) and, with
     ``vpages``, ``psum`` = the sum of the values with ``k < e`` (less those
     equal to ``mask_value``). Returns ``lt``, or ``(lt, psum)`` with
-    values. ``steps_used`` as for :func:`page_scan_bucketed`."""
+    values. ``steps_used`` as for :func:`page_scan_bucketed`.
+
+    Every page must be nondecreasing (sentinel-padded, DESIGN.md §2.3):
+    the CUDA kernel takes ``lt`` as a binary search's lower bound, which
+    equals the count only on sorted pages. Int32 sums wrap bit-exactly;
+    float sums are taken in double in the kernel's scan order and agree
+    with the plain version to rounding (rtol 1e-4)."""
     if vpages is None:
         mask_value = None                # lt stays physical
     if e_b.device.type == "cpu":

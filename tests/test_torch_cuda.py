@@ -54,25 +54,48 @@ def test_page_kernel_matches_plain(cuda, dtype, leaf_width):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_kary_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(4)
+@pytest.mark.parametrize("n_keys,depth", [(100, 1), (8192, 2), (20000, 3)])
+def test_kary_kernel_matches_plain(cuda, dtype, n_keys, depth):
+    """Depth 1 and 2 are staged in shared memory; at depth 3 the third
+    level (16,384 rows) is binary-searched in device memory. Keys carry
+    duplicate runs; queries include the sentinel and, for float32, signed
+    zeros, infinities and NaN."""
+    rng = np.random.default_rng(4 + n_keys)
     if dtype == np.int32:
-        keys = np.concatenate([I32.min + np.arange(4096),
-                               I32.max - 1 - np.arange(4096)])
+        half = n_keys // 2
+        keys = np.concatenate([I32.min + np.arange(half),
+                               I32.max - 1 - np.arange(n_keys - half)])
         q = rng.integers(I32.min, I32.max, 20000, dtype=np.int64)
+        edge = [I32.min, I32.min + 1, I32.max - 1, I32.max]
     else:
-        keys = rng.normal(size=8192) * 10.0 ** rng.integers(-30, 30, 8192)
+        keys = rng.normal(size=n_keys) * 10.0 ** rng.integers(-30, 30, n_keys)
+        keys[:4] = [0.0, -0.0, 0.0, -0.0]
         q = rng.normal(size=20000) * 10.0 ** rng.integers(-30, 30, 20000)
-    keys = np.unique(keys.astype(dtype))
+        edge = [0.0, -0.0, np.inf, -np.inf, np.nan]
+    keys = np.sort(keys.astype(dtype))
+    keys[1::4] = keys[::4][:keys[1::4].size]             # duplicate runs
+    keys = np.sort(keys)
     idx = kary_core.build(keys, node_width=127, device=cuda)
+    assert idx.depth == depth
     flat, offsets = kk.flatten_levels(ops.kary_levels(idx, 128))
-    qd = torch.from_numpy(np.concatenate([q, keys]).astype(dtype)).to(cuda)
+    qd = torch.from_numpy(np.concatenate([q, keys, edge]).astype(dtype)
+                          ).to(cuda)
     got = kk.kary_search_levels(qd, flat, offsets, fanout=128, wpad=128)
     want = kk.kary_search_plain(qd, flat, offsets, fanout=128, wpad=128)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert kk.kary_search_levels(qd[:0], flat, offsets, fanout=128,
                                  wpad=128).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_kary_kernel_rejects_a_level_zero_row_too_wide(cuda):
+    limit = kk.smem_limit(cuda)
+    wpad = limit // 4 + 4
+    flat = torch.full((wpad,), I32.max, dtype=torch.int32, device=cuda)
+    q = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        kk.kary_search_levels(q, flat, (0,), fanout=wpad + 1, wpad=wpad)
 
 
 def scan_lanes(cuda, dtype, leaf_width, rng):
@@ -132,9 +155,12 @@ def test_page_scan_kernel_matches_plain(cuda, dtype, leaf_width, mode, mask):
 @pytest.mark.parametrize("mask", [None, -7])
 @pytest.mark.parametrize("with_values", [False, True])
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_page_prefix_kernel_matches_plain(cuda, dtype, with_values, mask):
+@pytest.mark.parametrize("leaf_width", [100, 2000])       # lw_pad 128, 2048
+def test_page_prefix_kernel_matches_plain(cuda, dtype, with_values, mask,
+                                          leaf_width):
     rng = np.random.default_rng(11)
-    idx, e_b, _, sp, used_t, vpages = scan_lanes(cuda, dtype, 2000, rng)
+    idx, e_b, _, sp, used_t, vpages = scan_lanes(cuda, dtype, leaf_width,
+                                                  rng)
     used = int(used_t)
     vp = vpages if with_values else None
     got = ps.page_prefix_bucketed(e_b, sp, idx.pages, vp, mask_value=mask,
@@ -145,6 +171,84 @@ def test_page_prefix_kernel_matches_plain(cuda, dtype, with_values, mask):
     if not with_values:
         got, want = (got,), (want,)
     assert_kernel_matches(got, want, used, sum_at=1)
+
+
+STEP_PAGES = [0, 0, 0, 1, 2, 2, 3, 5, 5, 5, 5, 6]    # sorted, with runs
+
+
+def prefix_case(dtype, lw_pad, tq, rng):
+    """Sorted pages with duplicate runs and a sentinel tail, edges tied to
+    the runs (and, for float32, signed zeros, infinities and NaN), the
+    steps of STEP_PAGES followed by surplus steps, and int32 values near
+    +-2^31 so the sums wrap: (e_b, step_pages, steps_used, kpages,
+    vpages)."""
+    n_pages, fill = 7, lw_pad * 3 // 4
+    keys = np.sort(rng.integers(-40, 40, (n_pages, fill)), axis=1)
+    if dtype == np.int32:
+        pages = np.full((n_pages, lw_pad), I32.max, np.int32)
+        pages[:, :fill] = keys
+        special = [I32.min, I32.max - 1, I32.max]
+        vals = rng.integers(2**31 - 1000, 2**31, (n_pages, lw_pad))
+        vals = np.where(rng.random(vals.shape) < 0.5, vals, -vals)
+    else:
+        pages = np.full((n_pages, lw_pad), np.inf, np.float32)
+        pages[:, :fill] = keys * 0.5
+        zeros = pages == 0                            # -0.0 and +0.0 tie
+        pages[zeros] = np.where(rng.random(zeros.sum()) < 0.5, -0.0, 0.0)
+        special = [0.0, -0.0, np.inf, -np.inf, np.nan]
+        vals = rng.normal(size=(n_pages, lw_pad)) * 1e3
+    vals = vals.astype(dtype)
+    vals.reshape(-1)[::11] = -7                       # the mask value
+    grid = len(STEP_PAGES) + 4
+    step_pages = np.array(STEP_PAGES + [0] * 4, np.int32)
+    e_b = np.empty((grid, tq), dtype)
+    for g, page in enumerate(step_pages):
+        row = pages[page, :fill]
+        pool = np.concatenate([row, row + 1, row - 1, special]).astype(dtype)
+        e_b[g] = rng.choice(pool, tq)
+    return (torch.from_numpy(e_b), torch.from_numpy(step_pages),
+            torch.tensor([len(STEP_PAGES)], dtype=torch.int32),
+            torch.from_numpy(pages), torch.from_numpy(vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [None, -7])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("lw_pad,tq", [(128, 128), (2048, 128), (2048, 100),
+                                       (130, 16), (4100, 64)])
+def test_page_prefix_kernel_ties_runs_and_wraps(cuda, dtype, lw_pad, tq,
+                                                mask):
+    """Edges tied to duplicate runs, consecutive steps on one page,
+    steps_used below the grid and wrapping int32 sums; partial warps (TQ
+    100, 16), an unaligned row width (130) and pages wider than one staged
+    chunk (4100). Counts and int32 sums bit for bit; float sums, which
+    cancel here, against the plain version run in float64 (the kernel adds
+    in double, so it is within a float32 rounding of the exact sum)."""
+    rng = np.random.default_rng(lw_pad + tq)
+    e_b, sp, used_t, kpages, vpages = (
+        t.to(cuda) for t in prefix_case(dtype, lw_pad, tq, rng))
+    used = int(used_t)
+    for vp in (None, vpages):
+        for steps_used in (used_t, None):
+            n = used if steps_used is not None else sp.shape[0]
+            got = ps.page_prefix_bucketed(e_b, sp, kpages, vp,
+                                          mask_value=mask,
+                                          steps_used=steps_used)
+            if vp is None:
+                want = ps.page_prefix_plain(e_b, sp, kpages)
+                torch.cuda.synchronize()
+                assert torch.equal(got[:n], want[:n])
+                continue
+            exact = vp.double() if dtype == np.float32 else vp
+            want = ps.page_prefix_plain(e_b, sp, kpages, exact,
+                                        mask_value=mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0][:n], want[0][:n])
+            if dtype == np.float32:
+                torch.testing.assert_close(got[1][:n].double(), want[1][:n],
+                                           rtol=1e-6, atol=1e-6)
+            else:
+                assert torch.equal(got[1][:n], want[1][:n])
 
 
 def cdf_rows(rng, B: int, V: int):

@@ -230,3 +230,68 @@ def test_kary_wrapper_takes_plain_on_cpu_and_empty_batch():
     empty = pt_kary.kary_search_levels(torch.zeros(0, dtype=torch.int32),
                                        flat, offsets, fanout=128, wpad=128)
     assert empty.shape == (0,) and empty.dtype == torch.int32
+
+
+# ------------------------------------- the sorted-row contract of the kernels
+def lower_bound_mirror(rows: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """The CUDA kernels' branch-free lower bound (csrc/kary_search.cu,
+    csrc/page_scan.cu), step for step, over pairs (rows[i], q[i]): the
+    answer lies in [base, base + n] and each step halves n."""
+    at = np.arange(q.size)
+    base = np.zeros(q.size, np.int64)
+    n = rows.shape[1]
+    while n > 1:
+        half = n >> 1
+        base = np.where(rows[at, base + half] < q, base + half, base)
+        n -= half
+    return base + (rows[at, base] < q)
+
+
+def contract_keys(dtype, n, rng):
+    """Heavy duplicate runs; float32 keys mix -0.0 and +0.0."""
+    keys = rng.integers(-500, 500, n)
+    if dtype == np.int32:
+        return keys.astype(np.int32)
+    keys = (keys * 0.25).astype(np.float32)
+    zeros = np.flatnonzero(keys == 0)
+    keys[zeros[::2]] = -0.0
+    return keys
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n", [32768, 32769])    # NitroGen / k-ary top
+def test_kernel_rows_are_sorted_and_binary_search_equals_count(dtype, n):
+    """The k-ary and page-prefix kernels replace the TPU kernels' count
+    #{row < q} by a binary search, exact only on nondecreasing rows: every
+    row of ops.kary_levels and every page of the tiered index is sorted,
+    and on them the kernels' lower-bound loop equals the count, for ties,
+    the sentinel, signed zeros, infinities and NaN."""
+    from repro_torch.engine import tiered as pt_tiered
+    rng = np.random.default_rng(n)
+    keys = contract_keys(dtype, n, rng)
+    idx = pt_tiered.build(keys, device="cpu")
+    assert idx.top_kind == ("nitrogen" if n == 32768 else "kary")
+    tops = [pt_kary_core.build(keys, node_width=127, device="cpu")]
+    if idx.top_kind == "kary":
+        tops.append(idx.top)
+    row_sets = [idx.pages.numpy()] + [lvl.numpy() for top in tops
+                                      for lvl in pt_ops.kary_levels(top, 128)]
+    if dtype == np.int32:
+        special = np.array([I32.min, -1, 0, I32.max - 1, I32.max], dtype)
+    else:
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-30],
+                           dtype)
+    for rows in row_sets:
+        assert (rows[:, 1:] >= rows[:, :-1]).all()
+        pick = rng.integers(0, rows.shape[0], 6000)
+        own = rows[pick, rng.integers(0, rows.shape[1], 6000)]
+        if dtype == np.int32:
+            near = own.astype(np.int64) + rng.integers(-1, 2, 6000)
+            near = np.clip(near, I32.min, I32.max).astype(dtype)
+        else:
+            near = np.nextafter(own, np.where(rng.random(6000) < 0.5,
+                                              dtype(-np.inf), dtype(np.inf)))
+        q = np.concatenate([own, near, np.resize(special, 6000)])
+        r = rows[np.concatenate([pick, pick, pick])]
+        np.testing.assert_array_equal(lower_bound_mirror(r, q),
+                                      (r < q[:, None]).sum(1))
