@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero with its traceback:
      and print each kernel's registers, shared memory and spills as
      ptxas reported them;
   2. the page-search kernel against its plain PyTorch version, bit for bit:
-     int32 and float32 keys, lw_pad 128 and 2048, stride leaf_width and
-     lw_pad, steps_used < grid, skewed buckets, Q = 0;
+     int32 and float32 keys, lw_pad 128, 2048 and 5120 (pages wider than
+     one staged chunk), stride leaf_width and lw_pad, steps_used < grid,
+     skewed buckets, Q = 0; then operands built directly at TQ 1, 33 and
+     1024 (lw_pad 2048 and 5120) with step pages in page order and
+     shuffled, and float32 pages with NaN, +-inf and +-0.0 queries;
   3. the k-ary kernel against its plain version, bit for bit: depth 1, 2
      and 3 (the third level searched in device memory), int32 keys near
      INT32_MIN and INT32_MAX - 1 and with duplicate runs, float32 keys
@@ -28,10 +31,13 @@ Phases, in order; any failure exits non-zero with its traceback:
      float32 keys, a duplicate-heavy key set, plan="host";
   6. the page-scan kernel in each of count, sum and full mode, with and
      without a value mask, and the page-prefix kernel with and without
-     values, against their plain versions: int32 and float32, lw_pad 128
-     and 2048, steps_used < grid, skewed buckets, inert bound pairs, int32
-     sums that wrap, Q = 0; counts, int32 sums, min and max bit for bit,
-     float sums to rtol 1e-4;
+     values, against their plain versions: int32 and float32, lw_pad 128,
+     2048 and 5120, steps_used < grid, skewed buckets, inert bound pairs,
+     int32 sums that wrap, Q = 0; the direct operands of phase 2 (TQ 1,
+     33, 1024, shuffled step pages); float32 value pages holding NaN,
+     +-inf, +-1e30, -0.0 and +0.0 inside and outside the ranges (min and
+     max NaN where a NaN value is in range); counts, int32 sums, min and
+     max bit for bit (NaN at the same lanes), float sums to rtol 1e-4;
   7. the range-scan path at full size on phase 4's index: scan_range over
      2^18 ranges (full aggregates), search_range, scan_range with
      materialize=64, scan_groups with G = 64 (count/sum through the prefix
@@ -222,12 +228,90 @@ def page_inputs(index, q: torch.Tensor):
     return qb, plan.step_pages, plan.steps_used
 
 
+DIRECT_CASES = ((2048, 1), (2048, 33), (2048, 1024), (5120, 33))  # lw_pad, TQ
+STEP_PAGES = [0, 0, 0, 1, 2, 2, 3, 5, 5, 5, 5, 6]    # sorted, with runs
+
+
+def direct_case(rng, dtype, lw_pad: int, tq: int, shuffled: bool, dev):
+    """Kernel operands built directly, at any TQ: 7 sorted sentinel-padded
+    pages with duplicate runs (float32: -0.0 and +0.0 tie), the steps of
+    STEP_PAGES (in page order, or shuffled) then 4 surplus steps, bounds
+    drawn from each step's keys, their neighbours and the domain's
+    specials (float32: +-0.0, +-inf, NaN), most lanes with lo <= hi, and
+    int32 values near +-2^31 (sums wrap): (lo_b, hi_b, step_pages,
+    steps_used, kpages, vpages)."""
+    n_pages, fill = 7, lw_pad * 3 // 4
+    keys = np.sort(rng.integers(-40, 40, (n_pages, fill)), axis=1)
+    if dtype == np.int32:
+        pages = np.full((n_pages, lw_pad), I32.max, np.int32)
+        pages[:, :fill] = keys
+        special = [I32.min, I32.max - 1, I32.max]
+        vals = rng.integers(2**31 - 1000, 2**31, (n_pages, lw_pad))
+        vals = np.where(rng.random(vals.shape) < 0.5, vals, -vals)
+    else:
+        pages = np.full((n_pages, lw_pad), np.inf, np.float32)
+        pages[:, :fill] = keys * 0.5
+        zeros = pages == 0
+        pages[zeros] = np.where(rng.random(zeros.sum()) < 0.5, -0.0, 0.0)
+        special = [0.0, -0.0, np.inf, -np.inf, np.nan]
+        vals = rng.normal(size=(n_pages, lw_pad))
+    vals = vals.astype(dtype)
+    vals.reshape(-1)[::11] = MASK_VALUE
+    used = len(STEP_PAGES)
+    order = rng.permutation(used) if shuffled else np.arange(used)
+    step_pages = np.array([STEP_PAGES[i] for i in order] + [0] * 4, np.int32)
+    lo = np.empty((step_pages.size, tq), dtype)
+    hi = np.empty_like(lo)
+    for g, page in enumerate(step_pages):
+        row = pages[page, :fill]
+        pool = np.concatenate([row, row + 1, row - 1, special]).astype(dtype)
+        a, b = rng.choice(pool, tq), rng.choice(pool, tq)
+        flip = rng.random(tq) < 0.7
+        lo[g] = np.where(flip, np.minimum(a, b), a)
+        hi[g] = np.where(flip, np.maximum(a, b), b)
+    return [torch.from_numpy(x).to(dev) for x in (
+        lo, hi, step_pages, np.array([used], np.int32), pages, vals)]
+
+
+# in this order at sorted random slots of a row: an infinity or a NaN lies
+# between every +1e30 and -1e30, so no range sums a cancelling pair (whose
+# float sum would depend on the order of the adds)
+SPECIAL_VALUES = np.array([1e30, np.nan, -0.0, 0.0, np.inf, 1e30, -np.inf,
+                           -1e30, -0.0, np.nan, -1e30, 0.0], np.float32)
+
+
+def special_case(rng, dev, lw_pad: int = 2048, tq: int = 128):
+    """Sorted float32 pages of distinct keys whose values hold NaN, +-inf,
+    +-1e30, -0.0 and +0.0 (page 0 only signed zeros), and bound pairs over
+    random slot runs, so special values fall inside and outside the
+    lanes' ranges; inert, whole-page and NaN bounds too: (lo_b, hi_b,
+    step_pages, kpages, vpages)."""
+    P, G, live = 6, 12, lw_pad * 7 // 8
+    keys = np.arange(P * live, dtype=np.float32).reshape(P, live) * 0.5
+    kpages = np.full((P, lw_pad), np.inf, np.float32)
+    kpages[:, :live] = keys
+    vals = rng.normal(size=(P, lw_pad)).astype(np.float32)
+    for p in range(1, P):
+        vals[p, np.sort(rng.choice(live, SPECIAL_VALUES.size,
+                                   replace=False))] = SPECIAL_VALUES
+    vals[0] = np.where(rng.random(lw_pad) < 0.5, -0.0, 0.0)
+    vals[:, 5::11] = MASK_VALUE
+    sp = np.sort(rng.integers(0, P, G)).astype(np.int32)
+    a = rng.integers(0, live, (G, tq))
+    b = np.minimum(a + rng.integers(0, lw_pad // 4, (G, tq)), live - 1)
+    lo, hi = keys[sp[:, None], a], keys[sp[:, None], b]
+    lo[0, :3], hi[0, :3] = np.inf, -np.inf           # inert
+    lo[1, :3], hi[1, :3] = -np.inf, np.finfo(np.float32).max
+    lo[2, :2], hi[2, 2:4] = np.nan, np.nan
+    return [torch.from_numpy(x).to(dev) for x in (lo, hi, sp, kpages, vals)]
+
+
 def phase_page(dev, rng) -> int:
     from repro_torch.engine import tiered
     from repro_torch.kernels import page_search as pk
     worst, surplus = 0, False
     for dtype in (np.int32, np.float32):
-        for leaf_width in (100, 2000):                    # lw_pad 128, 2048
+        for leaf_width in (100, 2000, 5000):        # lw_pad 128, 2048, 5120
             n = leaf_width * 300 - 17
             if dtype == np.int32:
                 keys = rng.integers(I32.min + 1, I32.max - 1, n).astype(dtype)
@@ -258,6 +342,24 @@ def phase_page(dev, rng) -> int:
                     check(torch.equal(full, want),
                           "page kernel over every step != plain")
                     worst = max(worst, max_abs_err(got[:u], want[:u]))
+    # TQ 1, 33, 1024 and shuffled step pages; NaN, +-inf and +-0.0 queries
+    cases = [(f"{dtype.__name__} lw_pad {lw} TQ {tq} shuffled {sh}",
+              direct_case(rng, dtype, lw, tq, sh, dev))
+             for dtype in (np.int32, np.float32)
+             for lw, tq in DIRECT_CASES for sh in (False, True)]
+    lo, _, sp, kp, _ = special_case(rng, dev)
+    cases.append(("float32 special", [lo, None, sp, None, kp]))
+    for what, (q, _, sp, used_t, kp, *_) in cases:
+        lw_pad = kp.shape[1]
+        for used, stride in ((used_t, lw_pad), (None, lw_pad - 37)):
+            u = sp.shape[0] if used is None else int(used)
+            got = pk.page_search_bucketed(q, sp, kp, stride=stride,
+                                          steps_used=used)
+            want = pk.page_search_plain(q, sp, kp, stride=stride)
+            torch.cuda.synchronize()
+            check(torch.equal(got[:u], want[:u]),
+                  f"page kernel != plain ({what}, stride {stride})")
+            worst = max(worst, max_abs_err(got[:u], want[:u]))
     check(surplus, "no case had steps_used below the grid")
     return worst
 
@@ -523,9 +625,11 @@ def bucketed_lanes(index, bounds: list):
 
 def compare_outputs(got, want, used: int, sum_at: int, what: str,
                     worst: dict) -> None:
-    """Counts, int32 sums, min and max bit for bit; float sums to rtol
-    1e-4 (the kernel adds in slot order, the plain version in torch's).
-    Folds the largest errors into ``worst``."""
+    """Counts, int32 sums, min and max bit for bit, float min and max equal
+    as values (-0.0 == 0.0); float sums to rtol 1e-4 (the kernel adds in
+    double in its own order, the plain version in float32 in torch's). A
+    float NaN passes only where both sides have it. Folds the largest
+    errors into ``worst``."""
     check(len(got) == len(want), f"{what}: {len(got)} outputs, want "
           f"{len(want)}")
     for i, (g, w) in enumerate(zip(got, want)):
@@ -534,15 +638,25 @@ def compare_outputs(got, want, used: int, sum_at: int, what: str,
               f"{what}: output {i} is {g.dtype} {tuple(g.shape)}")
         if g.numel() == 0:
             continue
-        if i == sum_at and g.dtype == torch.float32:
-            check(torch.allclose(g, w, rtol=1e-4, atol=1e-4),
-                  f"{what}: float sums beyond rtol 1e-4")
-            rel = float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
-            worst["float_sum_rel_err"] = max(worst["float_sum_rel_err"], rel)
-        else:
+        if not g.is_floating_point():
             check(torch.equal(g, w), f"{what}: output {i} != plain")
             worst["max_abs_err"] = max(worst["max_abs_err"],
                                        max_abs_err(g, w))
+            continue
+        nan = torch.isnan(g)
+        check(torch.equal(nan, torch.isnan(w)),
+              f"{what}: output {i} has NaN at other lanes than plain")
+        g, w = g[~nan], w[~nan]
+        if i == sum_at:
+            check(torch.allclose(g, w, rtol=1e-4, atol=1e-4),
+                  f"{what}: float sums beyond rtol 1e-4")
+            fin = torch.isfinite(w)
+            if bool(fin.any()):
+                rel = (g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1.0)
+                worst["float_sum_rel_err"] = max(worst["float_sum_rel_err"],
+                                                 float(rel.max()))
+        else:
+            check(torch.equal(g, w), f"{what}: output {i} != plain")
 
 
 def phase_scan_kernels(dev, rng) -> dict:
@@ -553,7 +667,7 @@ def phase_scan_kernels(dev, rng) -> dict:
     surplus = wrapped = False
     for dtype in (np.int32, np.float32):
         lo_min, hi_cap, inert_lo, inert_hi = escan._domain_consts(dtype)
-        for leaf_width in (100, 2000):                    # lw_pad 128, 2048
+        for leaf_width in (100, 2000, 5000):        # lw_pad 128, 2048, 5120
             n, q_n = leaf_width * 300 - 17, 20000
             if dtype == np.int32:
                 keys = rng.integers(I32.min + 1, I32.max - 1, n)
@@ -615,6 +729,51 @@ def phase_scan_kernels(dev, rng) -> dict:
                                 f"{vpm is not None} mask {mask} {what}",
                                 worst)
                 worst["cases"] += 1
+    # TQ 1, 33, 1024 and shuffled step pages
+    for dtype in (np.int32, np.float32):
+        for lw_pad, tq in DIRECT_CASES:
+            for shuffled in (False, True):
+                lo_b, hi_b, sp_d, used_d, kp, vp_d = direct_case(
+                    rng, dtype, lw_pad, tq, shuffled, dev)
+                u = int(used_d)
+                what = (f"{dtype.__name__} lw_pad {lw_pad} TQ {tq} "
+                        f"shuffled {shuffled}")
+                for mode in ps.MODES:
+                    for mask in ((None,) if mode == "count"
+                                 else (None, MASK_VALUE)):
+                        vpm = None if mode == "count" else vp_d
+                        got = ps.page_scan_bucketed(
+                            lo_b, hi_b, sp_d, kp, vpm, mode=mode,
+                            mask_value=mask, steps_used=used_d)
+                        want = ps.page_scan_plain(lo_b, hi_b, sp_d, kp, vpm,
+                                                  mode=mode, mask_value=mask)
+                        torch.cuda.synchronize()
+                        compare_outputs(got, want, u, 2, f"page_scan {mode} "
+                                        f"mask {mask} {what}", worst)
+                        worst["cases"] += 1
+                got = ps.page_prefix_bucketed(lo_b, sp_d, kp, vp_d,
+                                              steps_used=used_d)
+                want = ps.page_prefix_plain(lo_b, sp_d, kp, vp_d)
+                torch.cuda.synchronize()
+                compare_outputs(got, want, u, 1, f"page_prefix {what}", worst)
+                worst["cases"] += 1
+    # NaN, +-inf, +-1e30 and signed zeros among the values
+    lo_b, hi_b, sp_s, kp, vp_s = special_case(rng, dev)
+    nan_lanes = 0
+    for mode in ("sum", "full"):
+        for mask in (None, MASK_VALUE):
+            got = ps.page_scan_bucketed(lo_b, hi_b, sp_s, kp, vp_s, mode=mode,
+                                        mask_value=mask)
+            want = ps.page_scan_plain(lo_b, hi_b, sp_s, kp, vp_s, mode=mode,
+                                      mask_value=mask)
+            torch.cuda.synchronize()
+            compare_outputs(got, want, sp_s.shape[0], 2, f"page_scan {mode} "
+                            f"mask {mask} special values", worst)
+            worst["cases"] += 1
+            if mode == "full":
+                nan_lanes = int(torch.isnan(got[3]).sum())
+    check(nan_lanes > 0, "no lane had a NaN value in range")
+    worst["special_nan_lanes"] = nan_lanes
     # Q = 0: the plan's one empty step (steps_used 0), and a zero-step grid
     z = torch.zeros(0, dtype=idx.pages.dtype, device=dev)
     lanes, sp, used_t, _ = bucketed_lanes(idx, [z, z])

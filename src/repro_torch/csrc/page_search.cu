@@ -5,69 +5,42 @@
 // live in leaf page step_pages[g]; each lane returns
 //     step_pages[g] * stride + min(#{s : page[s] < q}, stride).
 //
-// Design (simple first):
-//   * one block per grid step, one thread per lane (blockDim.x == TQ);
-//   * the block stages the page row through shared memory in fixed chunks
-//     of kChunk keys (8 KB), so any lw_pad works without the dynamic
-//     shared-memory opt-in that a single-shot stage past 48 KB would need;
-//   * each thread counts the staged keys below its query, branch-free, over
-//     the whole row: the same arithmetic as the TPU kernel, which is what
-//     makes the result bit-identical to it;
-//   * the TPU picked the executed grid rung with lax.switch. Here the
-//     static worst-case grid launches and every block whose step index is
-//     at least *steps_used (read from device memory, no host round trip)
-//     returns at once. The outputs of those steps are never read back.
-//
-// What bounds it: its least time on the H100 is set by bytes (the lanes
-// in and out and each touched page row once), at one binary search a
-// lane. The kernel does the linear count instead: every lane compares
-// against all lw_pad keys of its page (TQ * lw_pad compares a step; the
-// shared-memory reads are broadcasts). That those compares, and not
-// memory, limit it is a guess that was not measured. A binary search per
-// lane would do log2(lw_pad) compares; that is a later change.
+// The TPU kernel counts: every lane against all lw_pad slots of its page
+// (a vector popcount). Every page is nondecreasing with a sentinel tail,
+// so the count is the lower bound of q, found here by a branch-free binary
+// search in shared memory, bit-identical to it (sorted_page.cuh says why).
+// This is the page-prefix count of csrc/page_scan.cu with another store:
+// both launch sorted_page::lower_bound_kernel. Its design:
+//   * persistent blocks (occupancy x SMs, at most the grid), one thread a
+//     lane (blockDim.x == TQ, 1-1024); each walks a contiguous share of
+//     [0, *steps_used), read from device memory (no host round trip), so
+//     no step at or past it writes an output;
+//   * a page is staged (16-byte loads, rows padded one slot in 32 against
+//     bank conflicts) only when it changes; pages wider than kChunk slots
+//     restage chunk by chunk and add the chunks' lower bounds;
+//   * the next step's page id and query load while this step searches.
+// What bounds it on the H100: bytes, the lanes in and out and each touched
+// page row once; a lane's 12 compares at lw_pad 2048 are far below the
+// card's compare rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_page.cuh"
+
 namespace {
-
-constexpr int kChunk = 2048;
-
-template <typename T>
-__global__ void page_search_kernel(const T* __restrict__ q,
-                                   const int* __restrict__ step_pages,
-                                   const T* __restrict__ pages,
-                                   const int* __restrict__ steps_used,
-                                   int* __restrict__ out, int lw_pad,
-                                   int stride) {
-  const int g = blockIdx.x;
-  if (steps_used != nullptr && g >= *steps_used) return;  // uniform per block
-  __shared__ T chunk[kChunk];
-  const int tq = blockDim.x;
-  const int page = step_pages[g];
-  const T* row = pages + static_cast<size_t>(page) * lw_pad;
-  const size_t lane = static_cast<size_t>(g) * tq + threadIdx.x;
-  const T qv = q[lane];
-  int cnt = 0;
-  for (int base = 0; base < lw_pad; base += kChunk) {
-    const int len = min(kChunk, lw_pad - base);
-    for (int i = threadIdx.x; i < len; i += tq) chunk[i] = row[base + i];
-    __syncthreads();
-#pragma unroll 16
-    for (int i = 0; i < len; ++i) cnt += chunk[i] < qv;
-    __syncthreads();
-  }
-  out[lane] = page * stride + min(cnt, stride);
-}
 
 template <typename T>
 int launch(const void* q, const void* step_pages, const void* pages,
            const void* steps_used, void* out, int grid, int tq, int lw_pad,
            int stride, void* stream) {
-  page_search_kernel<T><<<grid, tq, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const int*>(step_pages),
-      static_cast<const T*>(pages), static_cast<const int*>(steps_used),
-      static_cast<int*>(out), lw_pad, stride);
-  return static_cast<int>(cudaGetLastError());
+  if (lw_pad < 1 || tq < 1 || tq > 1024) return cudaErrorInvalidValue;
+  if (grid == 0) return cudaSuccess;
+  return sorted_page::launch(
+      sorted_page::lower_bound_kernel<T>, grid, tq,
+      static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
+      static_cast<const int*>(step_pages), static_cast<const T*>(pages),
+      static_cast<const int*>(steps_used), static_cast<int*>(out), grid,
+      lw_pad, stride, stride, sorted_page::vector_rows(lw_pad, pages));
 }
 
 }  // namespace

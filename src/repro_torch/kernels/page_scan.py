@@ -13,18 +13,23 @@ hand-written CUDA kernels of ``csrc/page_scan.cu``:
   ``_kernel_prefix_sum``, ``pallas_call`` at line 230): per lane the count
   of keys below one edge and, with values, their sum.
 
-Every page is nondecreasing with a sentinel tail (DESIGN.md §2.3). The
-scan kernel does not rely on that: it still counts linearly, as the TPU
-kernel did (every lane against all ``lw_pad`` slots), one block a step.
-The prefix kernel does: on a sorted page
-``#{k < e}`` is the lower bound of e, which it finds by a branch-free
-binary search in shared memory, bit-identical to the count. Its persistent
-blocks walk contiguous runs of the page-sorted steps and restage a page
-only when it changes; in sum mode they scan the page's (masked) values
-once and read each lane's sum at its lower bound. Both are bound on the
-H100 by the bytes of the lanes and the touched pages. Design and
-arithmetic notes (uint32 accumulation for the int32 wrap, double for float
-sums, the early exit past ``steps_used``) are in the source.
+Every page is nondecreasing with a sentinel tail (DESIGN.md §2.3), so
+both kernels replace the TPU kernels' counts (every lane against all
+``lw_pad`` slots) by branch-free binary searches over the page staged in
+shared memory, bit-identical to the counts: ``#{k < lo}`` is the lower
+bound of lo, ``#{k <= hi}`` the upper bound of hi. Persistent blocks walk
+contiguous runs of the page-sorted steps and restage a page only when it
+changes. In the scan's value modes the in-range slots are the run
+``[lt, max(lt, le))``; once a page the block builds a segment tree of
+group sums and, in full mode, sparse tables of group minima and maxima,
+so a lane reads O(log) entries plus at most 7 edge slots at each end, and
+a float sum adds only in-range values (never a difference of prefixes).
+Min and max propagate NaN as ``jnp.min`` / ``jnp.max`` do. In sum mode
+the prefix kernel scans the page's (masked) group sums once and reads
+each lane's sum at its lower bound. Both are bound on the H100 by the
+bytes of the lanes and the touched pages. Design and arithmetic notes
+(uint32 accumulation for the int32 wrap, double for float sums, the early
+exit past ``steps_used``) are in the source and ``csrc/sorted_page.cuh``.
 
 ``page_scan_plain`` and ``page_prefix_plain`` are the same functions in
 plain PyTorch. The wrappers use them for CPU tensors only; for a CUDA
@@ -204,7 +209,14 @@ def page_scan_bucketed(lo_b: torch.Tensor, hi_b: torch.Tensor,
     store's tombstone); counts stay physical. Count mode never reads the
     value pages. ``steps_used`` (a 0-d int32 device tensor) is the device
     plan's step count: later steps are not computed and their lanes hold
-    no defined value. ``None`` computes every step."""
+    no defined value. ``None`` computes every step.
+
+    Every page must be nondecreasing (sentinel-padded, DESIGN.md §2.3):
+    the CUDA kernel takes ``lt`` and ``le`` as binary searches' bounds and
+    the mask as the run of slots between them, which equal the counts and
+    the mask only on sorted pages. Float sums are taken in double over
+    the in-range slots and agree with the plain version to rounding (rtol
+    1e-4); min and max are NaN where a NaN value is in range."""
     if mode not in MODES:
         raise ValueError(f"unknown scan mode {mode!r}; want one of {MODES}")
     if mode != "count" and vpages is None:

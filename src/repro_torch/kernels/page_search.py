@@ -7,13 +7,15 @@ queries of ``queries_bucketed[g]``, which all live in leaf page
 ``page_ids[g]``; each lane returns
 ``page_ids[g] * stride + min(#{s : page[s] < q}, stride)``.
 
-Its bound on the H100 is set by bytes: the lanes in and out and the
-touched page rows, at one binary search a lane. The kernel does more work
-than that: every lane compares against all ``lw_pad`` keys of its page.
-Whether those compares or memory limit it was not measured. Its design
-(one block per step, one thread per lane, the row staged through shared
-memory in fixed 8 KB chunks, an early exit for steps past ``steps_used``)
-and the reasons for it are in the source.
+Every page is nondecreasing with a sentinel tail (DESIGN.md §2.3), so the
+count is the lower bound of the query: the kernel finds it by a
+branch-free binary search over the page staged in shared memory,
+bit-identical to the TPU kernel's count. Persistent blocks walk contiguous
+runs of the page-sorted steps and restage a page only when it changes;
+pages wider than one staged chunk are searched chunk by chunk. Its bound
+on the H100 is set by bytes: the lanes in and out and the touched page
+rows. The design and the reasons for it are in the source and in
+``csrc/sorted_page.cuh``, which the page-prefix kernel shares.
 
 ``page_search_plain`` is the same function in plain PyTorch. The wrapper
 uses it for CPU tensors only; for a CUDA tensor it launches the kernel or

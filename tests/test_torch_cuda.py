@@ -119,15 +119,26 @@ def scan_lanes(cuda, dtype, leaf_width, rng):
     return idx, *lanes, plan.step_pages, plan.steps_used, vpages
 
 
+def same_values(g, w):
+    """Equal as values, NaN only where both have it (-0.0 == 0.0); integer
+    tensors bit for bit."""
+    if not g.is_floating_point():
+        return torch.equal(g, w)
+    nan = torch.isnan(g)
+    return torch.equal(nan, torch.isnan(w)) and torch.equal(g[~nan], w[~nan])
+
+
 def assert_kernel_matches(got, want, used, sum_at):
-    """Counts, int32 sums, min and max bit for bit; float sums to rtol 1e-4
-    (the kernel adds in slot order, the plain version in torch's)."""
+    """Counts, int32 sums, min and max bit for bit (NaN where the plain
+    version has it); float sums to rtol 1e-4, NaN at the same lanes (the
+    kernel adds in double in its own order, the plain version in float32
+    in torch's)."""
     for i, (g, w) in enumerate(zip(got, want)):
         if i == sum_at and g.dtype == torch.float32:
             torch.testing.assert_close(g[:used], w[:used], rtol=1e-4,
-                                       atol=1e-4)
+                                       atol=1e-4, equal_nan=True)
         else:
-            assert torch.equal(g[:used], w[:used])
+            assert same_values(g[:used], w[:used])
 
 
 @pytest.mark.cuda
@@ -249,6 +260,140 @@ def test_page_prefix_kernel_ties_runs_and_wraps(cuda, dtype, lw_pad, tq,
                                            rtol=1e-6, atol=1e-6)
             else:
                 assert torch.equal(got[1][:n], want[1][:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unsorted", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("lw_pad,tq", [(5120, 64), (2048, 1), (2048, 33),
+                                       (2048, 1024), (130, 33)])
+def test_page_search_and_scan_wide_pages_partial_warps(cuda, dtype, lw_pad,
+                                                       tq, unsorted):
+    """The page-search kernel and every page-scan mode on pages wider than
+    one staged chunk (5120 slots), one-lane, partial-warp and full blocks
+    (TQ 1, 33, 1024), an unaligned row width (130), steps_used below the
+    grid and every step, and step pages in page order or shuffled (a
+    restage at nearly every step). Counts, ranks, int32 sums, min and max
+    bit for bit; float sums, which cancel here, against the plain version
+    run in float64."""
+    rng = np.random.default_rng(lw_pad + tq + unsorted)
+    lo_b, sp, used_t, kpages, vpages = prefix_case(dtype, lw_pad, tq, rng)
+    used = int(used_t)
+    hi_b = lo_b[:, torch.from_numpy(rng.permutation(tq))]
+    order = torch.from_numpy(rng.random(lo_b.shape) < 0.7)   # most lo <= hi
+    lo_b, hi_b = (torch.where(order, torch.minimum(lo_b, hi_b), lo_b),
+                  torch.where(order, torch.maximum(lo_b, hi_b), hi_b))
+    if unsorted:
+        perm = torch.from_numpy(np.concatenate(
+            [rng.permutation(used), np.arange(used, sp.shape[0])]))
+        lo_b, hi_b, sp = lo_b[perm], hi_b[perm], sp[perm].contiguous()
+    lo_b, hi_b, sp, used_t, kpages, vpages = (
+        t.contiguous().to(cuda)
+        for t in (lo_b, hi_b, sp, used_t, kpages, vpages))
+    exact = vpages.double() if dtype == np.float32 else vpages
+    for steps_used in (used_t, None):
+        n = used if steps_used is not None else sp.shape[0]
+        for stride in (lw_pad, lw_pad - 37):
+            got = pk.page_search_bucketed(lo_b, sp, kpages, stride=stride,
+                                          steps_used=steps_used)
+            want = pk.page_search_plain(lo_b, sp, kpages, stride=stride)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:n], want[:n])
+        for mode in ps.MODES:
+            for mask in ((None,) if mode == "count" else (None, -7)):
+                vp = None if mode == "count" else vpages
+                got = ps.page_scan_bucketed(lo_b, hi_b, sp, kpages, vp,
+                                            mode=mode, mask_value=mask,
+                                            steps_used=steps_used)
+                want = ps.page_scan_plain(lo_b, hi_b, sp, kpages, vp,
+                                          mode=mode, mask_value=mask)
+                torch.cuda.synchronize()
+                if mode != "count" and dtype == np.float32:
+                    w64 = ps.page_scan_plain(lo_b, hi_b, sp, kpages, exact,
+                                             mode="sum", mask_value=mask)
+                    torch.testing.assert_close(got[2][:n].double(),
+                                               w64[2][:n], rtol=1e-6,
+                                               atol=1e-6)
+                    got, want = got[:2] + got[3:], want[:2] + want[3:]
+                assert_kernel_matches(got, want, n, sum_at=None)
+
+
+# in this order at sorted random slots of a row: an infinity or a NaN lies
+# between every +1e30 and -1e30, so no range sums a cancelling pair
+SPECIAL_VALUES = np.array([1e30, np.nan, -0.0, 0.0, np.inf, 1e30, -np.inf,
+                           -1e30, -0.0, np.nan, -1e30, 0.0], np.float32)
+
+
+def special_scan_case(rng, lw_pad=2048, tq=128):
+    """Sorted float32 pages of distinct keys whose values hold NaN, +-inf,
+    +-1e30, -0.0 and +0.0 (page 0 only signed zeros), and bound pairs over
+    random slot runs, so special values fall inside and outside the
+    lanes' ranges; inert, whole-page and NaN bounds too."""
+    P, G, live = 6, 12, lw_pad * 7 // 8
+    keys = np.arange(P * live, dtype=np.float32).reshape(P, live) * 0.5
+    kpages = np.full((P, lw_pad), np.inf, np.float32)
+    kpages[:, :live] = keys
+    vals = rng.normal(size=(P, lw_pad)).astype(np.float32)
+    for p in range(1, P):
+        vals[p, np.sort(rng.choice(live, SPECIAL_VALUES.size,
+                                   replace=False))] = SPECIAL_VALUES
+    vals[0] = np.where(rng.random(lw_pad) < 0.5, -0.0, 0.0)
+    vals[:, 5::11] = -7
+    sp = np.sort(rng.integers(0, P, G)).astype(np.int32)
+    a = rng.integers(0, live, (G, tq))
+    b = np.minimum(a + rng.integers(0, lw_pad // 4, (G, tq)), live - 1)
+    lo, hi = keys[sp[:, None], a], keys[sp[:, None], b]
+    lo[0, :3], hi[0, :3] = np.inf, -np.inf           # inert
+    lo[1, :3], hi[1, :3] = -np.inf, np.finfo(np.float32).max
+    lo[2, :2], hi[2, 2:4] = np.nan, np.nan
+    return [torch.from_numpy(x) for x in (lo, hi, sp, kpages, vals)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [None, -7])
+@pytest.mark.parametrize("mode", ["sum", "full"])
+def test_page_scan_kernel_special_values(cuda, mode, mask):
+    """NaN, +-inf, +-1e30 and signed zeros in the value pages: the kernel
+    equals the plain version, with min and max NaN at every lane whose
+    range holds a NaN value (jnp.min / jnp.max propagate it), and no
+    infinity or NaN outside a range in its sum."""
+    lo, hi, sp, kp, vp = (t.to(cuda) for t in special_scan_case(
+        np.random.default_rng(21)))
+    got = ps.page_scan_bucketed(lo, hi, sp, kp, vp, mode=mode,
+                                mask_value=mask)
+    want = ps.page_scan_plain(lo, hi, sp, kp, vp, mode=mode, mask_value=mask)
+    torch.cuda.synchronize()
+    assert_kernel_matches(got, want, sp.shape[0], sum_at=2)
+    assert bool(torch.isinf(got[2]).any())
+    if mode == "full":
+        nan = torch.isnan(want[3])
+        assert bool(nan.any()) and not bool(nan.all())
+        assert torch.equal(torch.isnan(got[3]), nan)
+        assert torch.equal(torch.isnan(got[4]), nan)
+
+
+@pytest.mark.cuda
+def test_page_kernels_zero_step_grids(cuda):
+    """A zero-step grid launches nothing and returns empty outputs; a grid
+    whose steps_used is 0 runs and writes no lane (nothing to compare)."""
+    e_b, sp, _, kpages, vpages = (t.to(cuda) for t in prefix_case(
+        np.int32, 128, 32, np.random.default_rng(3)))
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    launches = (pk.page_search_bucketed.launches,
+                ps.page_scan_bucketed.launches)
+    assert pk.page_search_bucketed(e_b[:0], sp[:0], kpages,
+                                   stride=128).shape == (0, 32)
+    for mode in ps.MODES:
+        outs = ps.page_scan_bucketed(e_b[:0], e_b[:0], sp[:0], kpages,
+                                     vpages, mode=mode)
+        assert [tuple(t.shape) for t in outs] == [(0, 32)] * len(outs)
+    assert (pk.page_search_bucketed.launches,
+            ps.page_scan_bucketed.launches) == launches
+    pk.page_search_bucketed(e_b, sp, kpages, stride=128, steps_used=zero)
+    for mode in ps.MODES:
+        ps.page_scan_bucketed(e_b, e_b, sp, kpages, vpages, mode=mode,
+                              steps_used=zero)
+    torch.cuda.synchronize()
 
 
 def cdf_rows(rng, B: int, V: int):

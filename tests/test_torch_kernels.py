@@ -20,6 +20,7 @@ from repro.kernels import page_search as ref_page
 from repro_torch.core import kary as pt_kary_core
 from repro_torch.kernels import kary_search as pt_kary
 from repro_torch.kernels import ops as pt_ops
+from repro_torch.kernels import page_scan as pt_pscan
 from repro_torch.kernels import page_search as pt_page
 
 torch.set_num_threads(1)
@@ -233,18 +234,19 @@ def test_kary_wrapper_takes_plain_on_cpu_and_empty_batch():
 
 
 # ------------------------------------- the sorted-row contract of the kernels
-def lower_bound_mirror(rows: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """The CUDA kernels' branch-free lower bound (csrc/kary_search.cu,
-    csrc/page_scan.cu), step for step, over pairs (rows[i], q[i]): the
+def bound_mirror(rows: np.ndarray, q: np.ndarray, pred=np.less) -> np.ndarray:
+    """The CUDA kernels' branch-free binary search (csrc/sorted_page.cuh:
+    ``lower_bound`` with ``pred`` <, ``upper_bound_le`` with <=;
+    csrc/kary_search.cu), step for step, over pairs (rows[i], q[i]): the
     answer lies in [base, base + n] and each step halves n."""
     at = np.arange(q.size)
     base = np.zeros(q.size, np.int64)
     n = rows.shape[1]
     while n > 1:
         half = n >> 1
-        base = np.where(rows[at, base + half] < q, base + half, base)
+        base = np.where(pred(rows[at, base + half], q), base + half, base)
         n -= half
-    return base + (rows[at, base] < q)
+    return base + pred(rows[at, base], q)
 
 
 def contract_keys(dtype, n, rng):
@@ -258,14 +260,18 @@ def contract_keys(dtype, n, rng):
     return keys
 
 
+@pytest.mark.parametrize("pred", [np.less, np.less_equal],
+                         ids=["lower_bound", "upper_bound_le"])
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 @pytest.mark.parametrize("n", [32768, 32769])    # NitroGen / k-ary top
-def test_kernel_rows_are_sorted_and_binary_search_equals_count(dtype, n):
-    """The k-ary and page-prefix kernels replace the TPU kernels' count
-    #{row < q} by a binary search, exact only on nondecreasing rows: every
-    row of ops.kary_levels and every page of the tiered index is sorted,
-    and on them the kernels' lower-bound loop equals the count, for ties,
-    the sentinel, signed zeros, infinities and NaN."""
+def test_kernel_rows_are_sorted_and_binary_search_equals_count(dtype, n,
+                                                               pred):
+    """The k-ary, page-search and page-scan kernels replace the TPU
+    kernels' counts #{row < q} and #{row <= q} by binary searches, exact
+    only on nondecreasing rows: every row of ops.kary_levels and every page
+    of the tiered index is sorted, and on them the kernels' search loops
+    equal the counts, for ties, the sentinel, signed zeros, infinities and
+    NaN (the k-ary kernel takes only the lower bound)."""
     from repro_torch.engine import tiered as pt_tiered
     rng = np.random.default_rng(n)
     keys = contract_keys(dtype, n, rng)
@@ -293,5 +299,124 @@ def test_kernel_rows_are_sorted_and_binary_search_equals_count(dtype, n):
                                               dtype(-np.inf), dtype(np.inf)))
         q = np.concatenate([own, near, np.resize(special, 6000)])
         r = rows[np.concatenate([pick, pick, pick])]
-        np.testing.assert_array_equal(lower_bound_mirror(r, q),
-                                      (r < q[:, None]).sum(1))
+        np.testing.assert_array_equal(bound_mirror(r, q, pred),
+                                      pred(r, q[:, None]).sum(1))
+
+
+# ------------------------------- the page-scan kernel's range aggregates
+GROUP, GROUPS = 8, 256                  # csrc/page_scan.cu kGroup, kGroups
+
+
+def nan_min(a, b):
+    return a if (a < b or a != a) else b     # the kernel's NaN-first combine
+
+
+def nan_max(a, b):
+    return a if (a > b or a != a) else b
+
+
+@np.errstate(over="ignore", invalid="ignore")   # int32 wraps, inf - inf
+def range_aggregate_mirror(v, a, b, mask=None):
+    """The page-scan kernel's value-mode query (csrc/page_scan.cu), step for
+    step, over slots [a, b) of one staged value row v of at most 2048
+    slots: group aggregates over 8 slots (slots past the row and masked
+    slots left out), a segment tree of group sums and sparse tables of
+    group minima and maxima built once, then per range at most 7 edge
+    slots at each end, the tree over the whole groups and two overlapping
+    table windows. Sums in uint32 (int32) or float64 (float32)."""
+    acc = np.uint32 if v.dtype == np.int32 else np.float64
+    id_min, id_max = pt_pscan.agg_identities(v.dtype)
+    take = np.ones(v.size, bool) if mask is None else v != mask
+    pad = GROUP * GROUPS - v.size
+    tree = np.zeros(2 * GROUPS, acc)
+    tree[GROUPS:] = np.pad(np.where(take, v, 0).astype(acc), (0, pad)
+                           ).reshape(GROUPS, GROUP).sum(1, dtype=acc)
+    for n0 in (128, 64, 32, 16, 8, 4, 2, 1):
+        tree[n0:2 * n0] = tree[2 * n0:4 * n0:2] + tree[2 * n0 + 1:4 * n0:2]
+    tmin = np.full((8, GROUPS), id_min, v.dtype)
+    tmax = np.full((8, GROUPS), id_max, v.dtype)
+    for t, ident, comb in ((tmin, id_min, np.minimum), (tmax, id_max,
+                                                         np.maximum)):
+        # np.minimum / np.maximum propagate NaN, as nan_min / nan_max do
+        t[0] = comb.reduce(np.pad(np.where(take, v, ident), (0, pad),
+                                  constant_values=ident
+                                  ).reshape(GROUPS, GROUP), axis=1)
+        for j in range(1, 8):
+            w = 1 << (j - 1)
+            t[j, :GROUPS - 2 * w + 1] = comb(t[j - 1, :GROUPS - 2 * w + 1],
+                                             t[j - 1, w:GROUPS - w + 1])
+    out = []
+    for lo, hi in zip(a, b):
+        s_, mn, mx = acc(0), id_min, id_max
+        if hi > lo:
+            ga, gb = -(-lo // GROUP), hi // GROUP
+            whole = ga < gb
+            edge = list(range(lo, ga * GROUP if whole else hi))
+            if whole:
+                edge += list(range(gb * GROUP, hi))
+            for s in edge:
+                if take[s]:
+                    s_ += acc(v[s])
+                    mn, mx = nan_min(mn, v[s]), nan_max(mx, v[s])
+            if whole:
+                l, r = ga + GROUPS, gb + GROUPS
+                while l < r:
+                    if l & 1:
+                        s_ += tree[l]
+                        l += 1
+                    if r & 1:
+                        r -= 1
+                        s_ += tree[r]
+                    l, r = l >> 1, r >> 1
+                k = min(int(gb - ga).bit_length() - 1, 7)
+                mn = nan_min(mn, nan_min(tmin[k, ga], tmin[k, gb - (1 << k)]))
+                mx = nan_max(mx, nan_max(tmax[k, ga], tmax[k, gb - (1 << k)]))
+        out.append((s_, mn, mx))
+    return [np.array(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("mask", [None, -7])
+@pytest.mark.parametrize("dtype,n", [(np.int32, 2048), (np.float32, 2048),
+                                     (np.float32, 130)])
+@np.errstate(over="ignore", invalid="ignore")
+def test_range_aggregate_mirror_equals_masked_reduction(dtype, n, mask):
+    """On runs [a, b) of one row, the kernel's range query equals the
+    direct masked reduction: empty, single-slot and whole-row runs, runs
+    that start or end on an 8-slot group boundary, masked slots; float
+    rows hold NaN, +-inf, +-1e30 and signed zeros inside and outside the
+    runs (min and max NaN where a NaN is in the run, and no infinity or
+    NaN outside a run reaches its sum)."""
+    rng = np.random.default_rng(n + (mask or 0))
+    if dtype == np.int32:
+        v = rng.integers(I32.min, I32.max, n, dtype=np.int64).astype(dtype)
+    else:
+        v = rng.normal(size=n).astype(dtype)
+        v[np.sort(rng.choice(n, 12, replace=False))] = [
+            1e30, np.nan, -0.0, 0.0, np.inf, 1e30, -np.inf, -1e30, -0.0,
+            np.nan, -1e30, 0.0]
+    v[3::11] = -7
+    a = rng.integers(0, n + 1, 200)
+    b = np.minimum(a + rng.integers(0, 300, 200), n)
+    g = rng.integers(0, n // GROUP, 40) * GROUP
+    a = np.concatenate([a, [0, 0, n, 5, 5, 9, 17], g, g + 1, g - 1 + (g == 0)])
+    b = np.concatenate([b, [n, 0, n, 5, 6, 4, 23], np.minimum(g + 64, n),
+                        g + 8, np.minimum(g + GROUP * 3, n)])
+    got = range_aggregate_mirror(v, a, b, mask)
+    acc = np.uint32 if dtype == np.int32 else np.float64
+    id_min, id_max = pt_pscan.agg_identities(dtype)
+    take = np.ones(n, bool) if mask is None else v != mask
+    want = [[], [], []]
+    for lo, hi in zip(a, b):
+        m = np.zeros(n, bool)
+        m[lo:hi] = take[lo:hi]
+        want[0].append(np.where(m, v, 0).astype(acc).sum(dtype=acc))
+        want[1].append(np.where(m, v, id_min).min())
+        want[2].append(np.where(m, v, id_max).max())
+    if dtype == np.int32:
+        np.testing.assert_array_equal(got[0], want[0])
+    else:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    if dtype == np.float32:
+        assert np.isnan(got[1]).any() and not np.isnan(got[1]).all()

@@ -116,6 +116,69 @@ def test_page_prefix_plain_matches_reference(dtype, lw_pad, with_values):
         assert_sums(got[1].numpy(), want[1])
 
 
+# in this order at sorted random slots of a row: an infinity or a NaN lies
+# between every +1e30 and -1e30, so no range sums a cancelling pair (whose
+# float sum would depend on the order of the adds)
+SPECIAL_VALUES = np.array([1e30, np.nan, -0.0, 0.0, np.inf, 1e30, -np.inf,
+                           -1e30, -0.0, np.nan, -1e30, 0.0], np.float32)
+
+
+def special_scan_case(seed):
+    """Sorted float32 pages of distinct keys whose values hold NaN, +-inf,
+    +-1e30, -0.0 and +0.0 (page 0 only signed zeros), and [G, TQ] bound
+    pairs over random slot runs, so special values fall both inside and
+    outside the lanes' ranges; inert, whole-page and NaN bounds too."""
+    rng = np.random.default_rng(seed)
+    P, G, TQ, lw_pad, live = 4, 8, 32, 256, 219
+    keys = np.arange(P * live, dtype=np.float32).reshape(P, live) * 0.5
+    kpages = np.full((P, lw_pad), np.inf, np.float32)
+    kpages[:, :live] = keys
+    vals = rng.normal(size=(P, lw_pad)).astype(np.float32)
+    for p in range(1, P):
+        vals[p, np.sort(rng.choice(live, SPECIAL_VALUES.size,
+                                   replace=False))] = SPECIAL_VALUES
+    vals[0] = np.where(rng.random(lw_pad) < 0.5, -0.0, 0.0)
+    vals[:, 5::11] = MASK
+    page_ids = rng.integers(0, P, G).astype(np.int32)
+    a = rng.integers(0, live, (G, TQ))
+    b = np.minimum(a + rng.integers(0, 40, (G, TQ)), live - 1)
+    lo = keys[page_ids[:, None], a]
+    hi = keys[page_ids[:, None], b]
+    lo_min, hi_cap, inert_lo, inert_hi = ref_scan._domain_consts(np.float32)
+    lo[0, :3], hi[0, :3] = inert_lo, inert_hi
+    lo[1, :3], hi[1, :3] = lo_min, hi_cap
+    lo[2, :2], hi[2, 2:4] = np.nan, np.nan
+    return lo, hi, page_ids, kpages, vals
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("mode", ["sum", "full"])
+def test_page_scan_plain_special_values_match_reference(mode, mask):
+    """NaN, +-inf, +-1e30 and signed zeros inside and outside the ranges:
+    sums and counts as the reference gives them, min and max NaN where a
+    NaN value is in range (jnp.min / jnp.max propagate it), equal as values
+    elsewhere (a zero's sign may differ)."""
+    lo, hi, pids, kp, vp = special_scan_case(seed=5)
+    mv = MASK if mask else None
+    want = ref_pscan.page_scan_bucketed(
+        *map(jnp.asarray, (lo, hi, pids, kp, vp)), mode=mode,
+        mask_value=mv, interpret=True)
+    got = pt_pscan.page_scan_bucketed(
+        *map(torch.from_numpy, (lo, hi, pids, kp, vp)), mode=mode,
+        mask_value=mv)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 2:
+            assert_sums(g.numpy(), w)
+        else:                     # NaN only where both have it; -0.0 == 0.0
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if mode == "full":            # the pages put NaN in some ranges, not all
+        nan = np.isnan(got[3].numpy())
+        assert nan.any() and not nan.all()
+        np.testing.assert_array_equal(nan, np.isnan(got[4].numpy()))
+    assert np.isinf(got[2].numpy()).any()
+
+
 def test_page_scan_wrappers_take_plain_on_cpu():
     lo, hi, pids, kp, vp = scan_case(np.int32, 128, seed=3)
     args = [torch.from_numpy(a) for a in (lo, hi, pids, kp, vp)]
