@@ -36,8 +36,10 @@ Phases, in order; any failure exits non-zero with its traceback:
      int32 sums that wrap, Q = 0; the direct operands of phase 2 (TQ 1,
      33, 1024, shuffled step pages); float32 value pages holding NaN,
      +-inf, +-1e30, -0.0 and +0.0 inside and outside the ranges (min and
-     max NaN where a NaN value is in range); counts, int32 sums, min and
-     max bit for bit (NaN at the same lanes), float sums to rtol 1e-4;
+     max NaN where a NaN value is in range, -0.0 and +0.0 where a range
+     takes in both zeros); counts, int32 sums, min and max bit for bit
+     (NaN at the same lanes, the sign of every zero), float sums to rtol
+     1e-4;
   7. the range-scan path at full size on phase 4's index: scan_range over
      2^18 ranges (full aggregates), search_range, scan_range with
      materialize=64, scan_groups with G = 64 (count/sum through the prefix
@@ -47,11 +49,22 @@ Phases, in order; any failure exits non-zero with its traceback:
      a numpy oracle (counts, ranks and wrapped int32 sums on every query,
      min, max, rows and top-K on a 4096-query subset); then CUDA-event
      times of each entry point, its stages and each new kernel;
-  8. the CDF-inversion kernel against its plain version and
-     np.searchsorted(..., "left") clipped to V - 1, bit for bit: B in
-     {1, 3, 8, 64, 256} by V in {100, 1000, 2048, 152,064} and each V - 1
-     (the scalar path), softmax-sorted rows with flat runs and +inf tails,
-     u at 0, 1e-6, on a cdf entry, above cdf[-1] and in a flat run, B = 0;
+  8. the CDF-inversion kernel against its plain version, bit for bit:
+     B in {1, 3, 8, 64, 256} by V in {1, 7, 100, 1000, 2048, 152,064},
+     softmax-sorted rows with flat runs and +inf tails and u at 0, 1e-6,
+     on a cdf entry, above cdf[-1] and in a flat run
+     (np.searchsorted(..., "left") clipped to V - 1 agrees there), each
+     V - 1 and a base off 16-byte alignment (the
+     scalar path), rows that are not monotone (the count differs from a
+     binary search) and NaN in rows and in u; 70,000 rows (the row loop
+     past the grid) and B = 0. Then at V = 152,064 and B in {1, 8, 64,
+     256} the kernel's CUDA-event and profiler device time beside
+     torch.searchsorted, the plain version and the byte bound. With
+     --earlier-cdf SRC (the replaced design's cdf_search.cu, e.g. from
+     `git show 2ff2086:src/repro_torch/csrc/cdf_search.cu`) that design
+     is built beside phase 1's builds, held to the plain version and
+     timed in turns with the new one (earlier, new, new, earlier);
+     without it its times are null;
   9. the serving path at qwen3-0.6b's full width (28 layers, d_model
      1024, vocab 151,936 padded to 152,064; 596,180,992 float32
      parameters from the seed): ServeEngine over the immutable tiered
@@ -70,7 +83,7 @@ Phases, in order; any failure exits non-zero with its traceback:
      decode_step) under set_sync_debug_mode("error"). Then CUDA-event
      times of prefill (cold, warm), the decode step and its parts, the
      kernel at B in {8, 64, 256} beside torch.searchsorted, their bounds,
-     and one profiled decode step;
+     one profiled decode step and one profiled sampler call;
  10. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound; the last line {"ok": true, "device": {...}}.
@@ -625,11 +638,11 @@ def bucketed_lanes(index, bounds: list):
 
 def compare_outputs(got, want, used: int, sum_at: int, what: str,
                     worst: dict) -> None:
-    """Counts, int32 sums, min and max bit for bit, float min and max equal
-    as values (-0.0 == 0.0); float sums to rtol 1e-4 (the kernel adds in
-    double in its own order, the plain version in float32 in torch's). A
-    float NaN passes only where both sides have it. Folds the largest
-    errors into ``worst``."""
+    """Counts, int32 sums, min and max bit for bit, float min and max too
+    (the sign bit of every non-NaN lane: -0.0 != +0.0); float sums to rtol
+    1e-4 (the kernel adds in double in its own order, the plain version in
+    float32 in torch's). A float NaN passes only where both sides have it.
+    Folds the largest errors into ``worst``."""
     check(len(got) == len(want), f"{what}: {len(got)} outputs, want "
           f"{len(want)}")
     for i, (g, w) in enumerate(zip(got, want)):
@@ -656,7 +669,9 @@ def compare_outputs(got, want, used: int, sum_at: int, what: str,
                 worst["float_sum_rel_err"] = max(worst["float_sum_rel_err"],
                                                  float(rel.max()))
         else:
-            check(torch.equal(g, w), f"{what}: output {i} != plain")
+            check(torch.equal(g, w) and torch.equal(torch.signbit(g),
+                                                    torch.signbit(w)),
+                  f"{what}: output {i} != plain bit for bit")
 
 
 def phase_scan_kernels(dev, rng) -> dict:
@@ -772,7 +787,15 @@ def phase_scan_kernels(dev, rng) -> dict:
             worst["cases"] += 1
             if mode == "full":
                 nan_lanes = int(torch.isnan(got[3]).sum())
+                # page 0 holds only signed zeros: -0.0 the min, +0.0 the max
+                zeros = (got[3] == 0) & (got[4] == 0)
+                neg_min = zeros & torch.signbit(got[3])
+                pos_max = zeros & ~torch.signbit(got[4])
+                worst[f"special_min_-0_max_+0_lanes_mask_{mask}"] = int(
+                    (neg_min & pos_max).sum())
     check(nan_lanes > 0, "no lane had a NaN value in range")
+    check(worst[f"special_min_-0_max_+0_lanes_mask_{MASK_VALUE}"] > 0,
+          "no lane took in both signed zeros")
     worst["special_nan_lanes"] = nan_lanes
     # Q = 0: the plan's one empty step (steps_used 0), and a zero-step grid
     z = torch.zeros(0, dtype=idx.pages.dtype, device=dev)
@@ -1242,7 +1265,12 @@ def scan_path(dev, rng, idx, ks, vs):
 
 # --------------------------------------------------------------- phase 8
 CDF_BATCHES = (1, 3, 8, 64, 256)
-CDF_VOCABS = (100, 1000, 2048, 152_064)
+CDF_VOCABS = (1, 7, 100, 1000, 2048, 152_064)
+CDF_TIMED = (1, 8, 64, 256)        # batch sizes timed at V = 152,064
+CDF_ROW_LOOP = (70_000, 12)        # past the grid's 65,535 clusters
+# The design the kernel replaced (a zeroed output, one atomicAdd a
+# 1,024-entry chunk, a clamp after: three launches a call) is timed beside
+# it only when --earlier-cdf names its source; else its times are null.
 
 
 def cdf_rows(rng, B: int, V: int):
@@ -1264,34 +1292,151 @@ def cdf_rows(rng, B: int, V: int):
     return cdf, u
 
 
-def phase_cdf(dev, rng) -> dict:
-    """The CDF kernel against its plain version and np.searchsorted(...,
-    "left") clipped to V - 1, bit for bit; each shape also as an odd
-    width V - 1 (the kernel's scalar path)."""
+def start_earlier_cdf(src: str | None):
+    """Start nvcc on the replaced CDF kernel's source `src` into
+    build/earlier/, beside phase 1's builds: (process, library), or None
+    when no source is given."""
+    from repro_torch.kernels import _build
+    if src is None:
+        return None
+    lib = _build.BUILD_DIR.parent / "earlier" / "libcdf_search_earlier.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def earlier_cdf_fn(started):
+    """Wait for start_earlier_cdf's build; the replaced design as a
+    function of (cdf, u), called as its wrapper called it (zero fill,
+    kernel, clamp), or None."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if started is None:
+        return None
+    proc, lib = started
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"earlier cdf_search.cu did not build:\n{log}")
+    fn = ctypes.CDLL(str(lib)).cdf_search_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(cdf, u):
+        B, V = cdf.shape
+        out = torch.zeros(B, dtype=torch.int32, device=cdf.device)
+        vec = int(V % 4 == 0 and cdf.data_ptr() % 16 == 0)
+        _build.check(fn(cdf.data_ptr(), u.data_ptr(), out.data_ptr(), B, V,
+                        vec, torch.cuda.current_stream().cuda_stream),
+                     "earlier cdf_search")
+        return out.clamp_max_(V - 1)
+    return call
+
+
+def cdf_variants(dev, rng, cdf, u):
+    """(name, cdf, u) on the card for one host case: the rows as given
+    (sorted: np.searchsorted agrees), the odd width V - 1 (the scalar
+    path), a base one float past 16-byte alignment (the scalar path at V
+    % 4 == 0), rows that are not monotone (uniform noise, u in [0.2,
+    0.8]: the count and a binary search differ) and NaN inside rows and
+    in u."""
+    B, V = cdf.shape
+    cd, ud = torch.from_numpy(cdf).to(dev), torch.from_numpy(u).to(dev)
+    shifted = torch.empty(B * V + 1, device=dev)[1:].view(B, V)
+    shifted.copy_(cd)
+    rough = torch.from_numpy(rng.random((B, V), dtype=np.float32)).to(dev)
+    mid = torch.from_numpy(rng.uniform(0.2, 0.8, B).astype(np.float32)
+                           ).to(dev)
+    nan_rows, nan_u = cd.clone(), ud.clone()
+    nan_rows[::2, V // 3] = float("nan")
+    nan_u[1::3] = float("nan")
+    out = [("sorted", cd, ud), ("unaligned base", shifted, ud),
+           ("not monotone", rough, mid), ("NaN", nan_rows, nan_u)]
+    if V > 1:
+        out.append(("odd width", cd[:, 1:].contiguous(), ud))
+    return out
+
+
+def phase_cdf(dev, rng, earlier) -> dict:
+    """The CDF kernel against its plain version, bit for bit, on every
+    variant of every (B, V), np.searchsorted(..., "left") clipped to
+    V - 1 on the sorted rows, the row loop past the grid and B = 0; the
+    replaced design on the sorted rows. Then times at V = 152,064 and B
+    in CDF_TIMED, the replaced design and the new one in turns (earlier,
+    new, new, earlier), each call's event and device time beside
+    searchsorted's, the plain version's and the byte bound."""
     from repro_torch.kernels import cdf_search as cs
-    cases, worst = 0, 0
+    cases, worst, differs = 0, 0, 0
     for B in CDF_BATCHES:
         for V in CDF_VOCABS:
             cdf, u = cdf_rows(rng, B, V)
-            for c in (cdf, np.ascontiguousarray(cdf[:, 1:])):
-                cd = torch.from_numpy(c).to(dev)
-                ud = torch.from_numpy(u).to(dev)
-                got = cs.cdf_search(cd, ud)
-                want = cs.invert_cdf(cd, ud)
+            ref = np.minimum([np.searchsorted(cdf[b], u[b], "left")
+                              for b in range(B)], V - 1)
+            for name, c, uu in cdf_variants(dev, rng, cdf, u):
+                want = cs.invert_cdf(c, uu)
+                got = cs.cdf_search(c, uu)
                 torch.cuda.synchronize()
-                ref = np.minimum([np.searchsorted(c[b], u[b], "left")
-                                  for b in range(B)], c.shape[1] - 1)
                 check(got.dtype == torch.int32 and torch.equal(got, want),
-                      f"cdf kernel != plain (B {B}, V {c.shape[1]})")
-                check(np.array_equal(got.cpu().numpy(), ref),
-                      f"cdf kernel != np.searchsorted (B {B}, V "
-                      f"{c.shape[1]})")
+                      f"cdf kernel != plain ({name}, B {B}, V {c.shape[1]})")
                 worst = max(worst, max_abs_err(got, want))
                 cases += 1
+                if name == "sorted":
+                    check(np.array_equal(want.cpu().numpy(), ref),
+                          f"cdf plain != np.searchsorted (B {B}, V {V})")
+                    if earlier is not None:
+                        check(torch.equal(earlier(c, uu), want),
+                              f"earlier cdf kernel != plain (B {B}, V {V})")
+                if name == "not monotone":
+                    rows = c.cpu().numpy()
+                    mid = uu.cpu().numpy()
+                    search = np.minimum([np.searchsorted(rows[b], mid[b])
+                                         for b in range(B)], V - 1)
+                    differs += int((search != want.cpu().numpy()).sum())
+    check(differs > 0, "no rough row told the count from a binary search")
+    B, V = CDF_ROW_LOOP
+    c = torch.rand((B, V), device=dev)
+    uu = torch.rand(B, device=dev)
+    check(torch.equal(cs.cdf_search(c, uu), cs.invert_cdf(c, uu)),
+          "row loop")
+    cases += 1
     empty = cs.cdf_search(torch.zeros((0, 8), device=dev),
                           torch.zeros(0, device=dev))
     check(empty.shape == (0,), "B = 0")
-    return {"cases": cases, "max_abs_err": worst}
+
+    V = 152_064
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+    timed = {}
+    for B in CDF_TIMED:
+        p = torch.softmax(torch.randn((B, V), generator=gen, device=dev) * 3,
+                          dim=-1)
+        c = torch.cumsum(torch.sort(p, dim=-1, descending=True)[0], dim=-1)
+        uu = torch.rand(B, generator=gen, device=dev)
+        want = cs.invert_cdf(c, uu)
+        fns = {"new": lambda: cs.cdf_search(c, uu)}
+        if earlier is not None:
+            fns["earlier"] = lambda: earlier(c, uu)
+        turns = ["earlier", "new", "new", "earlier"]
+        row = {k: {"ms": [], "device_ms": []} for k in fns}
+        for name in turns:
+            if name not in fns:
+                continue
+            check(torch.equal(fns[name](), want), f"{name} != plain, B {B}")
+            row[name]["ms"].append(cuda_ms(fns[name]))
+            row[name]["device_ms"].append(device_ms(fns[name]))
+        if earlier is None:
+            row["earlier"] = {"ms": None, "device_ms": None}
+        bnd = bound(B * V * 4 + 8 * B, B * V)
+        row.update(
+            searchsorted_ms=cuda_ms(lambda: torch.searchsorted(c, uu[:, None])),
+            searchsorted_device_ms=device_ms(
+                lambda: torch.searchsorted(c, uu[:, None])),
+            plain_ms=cuda_ms(lambda: cs.invert_cdf(c, uu)),
+            plain_device_ms=device_ms(lambda: cs.invert_cdf(c, uu)),
+            bound_ms=bnd[0], bound_by=bnd[1])
+        timed[B] = row
+    return {"cases": cases, "max_abs_err": worst,
+            "rough_rows_count_ne_search": differs,
+            "earlier_design": earlier is not None, "V": V, "times": timed}
 
 
 # --------------------------------------------------------------- phase 9
@@ -1535,6 +1680,9 @@ def serve_path(dev, seed: int):
     prof = device_profile(step)
     prof["idle_share"] = 1 - prof["kernels_ms"] / times["decode_step_ms"]
     times["profile_decode_step"] = prof
+    # the sampler alone: its launches a step, the CDF kernel's among them
+    times["profile_sample"] = device_profile(
+        lambda: S.sample(lg8, scfg, generator=gen))
 
     sweep = {}
     for b in (8, 64, 256):
@@ -1618,6 +1766,9 @@ def kernel_resources() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--earlier-cdf", metavar="SRC",
+                    help="the replaced CDF kernel's source, timed in "
+                         "phase 8 beside the new one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; the port's kernels run only on one",
@@ -1632,7 +1783,11 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     t0 = time.perf_counter()
-    _build.build()
+    started = start_earlier_cdf(args.earlier_cdf)   # beside phase 1
+    try:
+        _build.build()
+    finally:
+        earlier_cdf = earlier_cdf_fn(started)
     print(f"phase 1: built {_build.sources()} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     print("phase 1: ptxas " + json.dumps(kernel_resources()), flush=True)
@@ -1649,8 +1804,8 @@ def main() -> int:
     scan_rows, scan_main = scan_path(dev, rng, *state)
     print("phase 7: scan path " + json.dumps(scan_main), flush=True)
     del state
-    print("phase 8: cdf kernel == plain " + json.dumps(phase_cdf(dev, rng)),
-          flush=True)
+    print("phase 8: cdf kernel == plain " + json.dumps(
+        phase_cdf(dev, rng, earlier_cdf)), flush=True)
     cdf_row, serve_main = serve_path(dev, args.seed)
     print("phase 9: serve path " + json.dumps(serve_main), flush=True)
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))

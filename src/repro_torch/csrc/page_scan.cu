@@ -10,7 +10,7 @@
 //         m = !(k < lo) && (k <= hi) [&& v != mask_value]
 //     vsum = sum of v[m] (int32 wraps) and, in full mode, vmin / vmax of
 //     v[m] (dtype max / min, or +inf / -inf, when m is empty; NaN when a
-//     NaN value is in m, as jnp.min / jnp.max give);
+//     NaN value is in m, and -0.0 below +0.0, as jnp.min / jnp.max give);
 //   * page_prefix_bucketed (_kernel_prefix_count, _kernel_prefix_sum):
 //     each lane has one edge e and returns lt = #{s : k[s] < e} and, with
 //     values, psum = sum of v[k < e] [&& v != mask_value].
@@ -36,7 +36,8 @@
 //     an infinity or NaN before lt, or a 1e30 cancelling, would spoil;
 //   * in full mode, sparse tables of group minima and maxima (8 levels,
 //     windows of 1 to 128 groups): two overlapping windows cover any run
-//     of whole groups. The combine propagates NaN as jnp.min does.
+//     of whole groups. The combine propagates NaN and ranks -0.0 below
+//     +0.0 as jnp.min does, so any fold order gives the reference's bits.
 // A lane then reads at most 7 edge slots at each end, the tree and (full)
 // two windows of each table. Pages wider than kChunk combine the chunks'
 // partial aggregates: a chunk's in-range slots are again one run.
@@ -91,13 +92,22 @@ template <> __device__ __forceinline__ float max_identity<float>() {
   return __int_as_float(0xff800000);   // -inf
 }
 
-// min / max that propagate NaN, as jnp.min / jnp.max and torch.amin /
-// amax do (fminf / fmaxf would drop it); a != a is false for int32.
+// min / max as jnp.min / jnp.max combine: NaN propagates (fminf / fmaxf
+// would drop it), and for float32 -0.0 ranks below +0.0 in either order
+// (a compare alone ties them and keeps whichever came second), so the
+// result is the reference's bits whatever order the tree and tables fold
+// in. int32: a != a is false, the plain compare.
 template <typename V> __device__ __forceinline__ V nan_min(V a, V b) {
   return (a < b || a != a) ? a : b;
 }
 template <typename V> __device__ __forceinline__ V nan_max(V a, V b) {
   return (a > b || a != a) ? a : b;
+}
+template <> __device__ __forceinline__ float nan_min<float>(float a, float b) {
+  return (a < b || a != a || (a == b && __float_as_int(a) < 0)) ? a : b;
+}
+template <> __device__ __forceinline__ float nan_max<float>(float a, float b) {
+  return (a > b || a != a || (a == b && __float_as_int(a) >= 0)) ? a : b;
 }
 
 // Value slots a group: the structures are built over group aggregates,

@@ -280,8 +280,9 @@ def _multi_reduce(R: int, mode: str, cnt, vs, mn, mx, rlo, rhi):
                        0).int()
     vsum = vs.reshape(-1, R).sum(1, dtype=vs.dtype) if mode != "count" \
         else None
-    vmin = mn.reshape(-1, R).amin(1) if mode == "full" else None
-    vmax = mx.reshape(-1, R).amax(1) if mode == "full" else None
+    # as jnp.min / jnp.max: -0.0 below +0.0 whatever the order
+    vmin = _pscan.amin(mn.reshape(-1, R), 1) if mode == "full" else None
+    vmax = _pscan.amax(mx.reshape(-1, R), 1) if mode == "full" else None
     return count, vsum, vmin, vmax, r_lo, r_hi
 
 

@@ -151,6 +151,8 @@ def page_aggregates(vals: np.ndarray, cnt: np.ndarray, mask_value=None):
     if mask_value is not None:
         live = live & (vals != vd.type(mask_value))
     psum = np.where(live, vals, 0).sum(axis=1, dtype=vd)
+    # numpy, as the reference: its sign of a zero min / max depends on the
+    # order (unlike jnp's), and these tables must be the reference's bits
     pmin = np.where(live, vals, id_min).min(axis=1)
     pmax = np.where(live, vals, id_max).max(axis=1)
     return psum, pmin, pmax
@@ -179,6 +181,7 @@ def build_page_aux(cnt: np.ndarray, vals: Optional[np.ndarray],
         pmax = np.full(P, id_max, vd)
     cum_sum = np.zeros(P + 1, vd)
     cum_sum[1:] = np.cumsum(psum, dtype=vd)
+    # np.minimum / np.maximum, as the reference builds them (see above)
     return ScanAux(*(torch.from_numpy(a).to(device) for a in (
         cum_cnt, cum_sum, sparse_table(pmin, np.minimum, id_min),
         sparse_table(pmax, np.maximum, id_max))))
@@ -281,12 +284,14 @@ def make_span_pipeline(span_of: Callable, *, num_pages: int, tile: int,
             isum = torch.where(has, aux.cum_sum[bl] - aux.cum_sum[al], 0)
             vsum = outs[2][:q_n] + outs[2][q_n:] + isum
         if mode == "full":
-            mn = torch.minimum(outs[3][:q_n], outs[3][q_n:])
-            mx = torch.maximum(outs[4][:q_n], outs[4][q_n:])
-            vmin = torch.minimum(mn, _table_range(aux.st_min, a, b,
-                                                  torch.minimum, id_min))
-            vmax = torch.maximum(mx, _table_range(aux.st_max, a, b,
-                                                  torch.maximum, id_max))
+            # the reference combines with jnp.minimum / jnp.maximum: -0.0
+            # ranks below +0.0 whatever the order
+            mn = _pscan.minimum(outs[3][:q_n], outs[3][q_n:])
+            mx = _pscan.maximum(outs[4][:q_n], outs[4][q_n:])
+            vmin = _pscan.minimum(mn, _table_range(aux.st_min, a, b,
+                                                   _pscan.minimum, id_min))
+            vmax = _pscan.maximum(mx, _table_range(aux.st_max, a, b,
+                                                   _pscan.maximum, id_max))
         return SpanScan(count=(cnt + icnt).int(), vsum=vsum, vmin=vmin,
                         vmax=vmax, plo=plo, lt_lo=lt[:q_n])
 

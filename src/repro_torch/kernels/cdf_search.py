@@ -8,8 +8,11 @@ sorted-probability CDF: for row b, the first index v with
 and clipped to V - 1.
 
 Its bound on the H100 is set by bytes: B * V * 4 bytes of cdf read once.
-The kernel reads each entry once, one chunk of one row a block; its
-design is in the source.
+The kernel reads each entry once: one launch a call, one thread-block
+cluster of 8 blocks a row, each block counting a slice with several
+16-byte loads in flight a thread, the blocks' counts added by rank 0
+through distributed shared memory, which clips and stores the row; no
+atomics, no zero fill, no clamp after. The design is in the source.
 
 ``invert_cdf`` is the same function in plain PyTorch. ``cdf_search`` uses
 it for CPU tensors only; for a CUDA tensor it launches the kernel or
@@ -44,7 +47,8 @@ def invert_cdf(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """cdf: [B, V] float32, row-wise nondecreasing (a tail padded with
     +inf is allowed); u: [B] float32. Returns [B] int32: the first index
-    with cdf >= u, clipped to V - 1."""
+    with cdf >= u, clipped to V - 1 (the count of entries below u, as
+    the reference counts, on any row)."""
     if cdf.device.type == "cpu":
         return invert_cdf(cdf, u)
     if cdf.device.type != "cuda":
@@ -61,7 +65,7 @@ def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     B, V = cdf.shape
     if V < 1:
         raise ValueError("the vocabulary must hold at least one entry")
-    out = torch.zeros(B, dtype=torch.int32, device=cdf.device)
+    out = torch.empty(B, dtype=torch.int32, device=cdf.device)
     if B == 0:
         return out
     vec = int(V % 4 == 0 and cdf.data_ptr() % 16 == 0)
@@ -69,7 +73,7 @@ def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(cdf.device).cuda_stream)
     _build.check(err, "cdf_search")
     cdf_search.launches += 1
-    return out.clamp_max_(V - 1)
+    return out
 
 
 cdf_search.launches = 0

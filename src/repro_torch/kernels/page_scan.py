@@ -24,7 +24,9 @@ changes. In the scan's value modes the in-range slots are the run
 group sums and, in full mode, sparse tables of group minima and maxima,
 so a lane reads O(log) entries plus at most 7 edge slots at each end, and
 a float sum adds only in-range values (never a difference of prefixes).
-Min and max propagate NaN as ``jnp.min`` / ``jnp.max`` do. In sum mode
+Min and max propagate NaN and rank -0.0 below +0.0 as ``jnp.min`` /
+``jnp.max`` do (``minimum``, ``maximum``, ``amin``, ``amax`` here give
+the plain version and the engine's combines the same). In sum mode
 the prefix kernel scans the page's (masked) group sums once and reads
 each lane's sum at its lower bound. Both are bound on the H100 by the
 bytes of the lanes and the touched pages. Design and arithmetic notes
@@ -59,6 +61,44 @@ def agg_identities(val_dtype):
         return vd.type(np.inf), vd.type(-np.inf)
     info = np.iinfo(vd)
     return vd.type(info.max), vd.type(info.min)
+
+
+# jnp.min / jnp.minimum rank -0.0 below +0.0 in either order (and jnp.max
+# +0.0 above -0.0); torch.amin / torch.minimum return whichever zero the
+# order gives. These four give the reference's bits: NaN propagates, a
+# zero result takes the sign the reference gives it, integers are as is.
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.minimum`` with ``jnp.minimum``'s signed zeros."""
+    m = torch.minimum(a, b)
+    if not m.is_floating_point():
+        return m
+    return torch.where((m == 0) & (a.signbit() | b.signbit()), -0.0, m)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.maximum`` with ``jnp.maximum``'s signed zeros."""
+    m = torch.maximum(a, b)
+    if not m.is_floating_point():
+        return m
+    return torch.where((m == 0) & ~(a.signbit() & b.signbit()), 0.0, m)
+
+
+def amin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.amin(dim)`` with ``jnp.min``'s signed zeros: a zero minimum
+    (every entry >= 0, none NaN) is -0.0 if any entry is -0.0."""
+    m = x.amin(dim)
+    if not m.is_floating_point():
+        return m
+    return torch.where((m == 0) & x.signbit().any(dim), -0.0, m)
+
+
+def amax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.amax(dim)`` with ``jnp.max``'s signed zeros: a zero maximum
+    (every entry <= 0, none NaN) is +0.0 unless every entry is -0.0."""
+    m = x.amax(dim)
+    if not m.is_floating_point():
+        return m
+    return torch.where((m == 0) & ~x.signbit().all(dim), 0.0, m)
 
 
 def _mask_scalar(mask_value, dtype: torch.dtype):
@@ -108,8 +148,8 @@ def page_scan_plain(lo_b: torch.Tensor, hi_b: torch.Tensor,
             m = m & (v != mask)
         outs[2][s:s + step] = torch.where(m, v, 0).sum(-1, dtype=vd)
         if mode == "full":
-            outs[3][s:s + step] = torch.where(m, v, id_min).amin(-1)
-            outs[4][s:s + step] = torch.where(m, v, id_max).amax(-1)
+            outs[3][s:s + step] = amin(torch.where(m, v, id_min), -1)
+            outs[4][s:s + step] = amax(torch.where(m, v, id_max), -1)
     return tuple(outs)
 
 

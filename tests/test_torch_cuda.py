@@ -128,17 +128,28 @@ def same_values(g, w):
     return torch.equal(nan, torch.isnan(w)) and torch.equal(g[~nan], w[~nan])
 
 
+def same_bits(g, w):
+    """As same_values, and every non-NaN lane with the same sign bit:
+    -0.0 and +0.0 differ here, as their bits do."""
+    if not same_values(g, w):
+        return False
+    if not g.is_floating_point():
+        return True
+    num = ~torch.isnan(w)
+    return torch.equal(torch.signbit(g[num]), torch.signbit(w[num]))
+
+
 def assert_kernel_matches(got, want, used, sum_at):
     """Counts, int32 sums, min and max bit for bit (NaN where the plain
-    version has it); float sums to rtol 1e-4, NaN at the same lanes (the
-    kernel adds in double in its own order, the plain version in float32
-    in torch's)."""
+    version has it, -0.0 where it has -0.0); float sums to rtol 1e-4, NaN
+    at the same lanes (the kernel adds in double in its own order, the
+    plain version in float32 in torch's)."""
     for i, (g, w) in enumerate(zip(got, want)):
         if i == sum_at and g.dtype == torch.float32:
             torch.testing.assert_close(g[:used], w[:used], rtol=1e-4,
                                        atol=1e-4, equal_nan=True)
         else:
-            assert same_values(g[:used], w[:used])
+            assert same_bits(g[:used], w[:used]), f"output {i}"
 
 
 @pytest.mark.cuda
@@ -354,11 +365,13 @@ def special_scan_case(rng, lw_pad=2048, tq=128):
 @pytest.mark.parametrize("mode", ["sum", "full"])
 def test_page_scan_kernel_special_values(cuda, mode, mask):
     """NaN, +-inf, +-1e30 and signed zeros in the value pages: the kernel
-    equals the plain version, with min and max NaN at every lane whose
-    range holds a NaN value (jnp.min / jnp.max propagate it), and no
-    infinity or NaN outside a range in its sum."""
-    lo, hi, sp, kp, vp = (t.to(cuda) for t in special_scan_case(
-        np.random.default_rng(21)))
+    equals the plain version bit for bit, with min and max NaN at every
+    lane whose range holds a NaN value (jnp.min / jnp.max propagate it),
+    min -0.0 and max +0.0 at every lane of page 0 (only signed zeros)
+    whose range takes in both zeros and nothing else, and no infinity or
+    NaN outside a range in its sum."""
+    case = special_scan_case(np.random.default_rng(21))
+    lo, hi, sp, kp, vp = (t.to(cuda) for t in case)
     got = ps.page_scan_bucketed(lo, hi, sp, kp, vp, mode=mode,
                                 mask_value=mask)
     want = ps.page_scan_plain(lo, hi, sp, kp, vp, mode=mode, mask_value=mask)
@@ -370,6 +383,21 @@ def test_page_scan_kernel_special_values(cuda, mode, mask):
         assert bool(nan.any()) and not bool(nan.all())
         assert torch.equal(torch.isnan(got[3]), nan)
         assert torch.equal(torch.isnan(got[4]), nan)
+        # page 0: lanes whose masked range holds only zeros, of both signs
+        lo_h, hi_h, sp_h, kp_h, vp_h = (t.numpy() for t in case)
+        k, v = kp_h[0], vp_h[0]
+        rows = np.flatnonzero(sp_h == 0)
+        m = (k >= lo_h[rows, :, None]) & (k <= hi_h[rows, :, None])
+        if mask is not None:
+            m &= v != mask
+        zero = v == 0
+        both = (~(m & ~zero).any(-1) & (m & zero & np.signbit(v)).any(-1)
+                & (m & zero & ~np.signbit(v)).any(-1))
+        mn, mx = got[3].cpu().numpy()[rows], got[4].cpu().numpy()[rows]
+        assert np.all((mn[both] == 0) & np.signbit(mn[both]))
+        assert np.all((mx[both] == 0) & ~np.signbit(mx[both]))
+        if mask is not None:
+            assert both.sum() > 10
 
 
 @pytest.mark.cuda
@@ -414,23 +442,101 @@ def cdf_rows(rng, B: int, V: int):
     return cdf, u
 
 
+def cdf_kernel_cases(cd, ud, rng):
+    """(name, cdf, u) on the card: the rows as given; an odd width (V - 1,
+    the scalar path); a base one float past 16-byte alignment (V % 4 == 0,
+    still the scalar path); rows that are not monotone, on which the count
+    and a binary search differ; NaN inside rows and in u."""
+    B, V = cd.shape
+    buf = torch.empty(B * V + 1, dtype=torch.float32, device=cd.device)
+    shifted = buf[1:].view(B, V)
+    shifted.copy_(cd)
+    rough = torch.from_numpy(rng.random((B, V), dtype=np.float32)).to(cd.device)
+    nan_rows = cd.clone()
+    nan_rows[::2, V // 3] = float("nan")
+    nan_u = ud.clone()
+    nan_u[1::3] = float("nan")
+    cases = [("as given", cd, ud), ("unaligned base", shifted, ud),
+             ("not monotone", rough, ud),
+             ("NaN in rows and u", nan_rows, nan_u)]
+    if V > 1:
+        cases.append(("odd width", cd[:, 1:].contiguous(), ud))
+    return cases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,V", [(1, 100), (3, 1000), (8, 2048),
-                                 (64, 152_064), (256, 1000)])
+                                 (64, 152_064), (256, 1000), (1, 152_064),
+                                 (8, 152_064), (256, 152_064), (5, 1),
+                                 (6, 7)])
 def test_cdf_kernel_matches_plain(cuda, B, V):
+    """The kernel against its plain version, exactly: the serving shapes
+    (V = 152,064 at B = 1, 8, 64, 256), V = 1 and 7, slices shorter than
+    a block (V = 100, 1000), the scalar path, rows that are not monotone
+    and NaN; np.searchsorted agrees on the sorted rows, and differs from
+    the count on some rough ones."""
     from repro_torch.kernels import cdf_search as cs
-    cdf, u = cdf_rows(np.random.default_rng(B + V), B, V)
+    rng = np.random.default_rng(B + V)
+    cdf, u = cdf_rows(rng, B, V)
     cd, ud = torch.from_numpy(cdf).to(cuda), torch.from_numpy(u).to(cuda)
     got = cs.cdf_search(cd, ud)
-    want = cs.invert_cdf(cd, ud)
     torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and torch.equal(got, want)
     ref = np.array([np.searchsorted(cdf[b], u[b], "left") for b in range(B)])
+    assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.cpu().numpy(), np.minimum(ref, V - 1))
-    # an unaligned view takes the scalar path
-    odd = torch.from_numpy(np.ascontiguousarray(cdf[:, 1:])).to(cuda)
-    assert torch.equal(cs.cdf_search(odd, ud), cs.invert_cdf(odd, ud))
+    for name, c, uu in cdf_kernel_cases(cd, ud, rng):
+        got = cs.cdf_search(c, uu)
+        want = cs.invert_cdf(c, uu)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+    if V >= 1000:                 # the count is not a binary search there
+        rough = rng.random((B, V), dtype=np.float32)
+        mid = rng.uniform(0.2, 0.8, B).astype(np.float32)
+        count = cs.cdf_search(torch.from_numpy(rough).to(cuda),
+                              torch.from_numpy(mid).to(cuda))
+        search = [np.searchsorted(rough[b], mid[b], "left")
+                  for b in range(B)]
+        assert not np.array_equal(count.cpu().numpy(),
+                                  np.minimum(search, V - 1))
     assert cs.cdf_search(cd[:0], ud[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_cdf_kernel_row_loop(cuda):
+    """More rows than one launch's grid holds (65,535 clusters): the
+    clusters loop over rows, and every row is counted."""
+    from repro_torch.kernels import cdf_search as cs
+    rng = np.random.default_rng(7)
+    B, V = 70_000, 12
+    cdf = torch.from_numpy(rng.random((B, V), dtype=np.float32)).to(cuda)
+    u = torch.from_numpy(rng.random(B, dtype=np.float32)).to(cuda)
+    got = cs.cdf_search(cdf, u)
+    want = cs.invert_cdf(cdf, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cdf_kernel_one_launch_a_call(cuda):
+    """One call makes one device kernel, the CDF kernel: no fill of the
+    output and no clamp after it (the profiler's device events), and adds
+    one to the launch counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import cdf_search as cs
+    cdf, u = cdf_rows(np.random.default_rng(1), 8, 152_064)
+    cd, ud = torch.from_numpy(cdf).to(cuda), torch.from_numpy(u).to(cuda)
+    cs.cdf_search(cd, ud)
+    torch.cuda.synchronize()
+    before = cs.cdf_search.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.cdf_search(cd, ud)
+        torch.cuda.synchronize()
+    assert cs.cdf_search.launches == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "cdf_search_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda

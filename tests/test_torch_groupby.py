@@ -4,7 +4,8 @@
 The same seeded numpy inputs go through ``repro`` (JAX, Pallas kernels in
 interpret mode) and ``repro_torch`` (on the CPU, the kernels' plain
 versions). Edges, ranks, counts, int32 sums, min, max and top-K must be
-bit-identical; float32 sums agree to rtol 1e-4, atol 1e-4 (the reference's
+bit-identical (a float's sign bit too, so -0.0 != +0.0; NaN at the same
+lanes); float32 sums agree to rtol 1e-4, atol 1e-4 (the reference's
 tolerance: the reduction order differs). No subnormal floats: XLA's CPU
 backend flushes them to zero in compares."""
 import zlib
@@ -35,6 +36,11 @@ def assert_same(got, want, what=""):
                                    err_msg=what)
     else:
         np.testing.assert_array_equal(got, want, err_msg=what)
+        if np.issubdtype(got.dtype, np.floating):
+            num = ~np.isnan(want)
+            np.testing.assert_array_equal(np.signbit(got[num]),
+                                          np.signbit(want[num]),
+                                          err_msg=f"{what}: sign bits")
 
 
 def group_queries(dtype, q_n, seed, keys=None):
@@ -156,11 +162,37 @@ def test_multi_reduce_matches_reference(mode):
             assert_same(g, w, mode)
 
 
+def test_multi_reduce_signed_zeros_match_reference():
+    """Float32 partial minima and maxima of +-0.0 (and a NaN, +-inf)
+    folded over R: -0.0 is the min and +0.0 the max whatever the order,
+    as jnp.min / jnp.max give them."""
+    rng = np.random.default_rng(10)
+    Q, R = 64, 4
+    cnt = rng.integers(0, 3, Q * R).astype(np.int32)
+    zeros = np.where(rng.random((2, Q * R)) < 0.5, -0.0, 0.0)
+    mn, mx = zeros.astype(np.float32)
+    mn[:3], mx[:3] = np.nan, np.inf
+    mn[3:5] = -np.inf
+    vs = rng.normal(size=Q * R).astype(np.float32)
+    rlo = rng.integers(0, 1000, Q * R).astype(np.int32)
+    args = (cnt, vs, mn, mx, rlo, rlo + cnt)
+    want = ref_gb._multi_reduce(R, "full", *map(jnp.asarray, args))
+    got = pt_gb._multi_reduce(R, "full", *map(torch.from_numpy, args))
+    for f, g, w in zip(("count", "vsum", "vmin", "vmax"), got, want):
+        assert_same(g, w, f)
+    assert np.signbit(np.asarray(want[2])).sum() > Q // 2
+
+
 # ------------------------------------------------------------ the slice
 def make_index_case(name):
     rng = np.random.default_rng(zlib.crc32(name.encode()))
-    n = int(name[4:])
-    if name.startswith("i32_"):
+    n = int(name.split("_")[1])
+    if name.startswith("zeros_"):   # values +-0.0, a few NaN and +-inf
+        keys = (rng.normal(size=n) * 1e3).astype(np.float32)
+        vals = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        vals[rng.choice(n, 12, replace=False)] = np.repeat(
+            [np.nan, np.inf, -np.inf], 4)
+    elif name.startswith("i32_"):
         keys = rng.integers(-2**30, 2**30, n).astype(np.int32)
         vals = rng.integers(I32.min, I32.max, n).astype(np.int32)
     else:
@@ -181,13 +213,15 @@ def indexes():
     def get(name):
         if name not in cache:
             keys, vals = make_index_case(name)
+            # the small signed-zero index over pages of 128, so ranges
+            # cross interior pages (read from the sparse tables)
+            kw = {"leaf_width": 128} if name.startswith("zeros_") else {}
             cache[name] = (
                 keys,
-                ref_core.build_index(keys, vals,
-                                     ref_core.IndexConfig(kind="tiered")),
-                pt_core.build_index(keys, vals,
-                                    pt_core.IndexConfig(kind="tiered"),
-                                    device="cpu"))
+                ref_core.build_index(keys, vals, ref_core.IndexConfig(
+                    kind="tiered", **kw)),
+                pt_core.build_index(keys, vals, pt_core.IndexConfig(
+                    kind="tiered", **kw), device="cpu"))
         return cache[name]
     return get
 
@@ -238,6 +272,21 @@ def test_scan_multi_matches_reference(name, op, indexes):
     for f in ("count", "r_lo", "r_hi_excl", "vsum", "vmin", "vmax"):
         assert_same(getattr(got, f), getattr(want, f), f"{op} {f}")
     assert int(want.count.sum()) > 0
+
+
+def test_scan_groups_signed_zeros_match_reference(indexes):
+    """Full-mode groups over values of +-0.0 with a few NaN and +-inf:
+    bucket min -0.0 and max +0.0 wherever a bucket takes in both zeros
+    and no NaN, bit for bit with the reference."""
+    keys, ref_idx, pt_idx = indexes("zeros_4097")
+    lo, hi = group_queries(keys.dtype, 48, seed=6, keys=keys)
+    want = ref_idx.scan_groups(lo, hi, G)
+    got = pt_idx.scan_groups(lo, hi, G)
+    assert_groups_same(got, want)
+    mn, mx = np.asarray(want.vmin), np.asarray(want.vmax)
+    assert (np.signbit(mn) & (mn == 0)).sum() > 10
+    assert (~np.signbit(mx) & (mx == 0)).sum() > 10
+    assert np.isnan(mn).any()
 
 
 def test_scan_groups_and_multi_validation_match_reference(indexes):

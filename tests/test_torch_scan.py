@@ -4,9 +4,10 @@
 The same seeded numpy inputs go through ``repro`` (JAX, Pallas kernels in
 interpret mode) and ``repro_torch`` (on the CPU, the kernels' plain
 versions). Ranks, counts, int32 sums, min, max and materialized rows must
-be bit-identical; float32 sums agree to the reference's own tolerance
-(rtol 1e-4, atol 1e-4: the reduction order differs). Subnormal floats stay
-out of the inputs: XLA's CPU backend flushes them to zero in compares."""
+be bit-identical (a float's sign bit too, so -0.0 != +0.0; NaN at the same
+lanes); float32 sums agree to the reference's own tolerance (rtol 1e-4,
+atol 1e-4: the reduction order differs). Subnormal floats stay out of the
+inputs: XLA's CPU backend flushes them to zero in compares."""
 import zlib
 
 import numpy as np
@@ -37,6 +38,19 @@ def assert_sums(got, want):
                                    atol=1e-4)
     else:
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def assert_bits(got, want, what=""):
+    """Equal as values with NaN at the same lanes, and every other lane
+    with the same sign bit: -0.0 and +0.0 differ here, as their bits do."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype, what
+    np.testing.assert_array_equal(got, want, err_msg=what)
+    if np.issubdtype(got.dtype, np.floating):
+        num = ~np.isnan(want)
+        np.testing.assert_array_equal(np.signbit(got[num]),
+                                      np.signbit(want[num]),
+                                      err_msg=f"{what}: sign bits")
 
 
 # ------------------------------------------------------------------ kernels
@@ -156,8 +170,8 @@ def special_scan_case(seed):
 def test_page_scan_plain_special_values_match_reference(mode, mask):
     """NaN, +-inf, +-1e30 and signed zeros inside and outside the ranges:
     sums and counts as the reference gives them, min and max NaN where a
-    NaN value is in range (jnp.min / jnp.max propagate it), equal as values
-    elsewhere (a zero's sign may differ)."""
+    NaN value is in range (jnp.min / jnp.max propagate it) and bit for bit
+    elsewhere: -0.0 is the min and +0.0 the max of {-0.0, +0.0}."""
     lo, hi, pids, kp, vp = special_scan_case(seed=5)
     mv = MASK if mask else None
     want = ref_pscan.page_scan_bucketed(
@@ -170,12 +184,17 @@ def test_page_scan_plain_special_values_match_reference(mode, mask):
     for i, (g, w) in enumerate(zip(got, want)):
         if i == 2:
             assert_sums(g.numpy(), w)
-        else:                     # NaN only where both have it; -0.0 == 0.0
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:                     # NaN only where both have it
+            assert_bits(g.numpy(), w, f"output {i}")
     if mode == "full":            # the pages put NaN in some ranges, not all
         nan = np.isnan(got[3].numpy())
         assert nan.any() and not nan.all()
         np.testing.assert_array_equal(nan, np.isnan(got[4].numpy()))
+        # page 0 holds only signed zeros: min -0.0 and max +0.0 where a
+        # lane's range takes in both
+        mn, mx = got[3].numpy(), got[4].numpy()
+        assert (np.signbit(mn) & (mn == 0)).any()
+        assert (~np.signbit(mx) & (mx == 0)).any()
     assert np.isinf(got[2].numpy()).any()
 
 
@@ -291,6 +310,19 @@ def make_case(name):
                              rng.normal(size=100) * 1e3])
         width = rng.normal(size=lo.size) * 300
         whole = ([-np.inf, -3.4e38], [3.4e38, 0.0])
+    elif name == "zeros":          # values +-0.0, a few NaN and +-inf
+        n = 4097
+        keys = (rng.normal(size=n) * 1e3).astype(np.float32)
+        keys[:2] = [0.0, -0.0]
+        vals = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        vals[rng.choice(n, 12, replace=False)] = np.repeat(
+            [np.nan, np.inf, -np.inf], 4)
+        lo = np.concatenate([keys[rng.integers(0, n, 200)],
+                             rng.normal(size=100) * 1e3])
+        width = np.abs(rng.normal(size=lo.size)) \
+            * 10.0 ** rng.integers(0, 4, lo.size)
+        whole = ([-np.inf, -3.4e38], [3.4e38, 0.0])
+        kw = {"leaf_width": 128}
     else:                          # duplicate runs across narrow pages
         n = 5000
         keys = rng.integers(0, 40, n).astype(np.int32)
@@ -337,9 +369,7 @@ def assert_scan_same(got, want, fields):
         elif f == "vsum":
             assert_sums(g.numpy(), w)
         else:
-            assert g.numpy().dtype == np.asarray(w).dtype, f
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
-                                          err_msg=f)
+            assert_bits(g.numpy(), w, f)
 
 
 ALL_FIELDS = ("count", "r_lo", "r_hi_excl", "vsum", "vmin", "vmax", "ranks",
@@ -365,6 +395,22 @@ def test_scan_range_full_and_materialize_match_reference(name, indexes):
                                   np.asarray(ref_sc.vpages))
     for g, w in zip(pt_sc.aux, ref_sc.aux):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_scan_range_signed_zeros_match_reference(indexes):
+    """Float32 keys whose values are +-0.0 with a few NaN and +-inf, over
+    pages of 128 (interior pages come from the sparse tables): the full
+    aggregates bit for bit, so vmin is -0.0 and vmax +0.0 wherever a range
+    takes in both zeros and no NaN, as jnp.min / jnp.max give them."""
+    ref_idx, pt_idx = indexes("zeros")
+    _, _, lo, hi, _ = make_case("zeros")
+    want = ref_idx.scan_range(lo, hi)
+    got = pt_idx.scan_range(lo, hi)
+    assert_scan_same(got, want, ALL_FIELDS[:6])
+    mn, mx = np.asarray(want.vmin), np.asarray(want.vmax)
+    assert (np.signbit(mn) & (mn == 0)).sum() > 10
+    assert (~np.signbit(mx) & (mx == 0)).sum() > 10
+    assert np.isnan(mn).any() and np.isinf(mn).any()
 
 
 @pytest.mark.parametrize("name", ["i32_32768", "f32_32769", "dups"])
