@@ -67,26 +67,47 @@ Phases, in order; any failure exits non-zero with its traceback:
      without it its times are null;
   9. the serving path at qwen3-0.6b's full width (28 layers, d_model
      1024, vocab 151,936 padded to 152,064; 596,180,992 float32
-     parameters from the seed): ServeEngine over the immutable tiered
-     prefix store, 8 prompts of 48 tokens sharing 32 (the reference
-     launcher's prompts), 32 sampled decode steps (temperature 0.8,
-     top-p 0.9), two rounds, with the launch counters set to 0 before and
-     read after. Checks: (a) prefill computed/reused 288/480 and the
-     store stats the reference launcher prints; (b) warm prefill logits
-     equal cold ones within 2e-3; (c) greedy tokens equal the argmax of a
-     full forward where the top-2 margin exceeds 2e-3; (d) every sampled
-     token inside its top-p nucleus (float64, 1e-4 slack); (e) one
-     cdf_search launch per decode step, and the kernel equal to its plain
-     version on every captured (cdf, u), and the page kernel equal to its
-     plain version on every probe the prefix store made, at the store's
-     own shapes; (f) one decode step (sample +
-     decode_step) under set_sync_debug_mode("error"). Then CUDA-event
-     times of prefill (cold, warm), the decode step and its parts, the
-     kernel at B in {8, 64, 256} beside torch.searchsorted, their bounds,
-     one profiled decode step and one profiled sampler call;
- 10. one line {"kernels": [...]} with each kernel's launches, times
+     parameters from the seed): ServeEngine on its default prefix store,
+     the mutable tiered store, 8 prompts of 48 tokens sharing 32 (the
+     reference launcher's prompts), 32 sampled decode steps (temperature
+     0.8, top-p 0.9), two rounds, with the launch counters set to 0
+     before and read after; then the same on the wholesale store (the
+     immutable index rebuilt on the probe after an insert), same weights.
+     Checks: (a) prefill computed/reused 288/480 and the store stats and
+     write-path counters the reference launcher prints for each posture;
+     (b) warm prefill logits equal cold ones within 2e-3; (c) greedy
+     tokens equal the argmax of a full forward where the top-2 margin
+     exceeds 2e-3; (d) every sampled token inside its top-p nucleus
+     (float64, 1e-4 slack); (e) one cdf_search launch per decode step and
+     the kernel equal to its plain version on every captured (cdf, u);
+     the mutable store keeps its 10 page hashes in the delta buffer and
+     launches no page kernel, the wholesale store's page kernel equals
+     its plain version on every probe, at the store's own shapes; (f) one
+     decode step (sample + decode_step) under set_sync_debug_mode
+     ("error"). Then CUDA-event times of prefill (cold, warm, on each
+     store), the decode step and its parts, the kernel at B in {8, 64,
+     256} beside torch.searchsorted, their bounds, one profiled decode
+     step and one profiled sampler call;
+ 10. the mutable store at full size: build_index(IndexConfig(kind=
+     "tiered", mutable=True)) over phase 4's 2^24 keys and values (10,923
+     gapped pages of 2,048 slots, 1,536 live, a depth-2 k-ary top), then
+     8 rounds of the reference's update benchmark mix: 2,048 new keys,
+     1,024 upserts and 1,024 deletes (seals and backpressure folds),
+     maintain(), and a lookup of 2^20 queries (half resident, a quarter
+     written this round, a quarter misses) under set_sync_debug_mode
+     ("error") with the launch counters set to 0 before and read after;
+     round 4 crowds one page with 600 keys: a repack and a re-derived
+     top. Each round: found and values against a numpy oracle, the slot
+     address of every base hit holding its key, n, every page sorted;
+     the page and k-ary kernels against their plain versions on the
+     store's own operands before and after the repack. Then CUDA-event
+     times of the lookup, the delta probe and the base pipeline beside
+     phase 4's immutable lookup, host µs a write, fold and repack ms,
+     and one profiled lookup;
+ 11. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
-     call's) and bound; the last line {"ok": true, "device": {...}}.
+     call's) and bound, and for the page and k-ary kernels the store's
+     launches a lookup; the last line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -1444,11 +1465,17 @@ SERVE_ARCH = "qwen3-0.6b"
 SERVE_STEPS, SERVE_ROUNDS = 32, 2
 TOP_P, TEMPERATURE = 0.9, 0.8
 GREEDY_TOL = 2e-3          # the reference's warm/cold prefill tolerance
-# what the reference launcher prints for --wholesale --no-decode-queue
-# --rounds 2 with its default prompts (8 x 48 tokens, 32 shared): the
-# counts depend on the prompt structure only, not on the model's width
+# what the reference launcher prints for --no-decode-queue --rounds 2 with
+# its default prompts (8 x 48 tokens, 32 shared), on its default prefix
+# store (the mutable one) and with --wholesale: the counts depend on the
+# prompt structure only, not on the model's width
 WANT_REUSE = (288, 480)
 WANT_STORE = {"lookups": 23, "hits": 15, "rebuilds": 9, "verify_rejects": 0}
+WANT_STORE_MUTABLE = dict(WANT_STORE, rebuilds=0)
+WANT_WRITE_PATH = {"inserts": 10, "upserts": 0, "deletes": 0, "merges": 0,
+                   "splits": 0, "pages_touched": 0, "rows_rewritten": 0,
+                   "top_derives": 0, "base_rebuilds": 0, "shadowed": 0,
+                   "seals": 0, "maintains": 0, "journal_replayed": 0}
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -1475,42 +1502,19 @@ def in_nucleus(logits: np.ndarray, tokens: np.ndarray) -> bool:
     return bool((above < TOP_P + 1e-4).all())
 
 
-def serve_path(dev, seed: int):
-    """Phase 9: ServeEngine.generate at qwen3-0.6b's full width."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import IndexConfig
+def served_run(eng, prompts, gen):
+    """Two rounds of eng.generate with the kernel launch counters set to 0
+    before and read after, keeping the sampler's logits and (cdf, u) and
+    the operands of every page-kernel call the prefix store makes."""
     from repro_torch.engine import tiered
     from repro_torch.kernels import cdf_search as cs
     from repro_torch.kernels import kary_search as kk
     from repro_torch.kernels import page_scan as ps
     from repro_torch.kernels import page_search as pk
-    from repro_torch.launch.serve import make_prompts
-    from repro_torch.models import transformer as T
-    from repro_torch.serve import SamplerConfig, ServeEngine
     from repro_torch.serve import engine as E
     from repro_torch.serve import sampler as S
 
-    cfg = get_config(SERVE_ARCH)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = T.param_count(params)
-    check(n_params == 596_180_992, f"{n_params} parameters")
-    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
-
-    def engine(sampler):
-        return ServeEngine(cfg, params, max_len=256, page_size=16,
-                           index_config=IndexConfig(kind="tiered",
-                                                    plan="device",
-                                                    mutable=False),
-                           decode_batching=False, sampler=sampler)
-
-    prompts = make_prompts(cfg.vocab)
-    eng = engine(scfg)
-
-    # ---- the counted run, with the sampler's logits and (cdf, u) kept
-    seen = {"logits": [], "tokens": [], "cdf_u": []}
+    seen = {"logits": [], "tokens": [], "cdf_u": [], "probes": []}
     real_sample, real_kops = E.sample, S.kops
 
     def rec_sample(logits, cfg_, *, generator=None):
@@ -1525,7 +1529,6 @@ def serve_path(dev, seed: int):
 
     # the prefix store's probes reach the page kernel through the tiered
     # engine's ``_page``: keep each call's operands as the path built them
-    seen["probes"] = []
     real_page = tiered._page
 
     def rec_page(qb, step_pages, pages, *, stride, steps_used=None):
@@ -1544,7 +1547,6 @@ def serve_path(dev, seed: int):
     S.kops = types.SimpleNamespace(topp_search=rec_topp)
     tiered._page = types.SimpleNamespace(
         **{**vars(real_page), "page_search_bucketed": rec_page})
-    gen = torch.Generator(dev).manual_seed(seed)
     t0 = time.perf_counter()
     try:
         for _ in range(SERVE_ROUNDS):
@@ -1552,19 +1554,29 @@ def serve_path(dev, seed: int):
     finally:
         E.sample, S.kops, tiered._page = real_sample, real_kops, real_page
     torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    seen["generate_s"] = time.perf_counter() - t0
+    seen["launches"] = {c.__name__: c.launches for c in counters}
+    seen["out"] = out
+    return seen
+
+
+def check_served(cfg, eng, seen, prompts, want_store, want_write_path,
+                 what: str) -> dict:
+    """Checks (a), (d) and (e) of one posture's counted run."""
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.kernels import page_search as pk
+    launches, out = seen["launches"], seen["out"]
     steps = SERVE_STEPS * SERVE_ROUNDS
-    check(launches["cdf_search"] == steps, f"cdf_search launched "
+    check(launches["cdf_search"] == steps, f"{what}: cdf_search launched "
           f"{launches['cdf_search']} times, want one a decode step ({steps})")
-    check(launches["page_search_bucketed"] > 0,
-          "the prefix store's probes did not reach the page kernel")
     # (a) prefix reuse as the reference launcher counts it
     st = eng.stats
     reuse, store_stats = (st.prefill_tokens, st.reused_tokens), \
         dict(eng.store.stats)
-    check(reuse == WANT_REUSE, f"prefill computed/reused {reuse}")
-    check(store_stats == WANT_STORE, f"store stats {store_stats}")
+    check(reuse == WANT_REUSE, f"{what}: prefill computed/reused {reuse}")
+    check(store_stats == want_store, f"{what}: store stats {store_stats}")
+    check(eng.store.index_stats == want_write_path,
+          f"{what}: write path {eng.store.index_stats}")
     check(st.decode_tokens == steps * len(prompts), "decode tokens")
     check(tuple(out.shape) == (len(prompts), SERVE_STEPS)
           and out.dtype == torch.int32, f"tokens out {tuple(out.shape)}")
@@ -1599,15 +1611,80 @@ def serve_path(dev, seed: int):
               f"pages, {u} steps used)")
         probe_err = max(probe_err, max_abs_err(got[:u], want[:u]))
         probe_shapes.add((*qb.shape, pages.shape[0], u))
+    return {"launches": launches, "prefill_computed_reused": list(reuse),
+            "prefix_store": store_stats,
+            "write_path": eng.store.index_stats,
+            "store_probes_checked": len(seen["probes"]),
+            "store_probe_max_abs_err": probe_err,
+            "store_probe_shapes_g_tq_pages_used": sorted(probe_shapes),
+            "cdf_max_abs_err": cdf_err, "generate_s": seen["generate_s"]}
 
-    # (b) warm prefill (two pages reused) == cold prefill
-    warm, _ = eng.prefill_one(prompts[0])
+
+def serve_path(dev, seed: int):
+    """Phase 9: ServeEngine.generate at qwen3-0.6b's full width, on the
+    mutable prefix store (the default) and on the wholesale one."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import IndexConfig
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve import sampler as S
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    check(n_params == 596_180_992, f"{n_params} parameters")
+    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
+
+    def engine(sampler, wholesale=False):
+        config = IndexConfig(kind="tiered", plan="device", mutable=False) \
+            if wholesale else None            # None: the mutable default
+        return ServeEngine(cfg, params, max_len=256, page_size=16,
+                           index_config=config, decode_batching=False,
+                           sampler=sampler)
+
+    prompts = make_prompts(cfg.vocab)
+    steps = SERVE_STEPS * SERVE_ROUNDS
+    # ---- the counted runs: the mutable default (the main path), then the
+    # wholesale posture on the same weights
+    eng = engine(scfg)
+    check(eng.store.index_config.mutable, "the default store is not mutable")
+    gen = torch.Generator(dev).manual_seed(seed)
+    seen = served_run(eng, prompts, gen)
+    posture = {"mutable": check_served(cfg, eng, seen, prompts,
+                                       WANT_STORE_MUTABLE, WANT_WRITE_PATH,
+                                       "mutable store")}
+    # all 10 page hashes stay in the 1,024-entry delta buffer: the probes
+    # are delta probes and reach no page kernel (phase 10 holds it)
+    launches = seen["launches"]
+    check(launches["page_search_bucketed"] == 0
+          and launches["kary_search_levels"] == 0,
+          f"the mutable store launched a base kernel: {launches}")
+    check(eng.store._index.base is None, "the mutable store built a base")
+    whole = engine(scfg, wholesale=True)
+    seen_w = served_run(whole, prompts,
+                        torch.Generator(dev).manual_seed(seed))
+    posture["wholesale"] = check_served(cfg, whole, seen_w, prompts,
+                                        WANT_STORE, {}, "wholesale store")
+    check(seen_w["launches"]["page_search_bucketed"] > 0,
+          "the wholesale store's probes did not reach the page kernel")
+    cdf_err = posture["mutable"]["cdf_max_abs_err"]
+
+    # (b) warm prefill (two pages reused) == cold prefill, on both stores
     cold_eng = engine(scfg)
+    cold_whole = engine(scfg, wholesale=True)
     cold, _ = cold_eng.prefill_one(prompts[0])
-    check(torch.allclose(warm, cold, atol=GREEDY_TOL, rtol=GREEDY_TOL),
-          "warm prefill logits differ from cold beyond 2e-3: "
-          f"{float((warm - cold).abs().max())}")
-    warm_err = float((warm - cold).abs().max())
+    warm_err = 0.0
+    for e in (eng, whole):
+        warm, _ = e.prefill_one(prompts[0])
+        check(torch.allclose(warm, cold, atol=GREEDY_TOL, rtol=GREEDY_TOL),
+              "warm prefill logits differ from cold beyond 2e-3: "
+              f"{float((warm - cold).abs().max())}")
+        warm_err = max(warm_err, float((warm - cold).abs().max()))
 
     # (c) greedy tokens are the argmax of a full forward, where the top-2
     # margin exceeds the tolerance
@@ -1654,10 +1731,16 @@ def serve_path(dev, seed: int):
     probs = torch.softmax(lg8 / TEMPERATURE, dim=-1)
     p_sorted = torch.sort(probs, dim=-1, descending=True, stable=True)[0]
     nxt = S.sample(lg8, scfg, generator=gen)
+    st = eng.stats
     times = {
+        # host clock, median of 5, on the mutable store and the wholesale
         "prefill_cold_ms": host_ms(
             lambda: cold_eng.prefill_one(prompts[0], probe=(0, []))),
         "prefill_warm_ms": host_ms(lambda: eng.prefill_one(prompts[0])),
+        "wholesale_prefill_cold_ms": host_ms(
+            lambda: cold_whole.prefill_one(prompts[0], probe=(0, []))),
+        "wholesale_prefill_warm_ms": host_ms(
+            lambda: whole.prefill_one(prompts[0])),
         "decode_step_ms": cuda_ms(step),
         "model_ms": cuda_ms(lambda: T.decode_step(
             cfg, params, nxt, cache, compute_dtype=torch.float32)),
@@ -1735,15 +1818,269 @@ def serve_path(dev, seed: int):
     shape = {"arch": SERVE_ARCH, "params": n_params, "requests": len(prompts),
              "prompt_len": int(prompts[0].size), "steps": SERVE_STEPS,
              "rounds": SERVE_ROUNDS, "launches": launches,
-             "prefill_computed_reused": list(reuse),
-             "prefix_store": store_stats,
-             "store_probes_checked": len(seen["probes"]),
-             "store_probe_max_abs_err": probe_err,
-             "store_probe_shapes_g_tq_pages_used": sorted(probe_shapes),
-             "greedy_tokens_checked": checked,
+             "postures": posture, "greedy_tokens_checked": checked,
              "warm_cold_max_abs_diff": warm_err, "init_s": init_s,
-             "generate_s": generate_s, "kv_len": L}
+             "kv_len": L}
     return row, dict(shape, **times)
+
+
+# -------------------------------------------------------------- phase 10
+# The reference's update benchmark (benchmarks/bench_updates.py: rounds of
+# write batches and lookup batches, a delete-heavy mix) at phase 4's size:
+# each round writes 2,048 new keys, 1,024 upserts and 1,024 deletes of
+# resident keys (four crossings of the 1,024-entry delta buffer: seals and
+# backpressure folds), folds, then looks up 2^20 keys. One round also
+# crowds one page past leaf_width: a repack and a re-derived top.
+STORE_ROUNDS = 8
+STORE_NEW, STORE_UPSERTS, STORE_DELETES = 2048, 1024, 1024
+STORE_SPLIT_ROUND, STORE_SPLIT_KEYS = 4, 600
+
+
+def capture_store_kernels(store, q_dev):
+    """One store lookup with the operands of its page-kernel and k-ary
+    kernel calls kept, as the store's pipeline built them."""
+    from repro_torch.engine import tiered
+    real_page, real_kary = tiered._page, tiered._kary
+    seen = {}
+
+    def rec_page(*args, **kw):
+        seen["page"] = (args, kw)
+        return real_page.page_search_bucketed(*args, **kw)
+
+    def rec_kary(*args, **kw):
+        seen["kary"] = (args, kw)
+        return real_kary.kary_search_levels(*args, **kw)
+
+    tiered._page = types.SimpleNamespace(
+        **{**vars(real_page), "page_search_bucketed": rec_page})
+    tiered._kary = types.SimpleNamespace(
+        **{**vars(real_kary), "kary_search_levels": rec_kary})
+    try:
+        store.lookup(q_dev)
+    finally:
+        tiered._page, tiered._kary = real_page, real_kary
+    torch.cuda.synchronize()
+    return seen
+
+
+def store_kernels_vs_plain(store, q_dev) -> dict:
+    """The page and k-ary kernels on the store's own operands against their
+    plain versions, bit for bit (the steps the plan used), and their
+    times at these shapes."""
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_search as pk
+    seen = capture_store_kernels(store, q_dev)
+    (qb, sp, pages), pkw = seen["page"]
+    used = int(pkw["steps_used"])
+    plain_kw = {k: v for k, v in pkw.items() if k != "steps_used"}
+    p_got = pk.page_search_bucketed(qb, sp, pages, **pkw)
+    p_want = pk.page_search_plain(qb, sp, pages, **plain_kw)
+    check(torch.equal(p_got[:used], p_want[:used]), "page kernel != plain "
+          "on the store's gapped pages")
+    kargs, kkw = seen["kary"]
+    k_got = kk.kary_search_levels(*kargs, **kkw)
+    k_want = kk.kary_search_plain(*kargs, **kkw)
+    check(torch.equal(k_got, k_want), "k-ary kernel != plain on the store's "
+          "top")
+    return {"num_pages": int(pages.shape[0]), "lw_pad": int(pages.shape[1]),
+            "stride": pkw["stride"], "steps_used": used,
+            "grid": int(sp.shape[0]),
+            "kary_depth": len(kargs[2]),
+            "page_max_abs_err": max_abs_err(p_got[:used], p_want[:used]),
+            "kary_max_abs_err": max_abs_err(k_got, k_want),
+            "page_ms": cuda_ms(lambda: pk.page_search_bucketed(
+                qb, sp, pages, **pkw)),
+            "kary_ms": cuda_ms(lambda: kk.kary_search_levels(*kargs,
+                                                             **kkw))}
+
+
+def store_oracle_write(ok, ov, ins_k, ins_v, del_k):
+    """The oracle's sorted (keys, values) after upserting (ins_k, ins_v)
+    (unique keys) and then deleting del_k."""
+    pos = np.searchsorted(ok, ins_k)
+    hit = (pos < ok.size) & (ok[np.minimum(pos, ok.size - 1)] == ins_k)
+    ov = ov.copy()
+    ov[pos[hit]] = ins_v[hit]
+    order = np.argsort(ins_k[~hit])
+    new_k, new_v = ins_k[~hit][order], ins_v[~hit][order]
+    at = np.searchsorted(ok, new_k)
+    ok, ov = np.insert(ok, at, new_k), np.insert(ov, at, new_v)
+    pos = np.searchsorted(ok, del_k)
+    hit = (pos < ok.size) & (ok[np.minimum(pos, ok.size - 1)] == del_k)
+    return np.delete(ok, pos[hit]), np.delete(ov, pos[hit])
+
+
+def fresh_keys(rng, ok, lo, hi, n):
+    """n distinct keys in [lo, hi) that the oracle does not hold."""
+    out = np.empty(0, np.int32)
+    while out.size < n:
+        c = np.unique(rng.integers(lo, hi, 2 * n, dtype=np.int64)
+                      .astype(np.int32))
+        pos = np.minimum(np.searchsorted(ok, c), ok.size - 1)
+        out = np.union1d(out, c[ok[pos] != c])
+    return rng.permutation(out)[:n]
+
+
+def store_path(dev, rng, keys_sorted, values_sorted, immutable_ms):
+    """Phase 10: the mutable store at 2^24 keys, rounds of writes, folds
+    and 2^20-query lookups against a numpy oracle."""
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.engine import delta as D
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_search as pk
+
+    t0 = time.perf_counter()
+    store = build_index(keys_sorted, values_sorted,
+                        IndexConfig(kind="tiered", mutable=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    base = store.base
+    check((base.top_kind, base.leaf_width, base.num_pages, base.lw_pad)
+          == ("kary", 2048, 10923, 2048) and len(base.top.level_offsets) == 2,
+          f"store layout {base.top_kind} {base.leaf_width} "
+          f"{base.num_pages} {base.lw_pad}")
+    check(store.delta.capacity == 1024 and store._mode == "deferred",
+          "store defaults")
+    ok, ov = keys_sorted, values_sorted
+    pages0 = base.num_pages
+    rounds, kernel_checks, insert_us, delete_us, fold_ms = [], [], [], [], []
+    repack_ms = None
+    for r in range(STORE_ROUNDS):
+        new_k = fresh_keys(rng, ok, I32.min + 1, I32.max - 1, STORE_NEW)
+        pick = rng.choice(ok.size, STORE_UPSERTS + STORE_DELETES,
+                          replace=False)
+        up_k, del_k = ok[pick[:STORE_UPSERTS]], ok[pick[STORE_UPSERTS:]]
+        ins_k = rng.permutation(np.concatenate([new_k, up_k]))
+        ins_v = rng.integers(I32.min + 1, I32.max, ins_k.size,
+                             dtype=np.int64).astype(np.int32)
+        # two halves of (inserts, deletes), so that the active tier holds
+        # live entries and tombstones when the round's lookup runs
+        t_ins = t_del = 0.0
+        for h in (0, 1):
+            ih = slice(h * ins_k.size // 2, (h + 1) * ins_k.size // 2)
+            dh = slice(h * del_k.size // 2, (h + 1) * del_k.size // 2)
+            t0 = time.perf_counter()
+            store.insert(ins_k[ih], ins_v[ih])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            store.delete(del_k[dh])
+            torch.cuda.synchronize()
+            t_ins += t1 - t0
+            t_del += time.perf_counter() - t1
+        insert_us.append(t_ins * 1e6 / ins_k.size)
+        delete_us.append(t_del * 1e6 / del_k.size)
+        ok, ov = store_oracle_write(ok, ov, ins_k, ins_v, del_k)
+        t0 = time.perf_counter()
+        folded = store.maintain()
+        torch.cuda.synchronize()
+        check(folded, "maintain() found no sealed buffer to fold")
+        fold_ms.append((time.perf_counter() - t0) * 1e3)
+        written = np.concatenate([ins_k, del_k])
+        if r == STORE_SPLIT_ROUND:
+            store.flush()
+            b = store.base
+            p = b.num_pages // 2
+            split_k = fresh_keys(rng, ok, int(b.seps[p - 1]) + 1,
+                                 int(b.seps[p]), STORE_SPLIT_KEYS)
+            split_v = np.arange(split_k.size, dtype=np.int32)
+            splits0, derives0 = store.stats["splits"], b.derives
+            store.insert(split_k, split_v)
+            ok, ov = store_oracle_write(ok, ov, split_k, split_v,
+                                        split_k[:0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store.flush()
+            torch.cuda.synchronize()
+            repack_ms = (time.perf_counter() - t0) * 1e3
+            check(store.stats["splits"] > splits0
+                  and store.base.num_pages != pages0
+                  and store.base.derives > derives0,
+                  f"no split: {store.stats}, {store.base.num_pages} pages")
+            written = np.concatenate([written, split_k])
+        # 2^20 queries: half resident keys, a quarter written this round
+        # (deletes included), a quarter uniform misses
+        half, quarter = N_QUERIES // 2, N_QUERIES // 4
+        q = rng.permutation(np.concatenate([
+            ok[rng.integers(0, ok.size, half)],
+            written[rng.integers(0, written.size, quarter)],
+            rng.integers(I32.min + 1, I32.max - 1, quarter,
+                         dtype=np.int64).astype(np.int32)]))
+        q_dev = torch.from_numpy(q).to(dev)
+        if r in (0, STORE_SPLIT_ROUND):        # before and after the repack
+            kernel_checks.append(store_kernels_vs_plain(store, q_dev))
+        torch.cuda.synchronize()
+        pk.page_search_bucketed.launches = 0
+        kk.kary_search_levels.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = store.lookup(q_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = {"page_search_bucketed": pk.page_search_bucketed.launches,
+                    "kary_search_levels": kk.kary_search_levels.launches}
+        check(launches == {"page_search_bucketed": 1,
+                           "kary_search_levels": 1},
+              f"round {r}: store lookup launches {launches}")
+        # found / values against the oracle; the slot address holds the
+        # key wherever the base answers (a hit in no delta tier)
+        pos = np.minimum(np.searchsorted(ok, q), ok.size - 1)
+        want_found = ok[pos] == q
+        found = res.found.cpu().numpy()
+        vals = res.values.cpu().numpy()
+        rank = res.rank.cpu().numpy()
+        check(np.array_equal(found, want_found), f"round {r}: found")
+        check(np.array_equal(vals[found], ov[pos][found]), f"round {r}: "
+              "values")
+        b = store.base
+        in_delta = np.isin(q, np.concatenate([store.delta.live()[0],
+                                              store.sealed.live()[0]]))
+        from_base = found & ~in_delta
+        check(np.array_equal(b.keys.reshape(-1)[rank[from_base]],
+                             q[from_base]), f"round {r}: slot addresses")
+        check(store.n == ok.size, f"round {r}: n {store.n} != {ok.size}")
+        check(bool((b.keys[:, 1:] >= b.keys[:, :-1]).all()),
+              f"round {r}: a page is not sorted")
+        rounds.append({"round": r, "n": int(ok.size),
+                       "num_pages": b.num_pages, "hits": int(found.sum()),
+                       "from_base": int(from_base.sum()),
+                       "delta_entries": int(store.delta.count)})
+    check(len(kernel_checks) == 2 and kernel_checks[0]["num_pages"]
+          != kernel_checks[1]["num_pages"], "kernel checks around the repack")
+
+    # ---- times, on the last round's queries and store state
+    ak, av, asp = store.delta.device_state()
+    atb = store.delta.device_bits()[2]
+    sk, sv, ssp = store.sealed.device_state()
+    stb = store.sealed.device_bits()[2]
+    b = store.base
+    lookup_ms = cuda_ms(lambda: store.lookup(q_dev))
+    probe_ms = cuda_ms(lambda: (D.probe_full(q_dev, ak, av, atb, asp),
+                                D.probe_full(q_dev, sk, sv, stb, ssp)))
+    prof = device_profile(lambda: store.lookup(q_dev))
+    prof["idle_share"] = 1 - prof["kernels_ms"] / lookup_ms
+    summary = {
+        "keys": int(keys_sorted.size), "build_s": build_s,
+        "leaf_width": b.leaf_width, "num_pages_start": pages0,
+        "num_pages_end": b.num_pages, "top": b.top_kind,
+        "device_bytes": (b.dev_keys.numel() * b.dev_keys.element_size()
+                         + b.dev_vals.numel() * b.dev_vals.element_size()),
+        "rounds": rounds, "stats": dict(store.stats),
+        "kernel_checks": kernel_checks,
+        "lookup_ms": lookup_ms, "immutable_lookup_ms": immutable_ms,
+        "queries_per_s": N_QUERIES / (lookup_ms * 1e-3),
+        "delta_probe_ms": probe_ms, "delta_probe_share": probe_ms / lookup_ms,
+        "base_pipeline_ms": cuda_ms(lambda: b.pipeline_stats(q_dev,
+                                                             b.dev_keys)),
+        "launches_per_lookup": prof["kernel_launches"],
+        "insert_us_per_op": float(np.median(insert_us)),
+        "delete_us_per_op": float(np.median(delete_us)),
+        "insert_us_per_op_rounds": insert_us,
+        "delete_us_per_op_rounds": delete_us,
+        "fold_ms": float(np.median(fold_ms)), "fold_ms_rounds": fold_ms,
+        "repack_ms": repack_ms, "profile_lookup": prof,
+        "launches": launches,
+    }
+    return summary
 
 
 def kernel_resources() -> dict:
@@ -1803,11 +2140,21 @@ def main() -> int:
         phase_scan_kernels(dev, rng)), flush=True)
     scan_rows, scan_main = scan_path(dev, rng, *state)
     print("phase 7: scan path " + json.dumps(scan_main), flush=True)
-    del state
+    _, keys_sorted, values_sorted = state      # phase 10's keys; the index
+    del state                                  # itself is freed here
     print("phase 8: cdf kernel == plain " + json.dumps(
         phase_cdf(dev, rng, earlier_cdf)), flush=True)
     cdf_row, serve_main = serve_path(dev, args.seed)
     print("phase 9: serve path " + json.dumps(serve_main), flush=True)
+    store_main = store_path(dev, rng, keys_sorted, values_sorted,
+                            main["lookup_ms"])
+    print("phase 10: mutable store " + json.dumps(store_main), flush=True)
+    for row, key in zip(rows, ("page", "kary")):
+        checks = store_main["kernel_checks"]
+        row["store_launches_per_lookup"] = store_main["launches"][row["name"]]
+        row["store_max_abs_err"] = max(c[f"{key}_max_abs_err"]
+                                       for c in checks)
+        row["store_ms_before_after_repack"] = [c[f"{key}_ms"] for c in checks]
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

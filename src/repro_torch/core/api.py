@@ -4,6 +4,9 @@
     idx = build_index(keys, values, IndexConfig(kind="tiered"))  # on cuda
     hit = idx.lookup(queries)        # -> LookupResult(rank, found, values)
     r = idx.scan_range(lo, hi)       # -> engine.scan.ScanResult
+    store = build_index(keys, values, IndexConfig(kind="tiered",
+                                                  mutable=True))
+    store.insert(new_keys, new_values); store.delete(old_keys)
 
 ``build_index`` places the index on the CUDA card unless the caller passes
 ``device``; without a card it raises unless ``device="cpu"``. Kinds,
@@ -189,22 +192,28 @@ class Index:
 def check_ported(config: IndexConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when
     ``config`` asks for a kind or option the port does not have yet."""
-    if config.mutable:
-        raise not_ported("IndexConfig(mutable=True)",
-                         "item 5 (mutable store)")
     if config.kind not in PORTED_KINDS:
         raise not_ported(f"kind={config.kind!r}",
                          "item 12 (the other index kinds)")
     if config.specialize:
         raise not_ported("IndexConfig(specialize=True)",
                          "item 11 (specialization and autotune)")
+    if config.mutable and config.ckpt_dir is not None:
+        raise not_ported("IndexConfig(ckpt_dir=...), the mutable store's "
+                         "journal and snapshots", "item 8 (durability)")
 
 
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
-                device=None) -> Index:
-    """Build an index on ``device`` (default: the CUDA card)."""
+                device=None):
+    """Build an index on ``device`` (default: the CUDA card). With
+    ``config.mutable`` it returns the delta-merge store,
+    ``engine.store.MutableIndex`` (lookup, insert, delete, maintain),
+    which also accepts an empty initial key set."""
     check_ported(config)
     device = resolve_device(device)
+    if config.mutable:
+        from ..engine.store import MutableIndex
+        return MutableIndex(config, keys, values, device=device)
     keys = np.asarray(keys)
     order = np.argsort(keys, kind="stable")
     srt = keys[order]
@@ -227,6 +236,9 @@ def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(
     the arrays ``tiered.from_reference_arrays`` takes, plus
     ``keys_sorted`` and optionally ``values_sorted``."""
     check_ported(config)
+    if config.mutable:
+        raise ValueError("from_reference_arrays builds the immutable index; "
+                         "pass a config with mutable=False")
     device = resolve_device(device)
     srt = np.array(state["keys_sorted"])
     vals = state.get("values_sorted")

@@ -21,7 +21,7 @@ sync.
 
 The mutable store's delta-aware forms (``_tier_prefix_terms``,
 ``make_paged_group_fns``, ``make_delta_group_fns``) come with ROADMAP
-Queue 1 item 5.
+Queue 1 item 5B.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ Q ``(lo, hi)`` range queries run as one pass with no host sync:
 
 The reference caches one ``jax.jit`` dispatch per shape; here the
 pipelines are plain functions. Left out: the mutable store's delta-aware
-scans (ROADMAP Queue 1 item 5), the non-tiered kinds' ``FlatAggregator``
+scans (ROADMAP Queue 1 item 5B), the non-tiered kinds' ``FlatAggregator``
 (item 12), the specialized index (item 11) and the scan's telemetry spans
 and counters (item 10).
 """
@@ -529,12 +529,15 @@ class FlatAggregator:
 
 
 def _tier_terms(*args, **kwargs):
-    raise not_ported("scan._tier_terms", "item 5 (mutable store)")
+    raise not_ported("scan._tier_terms",
+                     "item 5B (the mutable store's scans)")
 
 
 def make_paged_scan_fns(*args, **kwargs):
-    raise not_ported("scan.make_paged_scan_fns", "item 5 (mutable store)")
+    raise not_ported("scan.make_paged_scan_fns",
+                     "item 5B (the mutable store's scans)")
 
 
 def make_delta_scan_fns(*args, **kwargs):
-    raise not_ported("scan.make_delta_scan_fns", "item 5 (mutable store)")
+    raise not_ported("scan.make_delta_scan_fns",
+                     "item 5B (the mutable store's scans)")

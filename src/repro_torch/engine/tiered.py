@@ -101,15 +101,18 @@ def _make_page_of_raw(top_kind: str, top, num_pages: int) -> Callable:
 
 
 def _make_pipeline(page_of_raw: Callable, *, num_pages: int, stride: int,
-                   tile: int, clip: int) -> Callable:
+                   tile: int, clip: int, with_stats: bool = False
+                   ) -> Callable:
     """The device-plan pipeline: top descent -> device plan at the static
     worst-case grid -> page kernel (early exit past ``steps_used``) ->
     un-permute -> clip. No host sync anywhere in it.
 
     ``stride`` is the per-page rank base fed to the page kernel:
     ``leaf_width`` for global searchsorted ranks (this engine), ``lw_pad``
-    for slot addresses into gapped storage (the mutable store, later).
-    Results are clipped to ``clip``."""
+    for slot addresses into gapped storage (the mutable store,
+    ``engine/store.py``). Results are clipped to ``clip``.
+    ``with_stats=True`` also returns the plan's step count as a 0-d device
+    tensor (the executed-occupancy feedback), with no extra sync."""
 
     def pipeline(q, pages):
         q_n = q.shape[0]
@@ -122,7 +125,8 @@ def _make_pipeline(page_of_raw: Callable, *, num_pages: int, stride: int,
                                               stride=stride,
                                               steps_used=steps_used)
 
-        return run_scheduled(plan, q, tile, g_cap, body).clamp_max(clip)
+        out = run_scheduled(plan, q, tile, g_cap, body).clamp_max(clip)
+        return (out, plan.steps_used) if with_stats else out
 
     return pipeline
 

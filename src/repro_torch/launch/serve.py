@@ -2,17 +2,18 @@
 CUDA card (PyTorch port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
-        --wholesale --no-decode-queue --temperature 0.8 --top-p 0.9 \
-        --rounds 2
+        --no-decode-queue --temperature 0.8 --top-p 0.9 --rounds 2
     # off the card, at a tiny width:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
-        --wholesale --no-decode-queue --device cpu
+        --no-decode-queue --device cpu
 
-The flags and defaults are the reference's, and so are the prompts
+The prefix store is the mutable tiered store unless ``--wholesale`` asks
+for the immutable index rebuilt on the probe after an insert. The flags
+and defaults are the reference's, and so are the prompts
 (``np.random.default_rng(0)``); weights are random, from the seed 0.
 Flags whose subsystem is not ported yet, and the reference's defaults
-that need one (the mutable prefix store, the decode queue), exit with
-the message naming the ROADMAP Queue 1 item that brings it.
+that need one (the decode queue), exit with the message naming the
+ROADMAP Queue 1 item that brings it.
 """
 from __future__ import annotations
 
@@ -37,8 +38,6 @@ def make_prompts(vocab: int, requests: int = 8, prompt_len: int = 48,
 def _unported(args) -> list:
     """(is set, what, ROADMAP item) for every unported flag or default."""
     return [
-        (not args.wholesale, "the mutable prefix store (pass --wholesale)",
-         "item 5 (mutable store)"),
         (args.index != "tiered", f"--index {args.index}",
          "item 12 (the other index kinds)"),
         (not args.no_decode_queue and args.temperature != 0.0,
@@ -127,7 +126,8 @@ def main():
     print(f"arch={args.arch} params={T.param_count(params)/1e6:.1f}M "
           f"prefix-index={args.index} device={device}")
     index_config = IndexConfig(kind=args.index, levels=2,
-                               compiled_node_width=3, mutable=False)
+                               compiled_node_width=3,
+                               mutable=not args.wholesale)
     eng = ServeEngine(
         cfg, params, max_len=args.max_len, page_size=args.page_size,
         index_config=index_config, decode_batching=False,
@@ -144,6 +144,8 @@ def main():
           f"({s.decode_tokens/max(s.decode_s,1e-9):,.0f} tok/s)")
     print(f"prefix store: {eng.store.stats}")
     print(f"probe: {s.probe_s:.3f}s in batched store probes")
+    if eng.store.index_config.mutable:
+        print(f"write path:   {eng.store.index_stats}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Batched serving engine: prefix-reuse prefill + batched decode (PyTorch
 port of ``repro/serve/engine.py``).
 
-Flow per request: probe the PrefixPageStore (the tiered index on the card)
-for the longest cached page chain -> install hit pages into a fresh cache
+Flow per request: probe the PrefixPageStore (by default the mutable tiered
+store on the card) for the longest cached page chain -> install hit pages into a fresh cache
 -> prefill only the uncached tail (``prefill_continue``) -> store the new
 pages. Requests then decode together as one batch, each step sampling
 inline: for a sampled config, one CDF-inversion kernel launch a step.
@@ -66,8 +66,7 @@ class ServeEngine:
         self.decode_batching = decode_batching
         self.dtype = compute_dtype
         self.pageable = cfg.family in ("dense", "moe")
-        # the reference's default probe is the mutable tiered store, which
-        # raises until it is ported: pass mutable=False
+        # the default probe is the mutable tiered store, as in the reference
         self.store = KV.PrefixPageStore(
             page_size, index_config or IndexConfig(kind="tiered",
                                                    plan="device",

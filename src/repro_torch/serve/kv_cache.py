@@ -8,12 +8,14 @@ probed on the card. Every hit is verified against the stored tokens
 before reuse, so a hash collision truncates the reuse and never corrupts
 it.
 
-The port serves through the immutable tiered index: inserts mark the
-snapshot dirty and the next probe rebuilds it (the reference's
-``mutable=False`` posture). The reference's default, the mutable store,
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5; ``save`` /
-``restore`` name item 8 and per-tenant probes item 9. Payloads are
-device tensors: cloned slices of the prefill cache.
+The default probe is the mutable tiered store (``engine/store.py``), as
+in the reference: inserts go through its delta buffer and page-local
+merges, never a wholesale rebuild. With ``mutable=False`` inserts mark
+the immutable snapshot dirty and the next probe rebuilds it (the
+reference's wholesale posture). ``save`` / ``restore`` raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 8, per-tenant probes
+and the probe queue item 9. Payloads are device tensors: cloned slices of
+the prefill cache.
 """
 from __future__ import annotations
 
@@ -80,8 +82,8 @@ def chain_hashes(tokens: np.ndarray, page_size: int) -> np.ndarray:
 @dataclass
 class PrefixPageStore:
     page_size: int
-    # the reference's default probe, the mutable tiered store, is not
-    # ported yet and raises; serve with mutable=False
+    # default probe: the mutable tiered store (DESIGN.md §6) — inserts go
+    # through the delta buffer, never a wholesale rebuild
     index_config: IndexConfig = field(default_factory=lambda: IndexConfig(
         kind="tiered", plan="device", mutable=True))
     device: Any = None                               # None: the CUDA card
@@ -104,24 +106,37 @@ class PrefixPageStore:
         """Store pages of a finished prefill. page_payloads[i] is the KV
         payload for page i (len == full pages in the prompt)."""
         hs = chain_hashes(prompt_tokens, self.page_size)
-        added = False
+        new_keys, new_slots = [], []
         for i, h in enumerate(hs[: len(page_payloads)]):
             h = int(h)
             if h in self._known:
                 continue
+            new_slots.append(len(self.hashes))
+            new_keys.append(h)
             self.hashes.append(h)
             self.tokens.append(np.asarray(
                 prompt_tokens[: (i + 1) * self.page_size], np.int32))
             self.payloads.append(page_payloads[i])
             self._known.add(h)
-            added = True
-        if added:
-            self.revision += 1      # batched probes can tell their snapshot aged
-            self._dirty = True      # wholesale posture: rebuild on next probe
+        if not new_keys:
+            return
+        self.revision += 1          # batched probes can tell their snapshot aged
+        if self.index_config.mutable:
+            # the delta path: O(delta work) per new page, page-local merges
+            if self._index is None:
+                self._index = build_index(np.empty(0, np.int32),
+                                          config=self.index_config,
+                                          device=self.device)
+            self._index.insert(np.asarray(new_keys, np.int32),
+                               np.asarray(new_slots, np.int32))
+            self._dirty = False
+        else:
+            self._dirty = True                       # wholesale posture
 
     def rebuild_index(self):
         """Batch rebuild: the read-optimized structure is regenerated over
-        every stored hash, with the slot as its value."""
+        every stored hash, with the slot as its value. The mutable default
+        never calls this."""
         if not self.hashes:
             self._index = None
         else:
@@ -131,6 +146,11 @@ class PrefixPageStore:
                 config=self.index_config, device=self.device)
         self._dirty = False
         self.stats["rebuilds"] += 1
+
+    @property
+    def index_stats(self) -> dict:
+        """Write-path counters of the mutable index (empty when wholesale)."""
+        return dict(getattr(self._index, "stats", {}) or {})
 
     # ---------------------------------------------------------------- read
     def _verify(self, prompt_tokens: np.ndarray, hs: np.ndarray,
@@ -160,7 +180,7 @@ class PrefixPageStore:
     def lookup(self, prompt_tokens: np.ndarray):
         """Longest reusable prefix. Returns (n_pages_hit, payloads[list])."""
         self.stats["lookups"] += 1
-        if self._dirty:
+        if self._dirty and not self.index_config.mutable:
             self.rebuild_index()
         if self._index is None:
             return 0, []
@@ -182,7 +202,7 @@ class PrefixPageStore:
             raise not_ported("per-tenant probes", "item 9 (queue and "
                              "admission)")
         self.stats["lookups"] += len(prompts)
-        if self._dirty:
+        if self._dirty and not self.index_config.mutable:
             self.rebuild_index()
         if self._index is None:
             return [(0, [])] * len(prompts)

@@ -582,3 +582,122 @@ def test_sampled_generate_on_the_card(cuda, monkeypatch):
         pt = p.gather(1, tok[:, None].long())
         above = torch.where(p > pt, p, 0.0).sum(-1)
         assert bool((above < 0.9 + 1e-4).all())
+
+
+# ------------------------------------------------------- the mutable store
+def store_pair(cuda, n_keys=40_000, capacity=256):
+    """The same mutable store on the card and on the CPU, after one write
+    batch (inserts, upserts, deletes) and a fold: a k-ary top over gapped
+    pages, a delta tier with tombstones and a host-synced base row."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(21)
+    keys = np.unique(rng.integers(0, 10**8, n_keys).astype(np.int32))
+    cfg = IndexConfig(kind="tiered", mutable=True, delta_capacity=capacity,
+                      leaf_width=128)
+    stores = [build_index(keys, config=cfg, device=d) for d in (cuda, "cpu")]
+    writes = [("insert", rng.integers(0, 10**8, 600).astype(np.int32),
+               rng.integers(0, 10**6, 600).astype(np.int32)),
+              ("delete", keys[rng.integers(0, keys.size, 150)]),
+              ("insert", keys[rng.integers(0, keys.size, 100)],
+               rng.integers(0, 10**6, 100).astype(np.int32))]
+    for s in stores:
+        for op, *args in writes:
+            getattr(s, op)(*args)
+    q = np.concatenate([writes[0][1][::3], writes[1][1], keys[::40],
+                        rng.integers(0, 10**8, 2000).astype(np.int32),
+                        [I32.max, I32.max - 1, 0]]).astype(np.int32)
+    return stores, q
+
+
+@pytest.mark.cuda
+def test_store_lookup_on_the_card_matches_the_cpu_store(cuda):
+    """The fused lookup on the card (page and k-ary kernels, delta probe)
+    against the same store on the CPU (plain versions): slot addresses,
+    found and values equal, before and after a repack; the kernels
+    launched."""
+    stores, q = store_pair(cuda)
+    gpu, cpu = stores
+    assert gpu.base.top_kind == "kary" and gpu.sealed.count > 0
+    for step in range(2):
+        pk.page_search_bucketed.launches = kk.kary_search_levels.launches = 0
+        got = gpu.lookup(torch.from_numpy(q).to(cuda))
+        assert pk.page_search_bucketed.launches == 1
+        assert kk.kary_search_levels.launches == 1
+        want = cpu.lookup(torch.from_numpy(q))
+        for name in ("rank", "found", "values"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+        if step == 0:                     # crowd one page: a repack
+            b = cpu.base
+            p = b.num_pages // 2
+            ks = np.arange(b.seps[p - 1] + 1, b.seps[p] + 1)[:300]
+            for s in stores:
+                s.insert(ks.astype(np.int32), np.arange(ks.size))
+                s.flush()
+            assert gpu.stats["splits"] >= 1
+            assert gpu.base.num_pages == cpu.base.num_pages
+
+
+@pytest.mark.cuda
+def test_warm_store_lookup_after_writes_makes_no_sync(cuda):
+    """A write batch uploads the delta tiers; the lookup after it only
+    reads tensors on the card: no host sync, no copy."""
+    stores, q = store_pair(cuda)
+    gpu = stores[0]
+    qd = torch.from_numpy(q).to(cuda)
+    gpu.insert(np.arange(5, 500, 7, dtype=np.int32),
+               np.arange(71, dtype=np.int32))
+    gpu.delete(np.arange(5, 50, 7, dtype=np.int32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = gpu.lookup(qd)
+        fb = gpu.pop_plan_feedback()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert 0 < fb() <= 1
+    assert res.found.device == qd.device
+    want = stores[1]
+    want.insert(np.arange(5, 500, 7, dtype=np.int32),
+                np.arange(71, dtype=np.int32))
+    want.delete(np.arange(5, 50, 7, dtype=np.int32))
+    ref = want.lookup(torch.from_numpy(q))
+    assert torch.equal(res.found.cpu(), ref.found)
+    assert torch.equal(res.values.cpu(), ref.values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_page_kernel_on_gapped_pages_at_stride_lw_pad(cuda, dtype):
+    """The page kernel over the store's gapped pages (a live prefix, then
+    sentinel gaps, some pages empty after deletes) at stride lw_pad, on
+    the operands the store's own pipeline builds, equals its plain
+    version."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(22)
+    keys = np.unique((rng.normal(size=30_000) * 1e6).astype(dtype))
+    store = build_index(keys, config=IndexConfig(
+        kind="tiered", mutable=True, delta_capacity=1024, leaf_width=2000),
+        device=cuda)
+    b = store.base
+    store.delete(b.keys[3, :b.cnt[3]])           # page 3 goes empty
+    store.delete(keys[::5])
+    store.flush()
+    b = store.base
+    assert b.cnt[3] == 0 and b.lw_pad == 2048
+    q = np.concatenate([keys[::7], (rng.normal(size=4000) * 1e6),
+                        [b.sentinel]]).astype(dtype)
+    qd = torch.from_numpy(q).to(cuda)
+    g_cap = schedule.ladder_grid(qd.shape[0], b.tile, b.num_pages)
+    plan = schedule.device_plan(b.page_of_raw(qd), b.tile, g_cap,
+                                b.num_pages)
+    qb = torch.zeros(g_cap * b.tile, dtype=qd.dtype, device=cuda) \
+        .scatter_(0, plan.dest.long(), qd).view(g_cap, b.tile)
+    used = int(plan.steps_used)
+    got = pk.page_search_bucketed(qb, plan.step_pages, b.dev_keys,
+                                  stride=b.lw_pad,
+                                  steps_used=plan.steps_used)
+    want = pk.page_search_plain(qb, plan.step_pages, b.dev_keys,
+                                stride=b.lw_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:used], want[:used])

@@ -6,8 +6,10 @@ On the CPU the port's inversion is its plain version; it must be
 bit-identical to the reference's Pallas kernel (interpret mode), its jnp
 oracle ``invert_cdf`` and the numpy oracle ``cdf_search_ref``. The engine
 runs the reference's weights (``from_reference_params``) at
-``qwen3-0.6b``'s reduced width through the immutable tiered prefix store:
-greedy tokens, prefix-reuse counts and store stats must be identical."""
+``qwen3-0.6b``'s reduced width through the immutable tiered prefix store
+and through the mutable store, the default: greedy tokens, prefix-reuse
+counts, store stats and the mutable store's write-path counters must be
+identical."""
 import contextlib
 import io
 import sys
@@ -200,9 +202,45 @@ def test_prefix_store_forced_collision_truncates_at_verify():
     assert stores[0].stats == stores[1].stats
 
 
+def test_prefix_store_mutable_default_matches_reference():
+    """The mutable posture with a delta buffer of 4 (16, one node, once
+    rounded): inserts go through the store's seals and folds (a base gets
+    built, pages merge), never a rebuild. Probes (single and batched), stats and the write-path
+    counters equal the reference's after every step."""
+    cfg = dict(kind="tiered", plan="device", mutable=True, delta_capacity=4)
+    stores = [pt_kv.PrefixPageStore(2, IndexConfig(**cfg), device="cpu"),
+              ref_kv.PrefixPageStore(2, RefIndexConfig(**cfg))]
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 50, 8)
+    prompts = [np.concatenate([shared[:int(rng.integers(2, 9))],
+                               rng.integers(0, 50, 10)]) for _ in range(12)]
+
+    def pay(i, p):
+        return [{"pay": (i, j)} for j in range(len(p) // 2)]
+
+    for i, p in enumerate(prompts):
+        got = [s.lookup(p) for s in stores]
+        assert got[0][0] == got[1][0]
+        assert [x["pay"] for x in got[0][1]] == [x["pay"] for x in got[1][1]]
+        for s in stores:
+            s.insert(p, pay(i, p))
+        assert stores[0].stats == stores[1].stats
+        assert stores[0].index_stats == stores[1].index_stats
+    batch = [s.lookup_batch(prompts + [prompts[0][:1]]) for s in stores]
+    assert [b[0] for b in batch[0]] == [b[0] for b in batch[1]]
+    assert all(b[0] for b in batch[0][:-1]) and batch[0][-1] == (0, [])
+    assert stores[0].stats == stores[1].stats
+    assert stores[0].stats["rebuilds"] == 0
+    ist = stores[0].index_stats
+    assert ist == stores[1].index_stats
+    assert ist["seals"] > 0 and ist["merges"] > 0 and ist["inserts"] == \
+        len(stores[0].hashes)
+    assert stores[0]._index.base is not None
+
+
 def test_prefix_store_unported_surface_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pt_kv.PrefixPageStore(8, device="cpu")        # the mutable default
+    default = pt_kv.PrefixPageStore(8, device="cpu")  # the mutable default
+    assert default.index_config.mutable and default.index_stats == {}
     store = pt_kv.PrefixPageStore(8, IndexConfig(**WHOLESALE), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         store.save("unused")
@@ -248,6 +286,35 @@ def test_engine_greedy_matches_reference(engines):
     assert port.store.stats == ref.store.stats
 
 
+def test_engine_on_the_mutable_default_matches_reference(engines):
+    """Both engines on their default prefix store, the mutable tiered
+    store: greedy tokens, reuse counts, store stats and write-path
+    counters equal over two rounds."""
+    cfg, pp, _, _ = engines
+    rcfg = ref_get_config("qwen3-0.6b").reduced()
+    rp = ref_T.init_params(rcfg, jax.random.PRNGKey(0))
+    ref = RefServeEngine(rcfg, rp, max_len=64, page_size=8,
+                         decode_batching=False)
+    port = ServeEngine(cfg, pp, max_len=64, page_size=8,
+                       decode_batching=False)
+    assert port.store.index_config.mutable
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 9)])
+               for _ in range(3)]
+    for _ in range(2):
+        want = np.asarray(ref.generate(prompts, 3))
+        np.testing.assert_array_equal(port.generate(prompts, 3).numpy(),
+                                      want)
+    for f in ("prefill_tokens", "reused_tokens", "decode_tokens"):
+        assert getattr(port.stats, f) == getattr(ref.stats, f), f
+    assert port.stats.reused_tokens > 0
+    assert port.store.stats == ref.store.stats
+    assert port.store.stats["rebuilds"] == 0
+    assert port.store.index_stats == ref.store.index_stats
+    assert port.store.index_stats["inserts"] == len(port.store.hashes)
+
+
 def test_engine_warm_prefill_matches_cold(engines):
     cfg, pp, _, _ = engines
     eng = ServeEngine(cfg, pp, max_len=64, page_size=8,
@@ -280,8 +347,10 @@ def test_engine_sampled_decode_stays_in_nucleus(engines):
 
 def test_engine_unported_surface_raises(engines):
     cfg, pp, _, _ = engines
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeEngine(cfg, pp)                          # the mutable default
+    default = ServeEngine(cfg, pp)                    # the mutable default
+    assert default.store.index_config == IndexConfig(kind="tiered",
+                                                     plan="device",
+                                                     mutable=True)
     queued = ServeEngine(cfg, pp, index_config=IndexConfig(**WHOLESALE),
                          sampler=SamplerConfig(temperature=0.8))
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -316,8 +385,25 @@ def test_launcher_prints_the_reference_counts(monkeypatch):
             "'verify_rejects': 0}") in out
 
 
+def test_launcher_on_the_mutable_store_prints_the_reference_lines(
+        monkeypatch):
+    """Without --wholesale the launcher serves on the mutable store and
+    prints the reference launcher's lines for the same flags: no
+    rebuilds, and all 10 page hashes inserted through the delta buffer."""
+    out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                       "--no-decode-queue", "--rounds", "2", "--steps", "2")
+    assert "prefill computed/reused: 288/480" in out
+    assert ("prefix store: {'lookups': 23, 'hits': 15, 'rebuilds': 0, "
+            "'verify_rejects': 0}") in out
+    assert ("write path:   {'inserts': 10, 'upserts': 0, 'deletes': 0, "
+            "'merges': 0, 'splits': 0, 'pages_touched': 0, "
+            "'rows_rewritten': 0, 'top_derives': 0, 'base_rebuilds': 0, "
+            "'shadowed': 0, 'seals': 0, 'maintains': 0, "
+            "'journal_replayed': 0}") in out
+
+
 @pytest.mark.parametrize("argv,item", [
-    ((), "item 5"), (("--wholesale",), "item 9"),
+    ((), "item 9"), (("--wholesale",), "item 9"),
     (("--wholesale", "--no-decode-queue", "--index", "css"), "item 12"),
     (("--wholesale", "--no-decode-queue", "--tenants", "2"), "item 9"),
     (("--wholesale", "--no-decode-queue", "--ckpt-dir", "x"), "item 8"),

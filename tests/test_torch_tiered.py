@@ -225,7 +225,7 @@ def test_defaults_match_reference():
                                   "from_tuned"])
 def test_unported_surface_raises(what):
     keys = np.arange(300, dtype=np.int32)
-    cfg = {"mutable": dict(kind="tiered", mutable=True),
+    cfg = {"mutable": dict(kind="css", mutable=True),
            "kind": dict(kind="css"),
            "specialize": dict(kind="tiered", specialize=True)}.get(what)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
