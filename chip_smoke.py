@@ -84,7 +84,10 @@ Phases, in order; any failure exits non-zero with its traceback:
      launches no page kernel, the wholesale store's page kernel equals
      its plain version on every probe, at the store's own shapes; (f) one
      decode step (sample + decode_step) under set_sync_debug_mode
-     ("error"). Then CUDA-event times of prefill (cold, warm, on each
+     ("error"); (g) the mutable prefix store saved after its two rounds
+     and restored into a fresh engine on the same weights: one more round
+     there reuses as many tokens as round 2 and launches the CDF kernel
+     once a decode step. Then CUDA-event times of prefill (cold, warm, on each
      store), the decode step and its parts, the kernel at B in {8, 64,
      256} beside torch.searchsorted, their bounds, one profiled decode
      step and one profiled sampler call;
@@ -104,10 +107,37 @@ Phases, in order; any failure exits non-zero with its traceback:
      times of the lookup, the delta probe and the base pipeline beside
      phase 4's immutable lookup, host µs a write, fold and repack ms,
      and one profiled lookup;
- 11. one line {"kernels": [...]} with each kernel's launches, times
+ 11. the store's range scans at full size: phase 7's traffic (scan_range
+     count / sum / full over 2^18 ranges, search_range, materialize 64
+     over 2^16, scan_groups G = 64 over 2^14 in count / sum (the prefix
+     kernel) and full, top_k=8 over 2^12, scan_multi R = 4 union and
+     intersect over 2^16) on phase 10's store, after round 8's
+     maintain() and again after 1,536 more writes that leave both delta
+     tiers with live entries, upserts and tombstones; the last 64 of the
+     2^18 ranges have hi = INT32_MAX. Each pass under
+     set_sync_debug_mode("error") with the launch counters set to 0
+     before and read after (the first pass after the writes rebuilds the
+     scan state); every result against a numpy oracle of the live keys,
+     slot addresses read back through the store's arrays, the sentinel
+     rows recorded beside numpy's counts. Then each entry's CUDA-event
+     time beside phase 7's, one profiled scan_range (idle share), the
+     page-aggregate and tier-view rebuilds, the first scan after a write,
+     the peak device memory, and the page-scan and page-prefix kernels
+     against their plain versions on the store's own operands (lw_pad,
+     the tombstone mask), with times and bounds;
+ 12. durability at full size, in a temporary directory removed at the
+     end: save() (ms, bytes), a journaled round of phase 10's writes (µs
+     a write beside phase 10's, and the journal's append alone), a crash (the store dropped without
+     close, the newest segment cut inside its last record),
+     restore_index (ms, records replayed), then 2^20 lookups and 2^18
+     scan ranges of the restored store under set_sync_debug_mode
+     ("error") against the oracle of the surviving writes;
+ 13. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
-     call's) and bound, and for the page and k-ary kernels the store's
-     launches a lookup; the last line {"ok": true, "device": {...}}.
+     call's) and bound, for the page and k-ary kernels the store's
+     launches a lookup, and for the scan kernels the store's launches,
+     times and bound (phase 11); the last line {"ok": true, "device":
+     {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -1081,6 +1111,32 @@ def kernel_row(name, mode, launches, args, kw, plain, n_items, real,
     }
 
 
+def scan_calls(index, lo_d, hi_d, r_d) -> dict:
+    """Phase 7's entry points at phase 7's shapes, on the immutable index
+    (phase 7) or the mutable store (phase 11)."""
+    glo, ghi = lo_d[:N_GROUP_RANGES], hi_d[:N_GROUP_RANGES]
+    tlo, thi = lo_d[:N_TOPK_RANGES], hi_d[:N_TOPK_RANGES]
+    G = N_GROUPS
+    return {
+        "scan_range": lambda: index.scan_range(lo_d, hi_d),
+        "search_range": lambda: index.search_range(lo_d, hi_d),
+        "scan_range_sum": lambda: index.scan_range(lo_d, hi_d,
+                                                   aggs=("count", "sum")),
+        "scan_range_materialize": lambda: index.scan_range(
+            lo_d[:N_MAT], hi_d[:N_MAT], materialize=MAT_K),
+        "scan_groups_count": lambda: index.scan_groups(glo, ghi, G,
+                                                       aggs=("count",)),
+        "scan_groups_sum": lambda: index.scan_groups(glo, ghi, G,
+                                                     aggs=("count", "sum")),
+        "scan_groups_full": lambda: index.scan_groups(glo, ghi, G),
+        "scan_groups_top_k": lambda: index.scan_groups(tlo, thi, G,
+                                                       top_k=TOP_K),
+        "scan_multi_union": lambda: index.scan_multi(r_d, op="union"),
+        "scan_multi_intersect": lambda: index.scan_multi(r_d,
+                                                         op="intersect"),
+    }
+
+
 def scan_path(dev, rng, idx, ks, vs):
     from repro_torch.engine import groupby, scan, schedule
     from repro_torch.kernels import kary_search as kk
@@ -1094,27 +1150,9 @@ def scan_path(dev, rng, idx, ks, vs):
     ranges = multi_ranges(rng, ks, N_MULTI, MULTI_R)
     lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
     glo, ghi = lo_d[:N_GROUP_RANGES], hi_d[:N_GROUP_RANGES]
-    tlo, thi = lo_d[:N_TOPK_RANGES], hi_d[:N_TOPK_RANGES]
     r_d = torch.from_numpy(ranges).to(dev)
     G = N_GROUPS
-    calls = {
-        "scan_range": lambda: idx.scan_range(lo_d, hi_d),
-        "search_range": lambda: idx.search_range(lo_d, hi_d),
-        "scan_range_sum": lambda: idx.scan_range(lo_d, hi_d,
-                                                 aggs=("count", "sum")),
-        "scan_range_materialize": lambda: idx.scan_range(
-            lo_d[:N_MAT], hi_d[:N_MAT], materialize=MAT_K),
-        "scan_groups_count": lambda: idx.scan_groups(glo, ghi, G,
-                                                     aggs=("count",)),
-        "scan_groups_sum": lambda: idx.scan_groups(glo, ghi, G,
-                                                   aggs=("count", "sum")),
-        "scan_groups_full": lambda: idx.scan_groups(glo, ghi, G),
-        "scan_groups_top_k": lambda: idx.scan_groups(tlo, thi, G,
-                                                     top_k=TOP_K),
-        "scan_multi_union": lambda: idx.scan_multi(r_d, op="union"),
-        "scan_multi_intersect": lambda: idx.scan_multi(r_d,
-                                                       op="intersect"),
-    }
+    calls = scan_calls(idx, lo_d, hi_d, r_d)
     t0 = time.perf_counter()
     for fn in calls.values():               # builds the scanner, warms up
         fn()
@@ -1548,9 +1586,12 @@ def served_run(eng, prompts, gen):
     tiered._page = types.SimpleNamespace(
         **{**vars(real_page), "page_search_bucketed": rec_page})
     t0 = time.perf_counter()
+    seen["reused_by_round"] = []
     try:
         for _ in range(SERVE_ROUNDS):
+            before = eng.stats.reused_tokens
             out = eng.generate(prompts, SERVE_STEPS, generator=gen)
+            seen["reused_by_round"].append(eng.stats.reused_tokens - before)
     finally:
         E.sample, S.kops, tiered._page = real_sample, real_kops, real_page
     torch.cuda.synchronize()
@@ -1620,6 +1661,46 @@ def check_served(cfg, eng, seen, prompts, want_store, want_write_path,
             "cdf_max_abs_err": cdf_err, "generate_s": seen["generate_s"]}
 
 
+def restored_round(dev, eng, fresh, prompts, gen, reused_by_round) -> dict:
+    """The mutable prefix store saved after its two rounds and restored
+    (its index from its own snapshot and journal) into a fresh engine on
+    the same weights, then one more round there: it reuses as many tokens
+    as round 2 did, and the CDF kernel runs once a decode step."""
+    import tempfile
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.serve.kv_cache import PrefixPageStore
+    d = tempfile.mkdtemp(prefix="chip_smoke_prefix_")
+    try:
+        t0 = time.perf_counter()
+        eng.store.save(d)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        fresh.store = PrefixPageStore.restore(
+            d, index_config=eng.store.index_config, device=dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(fresh.store.hashes == eng.store.hashes
+          and fresh.store._index.n == eng.store._index.n,
+          "the restored prefix store differs from the saved one")
+    cs.cdf_search.launches = 0
+    fresh.generate(prompts, SERVE_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    reused = fresh.stats.reused_tokens
+    check(reused == reused_by_round[-1], f"the restored store reused "
+          f"{reused} tokens, round 2 reused {reused_by_round[-1]}")
+    check(cs.cdf_search.launches == SERVE_STEPS, "cdf_search launched "
+          f"{cs.cdf_search.launches} times after the restore, want "
+          f"{SERVE_STEPS}")
+    return {"reused_by_round": reused_by_round, "restored_reused": reused,
+            "pages": len(fresh.store.hashes), "save_ms": save_ms,
+            "restore_ms": restore_ms,
+            "cdf_launches": cs.cdf_search.launches,
+            "prefix_store": dict(fresh.store.stats),
+            "write_path": fresh.store.index_stats}
+
+
 def serve_path(dev, seed: int):
     """Phase 9: ServeEngine.generate at qwen3-0.6b's full width, on the
     mutable prefix store (the default) and on the wholesale one."""
@@ -1665,6 +1746,9 @@ def serve_path(dev, seed: int):
           and launches["kary_search_levels"] == 0,
           f"the mutable store launched a base kernel: {launches}")
     check(eng.store._index.base is None, "the mutable store built a base")
+    posture["mutable_restored"] = restored_round(dev, eng, engine(scfg),
+                                                 prompts, gen,
+                                                 seen["reused_by_round"])
     whole = engine(scfg, wholesale=True)
     seen_w = served_run(whole, prompts,
                         torch.Generator(dev).manual_seed(seed))
@@ -2080,7 +2164,404 @@ def store_path(dev, rng, keys_sorted, values_sorted, immutable_ms):
         "repack_ms": repack_ms, "profile_lookup": prof,
         "launches": launches,
     }
-    return summary
+    return summary, store, ok, ov
+
+
+# -------------------------------------------------------------- phase 11
+# Phase 7's traffic on phase 10's store. The last ranges of the 2^18 have
+# hi at the key sentinel (INT32_MAX): the reference counts gap slots
+# there (ROADMAP Queue 3 item 10), so those rows are recorded, not held to
+# numpy. The second state's writes leave both tiers with live entries,
+# upserts and tombstones: about one and a half delta buffers.
+N_SENTINEL_RANGES = 64
+SCAN_STATE_NEW, SCAN_STATE_UPSERTS, SCAN_STATE_DELETES = 768, 384, 384
+
+
+def slot_keys(store) -> np.ndarray:
+    """The key at every slot address a store scan gives: the base pages,
+    then the sealed tier, then the active tier."""
+    return np.concatenate([store.base.keys.reshape(-1),
+                           store.sealed.h_keys.reshape(-1),
+                           store.delta.h_keys.reshape(-1)])
+
+
+def check_store_scans(store, res, ok, ov, lo, hi, ranges) -> dict:
+    """Every result of one state against the numpy oracle of the live
+    merged keys (ok, ov): counts, ranks and wrapped sums on every range
+    below the sentinel, min / max / rows / top-K on a 4096-range subset;
+    materialized and top-K slot addresses read back through the store's
+    host arrays. The sentinel rows are recorded."""
+    n_ok = lo.size - N_SENTINEL_RANGES
+    cs = np.zeros(ok.size + 1, np.int64)
+    cs[1:] = np.cumsum(ov.astype(np.int64))
+    r_lo, r_hi, cnt, vsum = range_oracle(ok, cs, lo, hi)
+    for key in ("scan_range", "scan_range_sum"):
+        r = res[key]
+        same(r.count[:n_ok], cnt[:n_ok], f"store {key} count")
+        same(r.r_lo[:n_ok], r_lo[:n_ok], f"store {key} r_lo")
+        same(r.r_hi_excl[:n_ok], r_hi[:n_ok], f"store {key} r_hi_excl")
+        same(r.vsum[:n_ok], vsum[:n_ok], f"store {key} vsum")
+    for got, want, f in zip(res["search_range"], (r_lo, r_hi, cnt),
+                            ("r_lo", "r_hi_excl", "count")):
+        same(got[:n_ok], want[:n_ok], f"store search_range {f}")
+    sub = np.arange(N_SUBSET)
+    mn, mx = seg_minmax(ov, r_lo[sub], r_hi[sub])
+    same(res["scan_range"].vmin[:N_SUBSET], mn, "store scan_range vmin")
+    same(res["scan_range"].vmax[:N_SUBSET], mx, "store scan_range vmax")
+
+    keys_at = slot_keys(store)
+    m = res["scan_range_materialize"]
+    mr = r_lo[:N_MAT, None] + np.arange(MAT_K)[None, :]
+    mvalid = np.arange(MAT_K)[None, :] < cnt[:N_MAT, None]
+    addr = m.ranks.cpu().numpy()
+    check(np.array_equal(addr >= 0, mvalid), "store materialize: rows")
+    check(np.array_equal(keys_at[addr[mvalid]],
+                         ok[np.minimum(mr, ok.size - 1)][mvalid]),
+          "store materialize: slot addresses do not hold the keys")
+    same(m.values, np.where(mvalid, ov[np.minimum(mr, ok.size - 1)], 0),
+         "store materialized values")
+    same(m.overflow, cnt[:N_MAT] > MAT_K, "store materialize overflow")
+
+    G = N_GROUPS
+    e, r_edge, gcnt, gsum = group_oracle(ok, cs, lo[:N_GROUP_RANGES],
+                                         hi[:N_GROUP_RANGES], G)
+    for key in ("scan_groups_count", "scan_groups_sum", "scan_groups_full"):
+        g = res[key]
+        same(g.edges, e, f"store {key} edges")
+        same(g.r_edge, r_edge, f"store {key} r_edge")
+        same(g.count, gcnt, f"store {key} count")
+        if key != "scan_groups_count":
+            same(g.vsum, gsum, f"store {key} vsum")
+    gmn, gmx = bucket_minmax(ov, r_edge[:N_SUBSET])
+    same(res["scan_groups_full"].vmin[:N_SUBSET], gmn, "store groups vmin")
+    same(res["scan_groups_full"].vmax[:N_SUBSET], gmx, "store groups vmax")
+    t = res["scan_groups_top_k"]
+    C = max(2 * TOP_K, 32)
+    topv, topr, over = topk_oracle(ov, r_edge[:N_TOPK_RANGES], TOP_K, C)
+    same(t.topk_values.reshape(-1, TOP_K), topv, "store top-K values")
+    tr = t.topk_ranks.reshape(-1, TOP_K).cpu().numpy()
+    check(np.array_equal(tr >= 0, topr >= 0), "store top-K rows")
+    check(np.array_equal(keys_at[tr[tr >= 0]], ok[topr[topr >= 0]]),
+          "store top-K slot addresses do not hold the keys")
+    same(t.overflow.reshape(-1), over, "store top-K overflow")
+
+    multi = {}
+    for op in ("union", "intersect"):
+        mc, msum, mlo, mhi, pieces = multi_oracle(ok, cs, ranges, op)
+        r = res[f"scan_multi_{op}"]
+        same(r.count, mc, f"store scan_multi {op} count")
+        same(r.vsum, msum, f"store scan_multi {op} vsum")
+        same(r.r_lo, mlo, f"store scan_multi {op} r_lo")
+        same(r.r_hi_excl, mhi, f"store scan_multi {op} r_hi_excl")
+        pmn, pmx = pieces_minmax(ov, pieces, sub)
+        same(r.vmin[:N_SUBSET], pmn, f"store scan_multi {op} vmin")
+        same(r.vmax[:N_SUBSET], pmx, f"store scan_multi {op} vmax")
+        multi[op] = {"empty": int((mc == 0).sum()),
+                     "matches": int(mc.sum())}
+    got_s = res["scan_range"].count[n_ok:].cpu().numpy()
+    return {"ranges_checked": n_ok, "matches": int(cnt[:n_ok].sum()),
+            "multi": multi, "sentinel_rows": {
+                "rows": N_SENTINEL_RANGES,
+                "port_count_sum": int(got_s.sum()),
+                "numpy_count_sum": int(cnt[n_ok:].sum()),
+                "rows_differing": int((got_s != cnt[n_ok:]).sum()),
+                "port_count_first": got_s[:4].tolist(),
+                "numpy_count_first": cnt[n_ok:][:4].tolist()}}
+
+
+def run_store_scans(dev, store, calls) -> tuple:
+    """Every call once under set_sync_debug_mode("error") with the scan
+    kernels' launch counters set to 0 just before and read just after;
+    the first call pays the scan state's rebuild (dirty rows, page
+    aggregates, tier views) after a write."""
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_scan as ps
+    from repro_torch.kernels import page_search as pk
+    counters = (pk.page_search_bucketed, kk.kary_search_levels,
+                ps.page_scan_bucketed, ps.page_prefix_bucketed)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "mode_launches"):
+            c.mode_launches = dict.fromkeys(c.mode_launches, 0)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = {k: fn() for k, fn in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    mode_launches = {
+        "page_scan_bucketed": dict(ps.page_scan_bucketed.mode_launches),
+        "page_prefix_bucketed": dict(ps.page_prefix_bucketed.mode_launches)}
+    check(all(v > 0 for m in mode_launches.values() for v in m.values()),
+          f"a scan kernel mode did not launch on the store: {mode_launches}")
+    check(launches["kary_search_levels"] > 0, "the store's span descent did "
+          "not go through the k-ary kernel")
+    return res, {"launches": launches, "mode_launches": mode_launches,
+                 "wall_s": wall_s}
+
+
+def store_scan_path(dev, rng, store, ok, ov, immutable: dict):
+    """Phase 11: phase 7's scans on phase 10's store at 2^24 keys, after
+    round 8's maintain() and again with unfolded writes in both tiers."""
+    from repro_torch.engine import groupby, scan, schedule, tiered
+    from repro_torch.engine.store import TOMBSTONE
+    from repro_torch.kernels import page_scan as ps
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    states = {}
+    for state in ("after_maintain", "unfolded_tiers"):
+        if state == "unfolded_tiers":
+            new_k = fresh_keys(rng, ok, I32.min + 1, I32.max - 1,
+                               SCAN_STATE_NEW)
+            pick = rng.choice(ok.size, SCAN_STATE_UPSERTS
+                              + SCAN_STATE_DELETES, replace=False)
+            up_k = ok[pick[:SCAN_STATE_UPSERTS]]
+            del_k = ok[pick[SCAN_STATE_UPSERTS:]]
+            ins_k = rng.permutation(np.concatenate([new_k, up_k]))
+            ins_v = rng.integers(I32.min + 1, I32.max, ins_k.size,
+                                 dtype=np.int64).astype(np.int32)
+            for h in (0, 1):
+                ih = slice(h * ins_k.size // 2, (h + 1) * ins_k.size // 2)
+                dh = slice(h * del_k.size // 2, (h + 1) * del_k.size // 2)
+                store.insert(ins_k[ih], ins_v[ih])
+                store.delete(del_k[dh])
+            ok, ov = store_oracle_write(ok, ov, ins_k, ins_v, del_k)
+            check(store.sealed.count > 0 and store.sealed.tombs > 0
+                  and store.delta.tombs > 0 and store._dirty_rows,
+                  "the write round left a tier without tombstones")
+        lo, hi = scan_ranges(rng, ok, N_RANGES)
+        hi[-N_SENTINEL_RANGES:] = I32.max
+        lo[-N_SENTINEL_RANGES:] = np.where(
+            np.arange(N_SENTINEL_RANGES) % 2 == 0, I32.min,
+            ok[rng.integers(0, ok.size, N_SENTINEL_RANGES)])
+        ranges = multi_ranges(rng, ok, N_MULTI, MULTI_R)
+        lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
+        r_d = torch.from_numpy(ranges).to(dev)
+        calls = scan_calls(store, lo_d, hi_d, r_d)
+        tiers = {"sealed": [store.sealed.count, store.sealed.tombs],
+                 "active": [store.delta.count, store.delta.tombs],
+                 "dirty_rows": len(store._dirty_rows)}
+        res, counted = run_store_scans(dev, store, calls)
+        check(not store._dirty_rows, "the scan did not push the dirty rows")
+        checked = check_store_scans(store, res, ok, ov, lo, hi, ranges)
+        # the warm pass: the scan state is cached, still no sync
+        _, warm = run_store_scans(dev, store, calls)
+        states[state] = dict(checked, tiers_count_tombs=tiers,
+                             first_pass=counted, warm_pass=warm)
+    del res
+
+    # ---- times on the second state, beside phase 7's immutable index
+    times = {}
+    for k, fn in calls.items():
+        times[k] = {"ms": cuda_ms(fn, reps=5, warmup=1),
+                    "immutable_ms": immutable.get(f"{k}_ms")}
+    prof = device_profile(calls["scan_range"])
+    prof["idle_share"] = 1 - prof["kernels_ms"] / times["scan_range"]["ms"]
+    profs = {}
+    for k in ("scan_range_materialize", "scan_groups_top_k"):
+        profs[k] = device_profile(calls[k])
+        profs[k]["idle_share"] = 1 - profs[k]["kernels_ms"] / times[k]["ms"]
+    b = store.base
+    aux_ms = host_ms(lambda: scan.build_page_aux(
+        b.cnt, b.vals, np.int32, mask_value=TOMBSTONE,
+        device=dev))
+    views_ms = host_ms(lambda: [scan.tier_view(
+        t.h_keys, t.h_vals, t.h_shadow, t.h_ss, t.h_tomb, dev)
+        for t in (store.sealed, store.delta)])
+
+    def first_scan_after_write():
+        store.insert(ok[:1], ov[:1])          # an upsert: same state
+        return store.scan_range(lo_d, hi_d)
+
+    first_ms = host_ms(first_scan_after_write, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- kernels 3 and 4 on the store's own operands at stride lw_pad
+    tile, P = b.tile, b.num_pages
+    span_of = tiered._make_span_of(b.page_of_raw, b.dtype)
+    plo, phi = span_of(lo_d, hi_d)
+    g_cap = schedule.ladder_grid(2 * N_RANGES, tile, P)
+    _, plan = schedule.span_scan_plan(plo, phi, tile, g_cap, P)
+    real = torch.zeros(g_cap * tile, dtype=torch.bool, device=dev) \
+        .index_fill_(0, plan.dest.long(), True)
+    edges = groupby.group_edges(lo_d[:N_GROUP_RANGES], hi_d[:N_GROUP_RANGES],
+                                N_GROUPS, np.int32).reshape(-1)
+    e_cap = schedule.ladder_grid(edges.shape[0], tile, P)
+    eplan = schedule.edge_scan_plan(b.page_of_raw(edges).int(), tile, e_cap,
+                                    P)
+    ereal = torch.zeros(e_cap * tile, dtype=torch.bool, device=dev) \
+        .index_fill_(0, eplan.dest.long(), True)
+    ok_d = torch.from_numpy(ok).to(dev)         # the live keys, sorted
+    item_lo, item_hi = torch.cat([lo_d, lo_d]), torch.cat([hi_d, hi_d])
+    launches = states["unfolded_tiers"]["warm_pass"]["mode_launches"]
+    rows = {}
+    for mode, key in (("count", "search_range"), ("sum", "scan_range_sum"),
+                      ("full", "scan_range")):
+        args, kw = capture_call(scan, "page_scan_bucketed", calls[key])
+        check(kw.get("mask_value") == TOMBSTONE or mode == "count",
+              "the store's scan kernel ran without the tombstone mask")
+        lib = (lambda: (torch.searchsorted(ok_d, item_lo),
+                        torch.searchsorted(ok_d, item_hi, right=True))) \
+            if mode == "count" else None
+        rows[f"page_scan_bucketed[{mode}]"] = kernel_row(
+            "page_scan_bucketed", mode,
+            launches["page_scan_bucketed"][mode], args, kw,
+            ps.page_scan_plain, 2 * N_RANGES, real, 2, lib)
+    for mode, key in (("count", "scan_groups_count"),
+                      ("sum", "scan_groups_sum")):
+        args, kw = capture_call(groupby, "page_prefix_bucketed", calls[key])
+        lib = (lambda: torch.searchsorted(ok_d, edges)) \
+            if mode == "count" else None
+        rows[f"page_prefix_bucketed[{mode}]"] = kernel_row(
+            "page_prefix_bucketed", mode,
+            launches["page_prefix_bucketed"][mode], args, kw,
+            ps.page_prefix_plain, edges.shape[0], ereal, 1, lib)
+    check(all(r["max_abs_err"] == 0 for r in rows.values()), "a scan kernel "
+          "disagrees with its plain version on the store's operands")
+    check(all(int(r["grid"]) > 0 and r["steps_used"] > 0
+              for r in rows.values()), "empty store kernel capture")
+    summary = {
+        "keys": int(ok.size), "num_pages": P, "lw_pad": b.lw_pad,
+        "delta_capacity": store.delta.capacity, "states": states,
+        "times": times, "profile_scan_range": prof,
+        "profile_materialize_top_k": profs,
+        "scan_aux_rebuild_ms": aux_ms, "tier_views_rebuild_ms": views_ms,
+        "first_scan_after_write_ms": first_ms,
+        "peak_memory_bytes": peak, "memory_before_bytes": mem0,
+        "shape": {"ranges": N_RANGES, "sentinel_ranges": N_SENTINEL_RANGES,
+                  "materialize": [N_MAT, MAT_K],
+                  "group_ranges": N_GROUP_RANGES, "groups": N_GROUPS,
+                  "top_k_ranges": N_TOPK_RANGES, "top_k": TOP_K,
+                  "multi": [N_MULTI, MULTI_R]},
+    }
+    return summary, rows, ok, ov
+
+
+# -------------------------------------------------------------- phase 12
+def store_durability_path(dev, rng, holder: list, ok, ov, write_us: float):
+    """Phase 12: save the 2^24-key store, a journaled write round, a
+    simulated crash (the store dropped without close, the newest segment
+    cut inside its last record), restore_index, then lookups and scans of
+    the restored store against the oracle of the surviving writes."""
+    import gc
+    import tempfile
+    from repro_torch import IndexConfig
+    from repro_torch.ckpt import journal
+    from repro_torch.core import restore_index
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_search as pk
+    store = holder.pop()                      # the last reference to it
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(d)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        snap_bytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+        # a journaled round of phase 10's mix; the round's last record
+        # (one delete) is the one the crash tears
+        new_k = fresh_keys(rng, ok, I32.min + 1, I32.max - 1, STORE_NEW)
+        pick = rng.choice(ok.size, STORE_UPSERTS + STORE_DELETES,
+                          replace=False)
+        up_k, del_k = ok[pick[:STORE_UPSERTS]], ok[pick[STORE_UPSERTS:]]
+        ins_k = rng.permutation(np.concatenate([new_k, up_k]))
+        ins_v = rng.integers(I32.min + 1, I32.max, ins_k.size,
+                             dtype=np.int64).astype(np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.insert(ins_k, ins_v)
+        store.delete(del_k[:-1])
+        torch.cuda.synchronize()
+        journaled_us = (time.perf_counter() - t0) * 1e6 \
+            / (ins_k.size + del_k.size - 1)
+        store.delete(del_k[-1:])
+        ok, ov = store_oracle_write(ok, ov, ins_k, ins_v, del_k[:-1])
+        # the journal's own share: the same records appended to a file
+        # that is no segment (replay reads journal_*.log only)
+        side = journal.Journal(os.path.join(d, "append_timing.log"),
+                               np.int32)
+        t0 = time.perf_counter()
+        side.append_many(ins_k, ins_v)
+        side.append_many(del_k, np.zeros(del_k.size, np.int32), delete=True)
+        side.flush()
+        append_us = (time.perf_counter() - t0) * 1e6 \
+            / (ins_k.size + del_k.size)
+        side.close()
+        seg = journal.scan_dir(d)[-1][1]
+        seg_bytes = os.path.getsize(seg)
+        del store                             # no close: a crash
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(seg, "r+b") as f:           # cut inside the last record
+            f.truncate(seg_bytes - journal.RECORD.size // 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_index(d, IndexConfig(kind="tiered", mutable=True))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        replayed = got.stats["journal_replayed"]
+        check(replayed == ins_k.size + del_k.size - 1,
+              f"replayed {replayed} records")
+        check(got.n == ok.size, f"restored n {got.n} != {ok.size}")
+        # 2^20 lookups (half resident, a quarter written, a quarter
+        # misses, the torn delete's key among them) and a scan batch
+        written = np.concatenate([ins_k, del_k])
+        q = rng.permutation(np.concatenate([
+            ok[rng.integers(0, ok.size, N_QUERIES // 2)],
+            written[rng.integers(0, written.size, N_QUERIES // 4 - 1)],
+            del_k[-1:],
+            rng.integers(I32.min + 1, I32.max - 1, N_QUERIES // 4,
+                         dtype=np.int64).astype(np.int32)]))
+        q_dev = torch.from_numpy(q).to(dev)
+        lo, hi = scan_ranges(rng, ok, N_RANGES)
+        lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
+        got.lookup(q_dev)                     # first lookup after restore
+        torch.cuda.synchronize()
+        pk.page_search_bucketed.launches = 0
+        kk.kary_search_levels.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = got.lookup(q_dev)
+            scan_res = got.scan_range(lo_d, hi_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = {"page_search_bucketed": pk.page_search_bucketed.launches,
+                    "kary_search_levels": kk.kary_search_levels.launches}
+        check(launches == {"page_search_bucketed": 1,
+                           "kary_search_levels": 2},
+              f"restored store launches {launches}")
+        pos = np.minimum(np.searchsorted(ok, q), ok.size - 1)
+        want_found = ok[pos] == q
+        found = res.found.cpu().numpy()
+        check(np.array_equal(found, want_found), "restored store: found")
+        check(np.array_equal(res.values.cpu().numpy()[found],
+                             ov[pos][found]), "restored store: values")
+        check(bool(found[q == del_k[-1]].all()), "the torn delete applied")
+        cs = np.zeros(ok.size + 1, np.int64)
+        cs[1:] = np.cumsum(ov.astype(np.int64))
+        r_lo, r_hi, cnt, vsum = range_oracle(ok, cs, lo, hi)
+        same(scan_res.count, cnt, "restored scan count")
+        same(scan_res.r_lo, r_lo, "restored scan r_lo")
+        same(scan_res.vsum, vsum, "restored scan vsum")
+        got.close()
+        return {"save_ms": save_ms, "snapshot_bytes": snap_bytes,
+                "journal_us_per_write": journaled_us,
+                "phase10_us_per_write": write_us,
+                "journal_append_us_per_write": append_us,
+                "journaled_writes": int(ins_k.size + del_k.size),
+                "segment_bytes": seg_bytes, "restore_ms": restore_ms,
+                "journal_replayed": replayed, "restored_n": int(got.n),
+                "restored_pages": got.base.num_pages,
+                "lookups": N_QUERIES, "hits": int(found.sum()),
+                "scan_ranges": N_RANGES, "launches": launches}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def kernel_resources() -> dict:
@@ -2146,15 +2627,30 @@ def main() -> int:
         phase_cdf(dev, rng, earlier_cdf)), flush=True)
     cdf_row, serve_main = serve_path(dev, args.seed)
     print("phase 9: serve path " + json.dumps(serve_main), flush=True)
-    store_main = store_path(dev, rng, keys_sorted, values_sorted,
-                            main["lookup_ms"])
+    store_main, store, ok, ov = store_path(dev, rng, keys_sorted,
+                                           values_sorted, main["lookup_ms"])
+    del keys_sorted, values_sorted
     print("phase 10: mutable store " + json.dumps(store_main), flush=True)
+    scan11, store_rows, ok, ov = store_scan_path(dev, rng, store, ok, ov,
+                                                 scan_main)
+    print("phase 11: store scans " + json.dumps(scan11), flush=True)
+    holder = [store]
+    del store
+    print("phase 12: durability " + json.dumps(store_durability_path(
+        dev, rng, holder, ok, ov, store_main["insert_us_per_op"])),
+        flush=True)
     for row, key in zip(rows, ("page", "kary")):
         checks = store_main["kernel_checks"]
         row["store_launches_per_lookup"] = store_main["launches"][row["name"]]
         row["store_max_abs_err"] = max(c[f"{key}_max_abs_err"]
                                        for c in checks)
         row["store_ms_before_after_repack"] = [c[f"{key}_ms"] for c in checks]
+    for row in scan_rows:                # the store's scans (phase 11)
+        st = store_rows[row["name"]]
+        row["store"] = {k: st[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "device_ms", "library_device_ms",
+            "steps_used", "grid", "pages_touched", "items")}
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

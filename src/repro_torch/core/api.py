@@ -7,6 +7,7 @@
     store = build_index(keys, values, IndexConfig(kind="tiered",
                                                   mutable=True))
     store.insert(new_keys, new_values); store.delete(old_keys)
+    store.save(ckpt_dir); store = restore_index(ckpt_dir)
 
 ``build_index`` places the index on the CUDA card unless the caller passes
 ``device``; without a card it raises unless ``device="cpu"``. Kinds,
@@ -188,6 +189,21 @@ class Index:
     def _scanner(self):
         return scan.scanner_for(self.impl, self.values_sorted)
 
+    def delete(self, keys):
+        """Frozen indexes have no write path: deletes need the mutable
+        store (``IndexConfig(mutable=True)``)."""
+        raise TypeError(
+            "this index is immutable; build with "
+            "IndexConfig(mutable=True) for insert/delete support")
+
+    def save(self, ckpt_dir=None):
+        """Snapshot / restore is the mutable store's durability contract
+        (``MutableIndex.save``); frozen indexes are rebuilt from their
+        source arrays."""
+        raise TypeError(
+            "this index is immutable; build with "
+            "IndexConfig(mutable=True) for save/restore support")
+
 
 def check_ported(config: IndexConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when
@@ -198,9 +214,6 @@ def check_ported(config: IndexConfig) -> None:
     if config.specialize:
         raise not_ported("IndexConfig(specialize=True)",
                          "item 11 (specialization and autotune)")
-    if config.mutable and config.ckpt_dir is not None:
-        raise not_ported("IndexConfig(ckpt_dir=...), the mutable store's "
-                         "journal and snapshots", "item 8 (durability)")
 
 
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
@@ -228,6 +241,21 @@ def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
                         plan=c.plan, device=device)
     return Index(config=c, impl=impl, keys_sorted=torch.from_numpy(srt)
                  .to(device), values_sorted=vals, n=int(srt.size))
+
+
+def restore_index(ckpt_dir: str, config: IndexConfig = IndexConfig(
+        kind="tiered", mutable=True), device=None):
+    """Warm-restart a mutable index from its checkpoint directory on
+    ``device`` (default: the CUDA card): the newest verifying snapshot (a
+    corrupt latest degrades to the previous step with a warning) plus a
+    replay of the journaled writes after it, with no O(n) rebuild
+    (DESIGN.md §6.5). Reads directories the reference wrote."""
+    if not config.mutable:
+        raise ValueError("restore_index requires IndexConfig(mutable=True)")
+    check_ported(config)
+    from ..engine.store import MutableIndex
+    return MutableIndex.restore(ckpt_dir, config,
+                                device=resolve_device(device))
 
 
 def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(

@@ -97,6 +97,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def upload_async(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A device copy of a host array that does not wait for the stream:
+    staged through page-locked memory and copied with ``non_blocking``.
+    The caching host allocator keeps the staging block until the copy has
+    run, so the caller may drop it (and mutate ``arr``) at once. On the
+    CPU it is a plain copy."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def as_queries(queries, like: torch.Tensor) -> torch.Tensor:
     """Queries as a 1-D tensor on ``like``'s device in its dtype (the
     reference's ``jnp.asarray`` canonicalises 64-bit inputs to 32 bits the

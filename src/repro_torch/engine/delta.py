@@ -33,16 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.util import numpy_dtype, resolve_device, sentinel_for
+from ..core.util import (numpy_dtype, resolve_device, sentinel_for,
+                         upload_async)
 from .schedule import _next_pow2
 
 DEFAULT_NODE_WIDTH = 16
-
-
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A device copy of a host array (never a view: the host array is
-    mutated in place after the upload)."""
-    return torch.tensor(arr, device=device)
 
 
 class DeltaBuffer:
@@ -259,22 +254,22 @@ class DeltaBuffer:
 
     def device_state(self):
         """(d_keys [nn, w], d_vals [nn, w], d_seps [nn]) device mirrors,
-        cached until the next mutation. A host-to-device copy waits for
-        the stream, so the store calls this at the end of each write
-        batch, never inside a lookup."""
+        cached until the next mutation and copied without waiting for the
+        stream (``upload_async``). The store calls this at the end of each
+        write batch, so a lookup never copies from the host."""
         if self._dev is None:
-            self._dev = (_upload(self.h_keys, self.device),
-                         _upload(self.h_vals, self.device),
-                         _upload(self.node_max, self.device))
+            self._dev = (upload_async(self.h_keys, self.device),
+                         upload_async(self.h_vals, self.device),
+                         upload_async(self.node_max, self.device))
         return self._dev
 
     def device_bits(self):
         """(d_sb, d_ss, d_tomb) [nn, w] bool device mirrors, cached like
         ``device_state`` (the fused lookup uses d_tomb alone)."""
         if self._dev_bits is None:
-            self._dev_bits = (_upload(self.h_shadow, self.device),
-                              _upload(self.h_ss, self.device),
-                              _upload(self.h_tomb, self.device))
+            self._dev_bits = (upload_async(self.h_shadow, self.device),
+                              upload_async(self.h_ss, self.device),
+                              upload_async(self.h_tomb, self.device))
         return self._dev_bits
 
     # ------------------------------------------------------------ snapshot

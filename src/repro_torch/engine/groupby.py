@@ -19,9 +19,11 @@ sync.
   predicate becomes at most R disjoint canonical ranges, scanned through
   the span pipeline and folded back per query.
 
-The mutable store's delta-aware forms (``_tier_prefix_terms``,
-``make_paged_group_fns``, ``make_delta_group_fns``) come with ROADMAP
-Queue 1 item 5B.
+Over the mutable store the same paths are delta-aware: each delta tier's
+prefix terms (:func:`_tier_prefix_terms`) apply the shadow correction of
+DESIGN.md §6.3 to each edge's prefix, and the composite / full / top-K
+paths reuse ``scan.make_paged_scan_fns`` (:func:`make_paged_group_fns`,
+:func:`make_delta_group_fns`).
 """
 from __future__ import annotations
 
@@ -237,6 +239,18 @@ def make_edge_prefix(page_of_raw: Callable, *, num_pages: int, tile: int,
     return prefix
 
 
+def _tier_prefix_terms(e, t: _scan.TierView) -> dict:
+    """Per-edge prefix terms of one delta tier, the strictly-below half of
+    ``scan._tier_terms``: live keys below the edge, the sb / ss count
+    correction (each such entry's base / sealed twin is physically counted
+    below the same edge) and the matching value sums (only live sb / ss
+    values subtract). One binary search an edge in the tier's sorted
+    view, where the reference compares each edge with every slot."""
+    p = t.pre[:, torch.searchsorted(t.keys, e).long()]
+    return dict(below=p[0], below_sub=p[1], below_vsum=p[2],
+                below_sub_vsum=p[3])
+
+
 # ------------------------------------------------------------ top-K select
 def masked_topk(vals: torch.Tensor, ranks: torch.Tensor,
                 count: torch.Tensor, K: int):
@@ -296,7 +310,13 @@ def make_group_makers(make_agg: Callable, make_mat: Optional[Callable],
       over)`` for the top-K candidates (None disables ``make_gtopk``);
     * ``prefix_path(with_sum) -> prefix(e, kpages, vpages, aux)`` enables
       the (G+1)-edge count/sum path; ``rest[:3]`` is then ``(kpages,
-      vpages, aux)``.
+      vpages, aux)`` and the trailing operands after them that are delta
+      tiers get their prefix corrections (:func:`_tier_prefix_terms`).
+      The reference passes each tier as a group of five trailing operands
+      (keys, vals, sb, ss, tomb) and ignores a tail that is not a multiple
+      of five (the immutable scanner's flat values); here a tier is one
+      ``scan.TierView`` operand (the same five planes, key-sorted with
+      their prefixes), and any other trailing operand is ignored.
 
     Returns ``(make_gagg, make_gtopk, make_magg)``:
 
@@ -331,7 +351,15 @@ def make_group_makers(make_agg: Callable, make_mat: Optional[Callable],
             def gagg(lo, hi, *rest):
                 kpages, vpages, aux = rest[:3]
                 edges = group_edges(lo, hi, G, kd)
-                pcnt, psum = pf(edges.reshape(-1), kpages, vpages, aux)
+                ef = edges.reshape(-1)
+                pcnt, psum = pf(ef, kpages, vpages, aux)
+                for t in rest[3:]:
+                    if not isinstance(t, _scan.TierView):
+                        continue
+                    d = _tier_prefix_terms(ef, t)
+                    pcnt = pcnt + d["below"] - d["below_sub"]
+                    if psum is not None:
+                        psum = psum + d["below_vsum"] - d["below_sub_vsum"]
                 r_edge = pcnt.reshape(-1, G + 1)
                 vsum = None if psum is None else \
                     torch.diff(psum.reshape(-1, G + 1), dim=1)
@@ -374,3 +402,35 @@ def make_group_makers(make_agg: Callable, make_mat: Optional[Callable],
         return magg
 
     return make_gagg, make_gtopk, make_magg
+
+
+def make_paged_group_fns(span_of: Callable, page_of_raw: Callable, *,
+                         num_pages: int, lw_pad: int, tile: int, key_dtype,
+                         mask_value=None):
+    """The mutable paged store's grouped / composite family over the
+    ``(lo, hi, kpages, vpages, aux, sealed, active)`` operands of
+    ``scan.make_paged_scan_fns``, with the count / sum grouped path on the
+    (G+1)-edge prefix pipeline plus the tiers' prefix corrections."""
+    make_agg, make_mat = _scan.make_paged_scan_fns(
+        span_of, num_pages=num_pages, lw_pad=lw_pad, tile=tile,
+        key_dtype=key_dtype, mask_value=mask_value)
+    prefixes = {}
+
+    def prefix_path(with_sum: bool):
+        p = prefixes.get(with_sum)
+        if p is None:
+            p = prefixes[with_sum] = make_edge_prefix(
+                page_of_raw, num_pages=num_pages, tile=tile,
+                with_sum=with_sum, mask_value=mask_value)
+        return p
+
+    return make_group_makers(make_agg, make_mat, key_dtype,
+                             prefix_path=prefix_path)
+
+
+def make_delta_group_fns(key_dtype):
+    """The base-less twin (a mutable store before its first fold): the
+    same makers over ``scan.make_delta_scan_fns``'s ``(sealed, active)``
+    operands; every path goes through the per-bucket expansion."""
+    make_agg, make_mat = _scan.make_delta_scan_fns(key_dtype)
+    return make_group_makers(make_agg, make_mat, key_dtype)

@@ -19,11 +19,18 @@ Q ``(lo, hi)`` range queries run as one pass with no host sync:
    max and the below-lo count that anchors the ranks. Matches are never
    written out unless ``materialize=K`` asks for the first K of each query.
 
+Over the mutable store (``engine/store.py``) the same span pipeline runs
+on the gapped leaf pages with the tombstone masked out of the value
+aggregates, and each delta tier adds its live terms and subtracts its
+shadow corrections (:func:`make_paged_scan_fns`). A tier's terms come
+from its key-sorted view (:class:`TierView`): two binary searches and
+prefix differences a query, where the reference compares each query with
+every slot.
+
 The reference caches one ``jax.jit`` dispatch per shape; here the
-pipelines are plain functions. Left out: the mutable store's delta-aware
-scans (ROADMAP Queue 1 item 5B), the non-tiered kinds' ``FlatAggregator``
-(item 12), the specialized index (item 11) and the scan's telemetry spans
-and counters (item 10).
+pipelines are plain functions. Left out: the non-tiered kinds'
+``FlatAggregator`` (item 12), the specialized index (item 11) and the
+scan's telemetry spans and counters (item 10).
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core.util import (as_queries, not_ported, numpy_dtype,
-                         resolve_device, take)
+                         resolve_device, sentinel_for, take, upload_async)
 from ..kernels import page_scan as _pscan
 from ..kernels.page_scan import MODES, agg_identities
 from . import tiered as _tiered
@@ -181,8 +188,10 @@ def build_page_aux(cnt: np.ndarray, vals: Optional[np.ndarray],
         pmax = np.full(P, id_max, vd)
     cum_sum = np.zeros(P + 1, vd)
     cum_sum[1:] = np.cumsum(psum, dtype=vd)
-    # np.minimum / np.maximum, as the reference builds them (see above)
-    return ScanAux(*(torch.from_numpy(a).to(device) for a in (
+    # np.minimum / np.maximum, as the reference builds them (see above);
+    # the copies do not wait for the stream: the mutable store rebuilds
+    # these inside a scan
+    return ScanAux(*(upload_async(a, device) for a in (
         cum_cnt, cum_sum, sparse_table(pmin, np.minimum, id_min),
         sparse_table(pmax, np.maximum, id_max))))
 
@@ -528,16 +537,377 @@ class FlatAggregator:
         raise not_ported("FlatAggregator", "item 12 (the other index kinds)")
 
 
-def _tier_terms(*args, **kwargs):
-    raise not_ported("scan._tier_terms",
-                     "item 5B (the mutable store's scans)")
 
 
-def make_paged_scan_fns(*args, **kwargs):
-    raise not_ported("scan.make_paged_scan_fns",
-                     "item 5B (the mutable store's scans)")
+# -------------------------------------------------- mutable (paged) store
+class TierView(NamedTuple):
+    """One delta tier (sealed or active) as the mutable store's scans
+    read it (built by :func:`tier_view`, cached by the store until its
+    next mutation).
+
+    The reference compares every query with every slot of a tier: masks
+    of [Q, capacity] per term. Here the tier's slots are sorted by key
+    once (stably, so the sentinel gap slots sort last in slot order) and
+    carry exclusive prefix sums and sparse tables over that order. The
+    slots with ``lo <= key <= hi`` are the run ``[a, b)`` between two
+    binary searches, and each of the reference's masked sums is the
+    difference of two prefix entries (int32, so sums wrap mod 2^32 as the
+    reference's do) and each masked min / max a sparse-table reduce. Gap
+    slots stay in the view with their sentinel key, value 0 and clear
+    bits, so a bound equal to the sentinel takes them in exactly as the
+    reference's masks do.
+
+    keys    [cap] key dtype, ascending
+    order   [cap] int32 flat slot of each sorted position
+    vals    [cap] int32 values in that order
+    tomb    [cap] bool tombstone bits in that order
+    pre     [4, cap + 1] int32 exclusive prefixes of: live (not tomb);
+            the count correction ``sb | (ss & live)``; the live value;
+            the corrected value ``(sb | ss) & live``
+    st      [2, L, cap] int32 sparse tables of the live values' min and
+            max (identities elsewhere)
+    lg, half  [cap + 1] int32: floor(log2(n)) and its power of two for a
+            run of n slots (0 at n = 0), so that a run's min / max is
+            two table reads and no arithmetic on logarithms
+    """
+    keys: torch.Tensor
+    order: torch.Tensor
+    vals: torch.Tensor
+    tomb: torch.Tensor
+    pre: torch.Tensor
+    st: torch.Tensor
+    lg: torch.Tensor
+    half: torch.Tensor
 
 
-def make_delta_scan_fns(*args, **kwargs):
-    raise not_ported("scan.make_delta_scan_fns",
-                     "item 5B (the mutable store's scans)")
+def tier_view(keys: np.ndarray, vals: np.ndarray, sb: np.ndarray,
+              ss: np.ndarray, tomb: np.ndarray, device) -> TierView:
+    """The :class:`TierView` of one tier's host arrays ([nn, w] each,
+    flattened in slot order as the reference flattens them), built in
+    numpy and moved to ``device`` in one copy that does not wait for the
+    stream (``upload_async``)."""
+    fk = np.asarray(keys).reshape(-1)
+    cap = fk.size
+    order = np.argsort(fk, kind="stable")
+    sk = fk[order]
+    sv = np.asarray(vals, np.int32).reshape(-1)[order]
+    fsb, fss, ftb = (np.asarray(b, bool).reshape(-1)[order]
+                     for b in (sb, ss, tomb))
+    live = ~ftb
+    terms = np.stack([live, fsb | (fss & live), np.where(live, sv, 0),
+                      np.where((fsb | fss) & live, sv, 0)]).astype(np.int64)
+    pre = np.zeros((4, cap + 1), np.int64)
+    np.cumsum(terms, axis=1, out=pre[:, 1:])
+    id_min, id_max = agg_identities(np.int32)
+    st = np.stack([
+        sparse_table(np.where(live, sv, id_min), np.minimum, id_min),
+        sparse_table(np.where(live, sv, id_max), np.maximum, id_max)])
+    L = st.shape[1]
+    lg = np.zeros(cap + 1, np.int32)
+    lg[1:] = np.log2(np.arange(1, cap + 1)).astype(np.int32)  # exact: ints
+    half = np.where(np.arange(cap + 1) > 0, 1 << lg, 0).astype(np.int32)
+    parts = [sk.view(np.int32), order.astype(np.int32), sv,
+             ftb.astype(np.int32), pre.astype(np.int32).ravel(), st.ravel(),
+             lg, half]
+    buf = upload_async(np.concatenate(parts), resolve_device(device))
+    at = np.cumsum([0] + [p.size for p in parts])
+    sl = [buf[at[i]:at[i + 1]] for i in range(len(parts))]
+    return TierView(
+        keys=sl[0].view(torch.float32) if fk.dtype == np.float32 else sl[0],
+        order=sl[1], vals=sl[2], tomb=sl[3] != 0,
+        pre=sl[4].view(4, cap + 1), st=sl[5].view(2, L, cap), lg=sl[6],
+        half=sl[7])
+
+
+def _tier_run(lo, hi, t: TierView):
+    """[a, b): the sorted positions with ``lo <= key <= hi`` (b = a when
+    the run is empty)."""
+    a = torch.searchsorted(t.keys, lo, out_int32=True)
+    b = torch.searchsorted(t.keys, hi, right=True, out_int32=True)
+    return a, torch.maximum(a, b)
+
+
+def _tier_terms(lo, hi, t: TierView, mode: str = "full") -> dict:
+    """The reference's per-tier terms (DESIGN.md §6.3) from one tier's
+    sorted view, per query:
+
+      cnt / vsum / vmin / vmax  the tier's own LIVE contribution in
+                                [lo, hi];
+      sub      the count correction: one per in-range sb entry (its base
+               twin is physically counted, live or tombstone-synced) and
+               one per in-range live ss entry (its sealed twin is synced
+               live and counted twice);
+      sub_sum  the value correction: a live sb / ss entry's lower twin
+               carries its value, so subtracting it removes the duplicate;
+      below / below_sub  the same pair over keys < lo (rank anchors).
+
+    ``mode`` "count" leaves out the value terms, "sum" the min / max."""
+    a, b = _tier_run(lo, hi, t)
+    al, bl = a.long(), b.long()
+    pa, pb = t.pre[:, al], t.pre[:, bl]
+    d = pb - pa
+    out = dict(cnt=d[0], sub=d[1], below=pa[0], below_sub=pa[1])
+    if mode != "count":
+        out.update(vsum=d[2], sub_sum=d[3])
+    if mode == "full":
+        # the run [a, b) as two overlapping power-of-two blocks: the
+        # table's rows k = floor(log2(b - a)) at a and at b - 2^k
+        cap = t.keys.shape[0]
+        n = bl - al
+        k = t.lg[n].long()
+        i2 = (bl - t.half[n]).clamp(0, cap - 1)     # n = 0: masked
+        mm = torch.stack([t.st[:, k, al.clamp_max(cap - 1)],
+                          t.st[:, k, i2]])                  # [2, 2, Q]
+        id_min, id_max = (x.item() for x in agg_identities(np.int32))
+        empty = n == 0
+        out.update(
+            vmin=torch.minimum(mm[0, 0], mm[1, 0]).masked_fill(empty,
+                                                               id_min),
+            vmax=torch.maximum(mm[0, 1], mm[1, 1]).masked_fill(empty,
+                                                               id_max))
+    return out
+
+
+def _sorted_tier_window(t: TierView, lo, hi, offset: int):
+    """The in-range run of one tier per query, over the tier's full
+    ``capacity`` columns from the run's start (tombstoned entries
+    interleave with live ones, so no shorter window is safe): (mask —
+    in range and live, keys, slot addresses ``offset + flat slot``,
+    values)."""
+    cap = t.keys.shape[0]
+    start = torch.searchsorted(t.keys, lo, out_int32=True)
+    idx = start[:, None] + torch.arange(cap, dtype=torch.int32,
+                                        device=lo.device)[None, :]
+    at = idx.clamp(0, cap - 1).long()
+    key = t.keys[at]
+    ok = (idx < cap) & (key >= lo[:, None]) & (key <= hi[:, None]) \
+        & ~t.tomb[at]
+    return ok, key, offset + t.order[at], t.vals[at]
+
+
+def _member(sorted_keys, query_keys):
+    """[Q, W] bool: each query key occupies a slot of the sorted tier
+    (gap sentinels sort last; a sentinel query finds them)."""
+    cap = sorted_keys.shape[0]
+    pos = torch.searchsorted(sorted_keys, query_keys).clamp(0, cap - 1)
+    return sorted_keys[pos] == query_keys
+
+
+# rows of a materialize window computed at once: the window is
+# K + 4 * capacity columns wide (about 4,000 at the default capacity), and
+# each chunk keeps its [rows, width] intermediates near 2^25 elements
+_MAT_CHUNK_ELEMS = 1 << 25
+
+
+def _order_bits(keys: torch.Tensor) -> torch.Tensor:
+    """int64 values that order as ``keys`` compare: int32 keys as they
+    are; float32 keys by their bits, negatives flipped, with -0.0 taken
+    as +0.0 (the two compare equal, and a sort keeps them in place)."""
+    if keys.dtype != torch.float32:
+        return keys.long()
+    b = (keys + 0.0).view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b).long()
+
+
+def _first_k_rows(K: int, q_n: int, width: int, window, sent):
+    """Per query row, the K entries of smallest key of the windows that
+    ``window(rows)`` returns (a list of (ok, key, addr, val) [rows, w]
+    blocks): keys outside ``ok`` become the sentinel, and the K smallest
+    of (key, column) are taken, which is the head of the reference's
+    stable argsort of the concatenated blocks (ties keep block, then
+    column order). Each (key, column) pair is one int64, so
+    ``torch.topk`` selects the K without sorting the whole row. Rows go
+    in chunks so the intermediates stay bounded. Returns (addr [Q, K],
+    val [Q, K])."""
+    step = max(1, _MAT_CHUNK_ELEMS // max(width, 1))
+    shift = max(1, (width - 1).bit_length())
+    outs = []
+    for s in range(0, q_n, step):
+        blocks = window(slice(s, min(s + step, q_n)))
+        keys = torch.cat([torch.where(ok, k, sent)
+                          for ok, k, _, _ in blocks], 1)
+        addr = torch.cat([a for _, _, a, _ in blocks], 1)
+        val = torch.cat([v for _, _, _, v in blocks], 1)
+        col = torch.arange(keys.shape[1], device=keys.device)
+        packed = ((_order_bits(keys) + (1 << 31)) << shift) | col
+        head = torch.topk(packed, K, dim=1, largest=False).values
+        ordx = head & ((1 << shift) - 1)
+        outs.append((torch.gather(addr, 1, ordx), torch.gather(val, 1, ordx)))
+    if not outs:
+        blocks = window(slice(0, 0))
+        z = torch.zeros((0, min(K, width)), dtype=torch.int32,
+                        device=blocks[0][0].device)
+        return z, z.clone()
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def make_paged_scan_fns(span_of: Callable, *, num_pages: int, lw_pad: int,
+                        tile: int, key_dtype, mask_value=None):
+    """The scan over a gapped paged base and BOTH delta tiers (sealed,
+    active) with the three-tier shadow / tombstone correction (DESIGN.md
+    §6.3, §8.2). Returns ``(make_agg, make_mat)``:
+
+    * ``make_agg(mode)`` -> ``agg(lo, hi, kpages, vpages, aux, sealed,
+      active) -> (count, vsum, vmin, vmax, r_lo, r_hi_excl)`` at the
+      pushdown depth ``mode`` (fields beyond it None; count mode never
+      reads the value pages). ``sealed`` / ``active`` are the tiers'
+      :class:`TierView`. Base terms come from the span pipeline (physical
+      counts; tombstone values masked by the kernels' ``mask_value``),
+      each tier's live terms are added and its sb / ss corrections
+      subtracted (:func:`_tier_terms`); min / max need no correction, as
+      the write path value-syncs every lower twin.
+    * ``make_mat(K, mode)`` -> the same plus the first K merged live
+      matches' slot addresses (base region, then sealed at
+      ``P*lw_pad + slot``, then active at ``P*lw_pad + capacity + slot``)
+      and values in key order, and the overflow flag: a base window of
+      K + 2·capacity physical ordinals (each exclusion needs a tier twin)
+      and each tier's in-range run, merged per row. Base candidates with
+      a twin in either tier are dropped, sealed ones with an active twin
+      likewise, tombstones everywhere.
+    """
+    sent = sentinel_for(key_dtype).item()
+    base_sz = num_pages * lw_pad
+    pipes = {}
+
+    def pipe(mode):
+        p = pipes.get(mode)
+        if p is None:
+            p = pipes[mode] = make_span_pipeline(
+                span_of, num_pages=num_pages, tile=tile, key_dtype=key_dtype,
+                val_dtype=np.int32, mode=mode, mask_value=mask_value)
+        return p
+
+    def core(mode, lo, hi, kpages, vpages, aux, tiers):
+        s = pipe(mode)(lo, hi, kpages, vpages if mode != "count" else None,
+                       aux)
+        count, vsum, vmin, vmax = s.count, s.vsum, s.vmin, s.vmax
+        o_lo = aux.cum_cnt[s.plo.long()] + s.lt_lo
+        below = o_lo
+        for t in tiers:
+            d = _tier_terms(lo, hi, t, mode)
+            count = count + d["cnt"] - d["sub"]
+            below = below + d["below"] - d["below_sub"]
+            if mode != "count":
+                vsum = vsum + d["vsum"] - d["sub_sum"]
+            if mode == "full":
+                vmin = torch.minimum(vmin, d["vmin"])
+                vmax = torch.maximum(vmax, d["vmax"])
+        return o_lo, count, vsum, vmin, vmax, below
+
+    def make_agg(mode: str):
+        def agg(lo, hi, kpages, vpages, aux, sealed, active):
+            _, count, vsum, vmin, vmax, below = core(
+                mode, lo, hi, kpages, vpages, aux, (sealed, active))
+            return count, vsum, vmin, vmax, below, below + count
+        return agg
+
+    def make_mat(K: int, mode: str = "count"):
+        def mat(lo, hi, kpages, vpages, aux, sealed, active):
+            o_lo, count, vsum, vmin, vmax, below = core(
+                mode, lo, hi, kpages, vpages, aux, (sealed, active))
+            cap = sealed.keys.shape[0]
+            W = K + 2 * cap
+            jw = torch.arange(W, dtype=torch.int32, device=lo.device)
+            kflat, vflat = kpages.reshape(-1), vpages.reshape(-1)
+            cum = aux.cum_cnt
+
+            def window(rows):
+                l, h = lo[rows], hi[rows]
+                # base candidates: physical ordinals from the first
+                # in-range slot; keys are sorted across pages, so the
+                # in-range test bounds the window (overshoot reads larger
+                # keys or sentinels)
+                ords = o_lo[rows, None] + jw[None, :]
+                pg = (torch.searchsorted(cum, ords, right=True,
+                                         out_int32=True) - 1) \
+                    .clamp(0, num_pages - 1)
+                addr = (pg * lw_pad + (ords - cum[pg.long()])) \
+                    .clamp(0, base_sz - 1)
+                bkey, bval = kflat[addr.long()], vflat[addr.long()]
+                bok = (bkey >= l[:, None]) & (bkey <= h[:, None])
+                sok, skey, saddr, sval = _sorted_tier_window(
+                    sealed, l, h, base_sz)
+                aok, akey, aaddr, aval = _sorted_tier_window(
+                    active, l, h, base_sz + cap)
+                # any tier twin outranks a base copy; an active twin a
+                # sealed one (tomb twins delete them)
+                bok = bok & ~_member(sealed.keys, bkey) \
+                    & ~_member(active.keys, bkey)
+                sok = sok & ~_member(active.keys, skey)
+                return [(bok, bkey, addr, bval), (sok, skey, saddr, sval),
+                        (aok, akey, aaddr, aval)]
+
+            rk, vv = _first_k_rows(K, lo.shape[0], W + 2 * cap, window, sent)
+            valid = torch.arange(K, dtype=torch.int32,
+                                 device=lo.device)[None, :] < count[:, None]
+            return (count, vsum, vmin, vmax, below, below + count,
+                    torch.where(valid, rk, -1), torch.where(valid, vv, 0),
+                    count > K)
+        return mat
+
+    return make_agg, make_mat
+
+
+def make_delta_scan_fns(key_dtype):
+    """The base-less twin of :func:`make_paged_scan_fns`: a mutable store
+    before its first fold. Two tiers (sealed, active), no base: sb bits are
+    never set, ss corrections apply unchanged. ``make_agg(mode)`` /
+    ``make_mat(K, mode)`` take ``(lo, hi, sealed, active)``; materialize
+    addresses are sealed at ``slot``, active at ``capacity + slot``."""
+    sent = sentinel_for(key_dtype).item()
+    id_min, id_max = (x.item() for x in agg_identities(np.int32))
+
+    def _terms(lo, hi, tiers):
+        z = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
+        count = below = vsum = z
+        vmin = torch.full_like(z, id_min)
+        vmax = torch.full_like(z, id_max)
+        for t in tiers:
+            d = _tier_terms(lo, hi, t)
+            count = count + d["cnt"] - d["sub"]
+            below = below + d["below"] - d["below_sub"]
+            vsum = vsum + d["vsum"] - d["sub_sum"]
+            vmin = torch.minimum(vmin, d["vmin"])
+            vmax = torch.maximum(vmax, d["vmax"])
+        return count, vsum, vmin, vmax, below
+
+    def _depth(mode, vsum, vmin, vmax):
+        if mode == "count":
+            return None, None, None
+        return (vsum, None, None) if mode == "sum" else (vsum, vmin, vmax)
+
+    def make_agg(mode: str):
+        def agg(lo, hi, sealed, active):
+            count, vsum, vmin, vmax, below = _terms(lo, hi,
+                                                    (sealed, active))
+            return (count, *_depth(mode, vsum, vmin, vmax), below,
+                    below + count)
+        return agg
+
+    def make_mat(K: int, mode: str = "count"):
+        def mat(lo, hi, sealed, active):
+            count, vsum, vmin, vmax, below = _terms(lo, hi,
+                                                    (sealed, active))
+            cap = sealed.keys.shape[0]
+
+            def window(rows):
+                l, h = lo[rows], hi[rows]
+                sok, skey, saddr, sval = _sorted_tier_window(sealed, l, h, 0)
+                aok, akey, aaddr, aval = _sorted_tier_window(active, l, h,
+                                                             cap)
+                sok = sok & ~_member(active.keys, skey)
+                return [(sok, skey, saddr, sval), (aok, akey, aaddr, aval)]
+
+            Kc = min(K, 2 * cap)
+            rk, vv = _first_k_rows(Kc, lo.shape[0], 2 * cap, window, sent)
+            if Kc < K:                   # as the reference's jnp.pad
+                rk = torch.nn.functional.pad(rk, (0, K - Kc))
+                vv = torch.nn.functional.pad(vv, (0, K - Kc))
+            valid = torch.arange(K, dtype=torch.int32,
+                                 device=lo.device)[None, :] < count[:, None]
+            return (count, *_depth(mode, vsum, vmin, vmax), below,
+                    below + count, torch.where(valid, rk, -1),
+                    torch.where(valid, vv, 0), count > K)
+        return mat
+
+    return make_agg, make_mat

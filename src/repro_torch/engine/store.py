@@ -19,23 +19,40 @@ and the pipeline (stride ``lw_pad``) yields a flat storage address
 instead of a dense rank. A delete keeps the base key and changes only its
 value to ``TOMBSTONE`` until the next fold removes the row.
 
+**Scans** (``scan_range``, ``search_range``, ``scan_groups``,
+``scan_multi``) run the immutable index's span pipeline over the gapped
+pages (tombstone values masked) and correct it per delta tier from the
+tier's key-sorted view (``engine/scan.py``); the first scan after a write
+pushes the host-synced value rows and rebuilds the page aggregates, with
+no host sync. **Durability** (DESIGN.md §6.5): with ``ckpt_dir`` every
+write batch is journaled ahead of application (``ckpt/journal.py``),
+``save`` snapshots the store and rotates the journal, and ``restore``
+adopts the newest verifying snapshot and replays the journal; the files
+are the reference's, so either package restores the other's.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: a non-tiered base (item 12), ``specialize=True`` (item 11),
-``ckpt_dir`` and ``save`` / ``restore`` (item 8) and the store's scans
-(item 5B). The reference's spans and counters come with item 10.
+item: a non-tiered base and its "flat" snapshot (item 12) and
+``specialize=True`` (item 11). The reference's spans and counters come
+with item 10.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..ckpt import checkpoint as _ckpt
+from ..ckpt import journal as _jr
 from ..core.util import (as_queries, ceil_to, not_ported, resolve_device,
-                         sentinel_for, take)
+                         sentinel_for, take, upload_async)
 from ..kernels import ops
 from . import delta as _delta
+from . import groupby as _gb
+from . import scan as _scan
 from . import tiered
 from .schedule import executed_occupancy
 
@@ -137,8 +154,8 @@ class _PagedBase:
         self.pipeline_stats = tiered._make_pipeline(
             self.page_of_raw, num_pages=P, stride=self.lw_pad,
             tile=self.tile, clip=P * self.lw_pad - 1, with_stats=True)
-        self.dev_keys = _delta._upload(self.keys, self.device)
-        self.dev_vals = _delta._upload(self.vals, self.device)
+        self.dev_keys = upload_async(self.keys, self.device)
+        self.dev_vals = upload_async(self.vals, self.device)
         self.derives += 1
 
     # ---------------------------------------------------------------- merge
@@ -203,9 +220,9 @@ class _PagedBase:
         # device: the touched rows copied over their mirrors in place, on
         # the current stream (after any lookup already queued on it)
         rows = torch.from_numpy(idx).to(self.device)
-        self.dev_keys.index_copy_(0, rows, _delta._upload(self.keys[idx],
+        self.dev_keys.index_copy_(0, rows, upload_async(self.keys[idx],
                                                           self.device))
-        self.dev_vals.index_copy_(0, rows, _delta._upload(self.vals[idx],
+        self.dev_vals.index_copy_(0, rows, upload_async(self.vals[idx],
                                                           self.device))
 
     def _repack(self, merged: dict) -> dict:
@@ -325,7 +342,10 @@ class MutableIndex:
                       "top_derives": 0, "base_rebuilds": 0, "shadowed": 0,
                       "seals": 0, "maintains": 0, "journal_replayed": 0}
         self._last_plan = None        # (q_n, steps, tile, P) of last lookup
+        self._rev = 0                 # mutation revision (scan-state cache)
         self._dirty_rows = set()      # pages with host-synced shadow values
+        self._scan_fns = None         # scan fns per base structure
+        self._scan_state = None       # (rev, ScanAux, tier views)
         if keys.size:
             ks, vs = _dedup_last(keys, np.asarray(values, np.int32))
             if np.any(vs == TOMBSTONE):
@@ -334,6 +354,14 @@ class MutableIndex:
             self._build_base(ks, vs)
         self._fused = self._make_lookup()
         self._upload_tiers()
+        # durability (DESIGN.md §6.5): with a checkpoint dir configured,
+        # every write is journaled ahead of application; save() snapshots
+        # and rotates the journal segment
+        self._ckpt_dir = config.ckpt_dir
+        self._ckpt_keep = config.ckpt_keep
+        self._journal = None
+        if self._ckpt_dir:
+            self._open_journal(self._ckpt_dir)
 
     # ---------------------------------------------------------------- build
     def _build_base(self, ks: np.ndarray, vs: np.ndarray):
@@ -423,8 +451,16 @@ class MutableIndex:
 
     def _write(self, keys, values, *, delete: bool):
         with self._lock:
-            # the reference's journal append (item 8) and its
-            # engine_op_seconds / engine_ops counters (item 10) sit here
+            jr = self._journal
+            if jr is not None:
+                # write-ahead for the WHOLE batch, then apply: replay is an
+                # idempotent upsert, so batch-level WAL ordering is
+                # equivalent to per-key interleaving (the reference's
+                # journal.append span and journal timer: item 10); a
+                # delete journals value 0, as the reference's does
+                jr.append_many(keys, np.zeros(keys.shape, np.int32)
+                               if delete else values, delete=delete)
+                jr.flush()
             for k, v in zip(keys, values):
                 if self.delta.full:
                     self._seal()
@@ -454,6 +490,7 @@ class MutableIndex:
                         self.stats["shadowed"] += 1
                 else:
                     self.stats["upserts"] += 1
+            self._rev += 1
             self._upload_tiers()
 
     def _seal(self):
@@ -466,6 +503,7 @@ class MutableIndex:
             self.maintain()
         self.delta, self.sealed = self.sealed, self.delta
         self.stats["seals"] += 1
+        self._rev += 1
         if self._mode == "inline":
             self.maintain()
         elif self._mode == "thread":
@@ -483,6 +521,7 @@ class MutableIndex:
             dk, dv, dt = self.sealed.drain()
             self.stats["maintains"] += 1
             self.stats["merges"] += 1
+            self._rev += 1
             # the reference's store.fold span and fold timer: item 10
             self._fold(dk, dv, dt)
             self.delta.promote_ss()
@@ -535,13 +574,16 @@ class MutableIndex:
             self.maintain()
 
     def close(self):
-        """Cancel the maintenance timer (idempotent; the store stays
-        readable)."""
+        """Cancel the maintenance timer and close the journal (idempotent;
+        the store stays readable)."""
         with self._lock:
             self._closed = True
             t, self._timer = self._timer, None
+            jr, self._journal = self._journal, None
         if t is not None:
             t.cancel()
+        if jr is not None:
+            jr.close()
 
     # ---------------------------------------------------------------- read
     def lookup(self, queries):
@@ -582,29 +624,311 @@ class MutableIndex:
         q_n, steps, tile, num_pages = fb
         return lambda: executed_occupancy(q_n, int(steps), tile, num_pages)
 
-    def _scans_not_ported(self, name: str):
-        raise not_ported(f"MutableIndex.{name}",
-                         "item 5B (the mutable store's scans)")
+    # ---------------------------------------------------------------- scan
+    def _ensure_scan(self):
+        """(scan fns, device ScanAux, (sealed, active) tier views) for the
+        range scans, rebuilt lazily: the fns when the base structure
+        changed (a derive); the aux arrays, the dirty value rows and both
+        tiers' sorted views (``scan.TierView``) when any mutation happened
+        (keyed on ``_rev``). Nothing here waits for the stream: rows, aux
+        and views go up through page-locked staging (``upload_async``)."""
+        base = self.base
+        key = -1 if base is None else base.derives
+        if self._scan_fns is None or self._scan_fns["key"] != key:
+            kd = self._key_dtype
+            if base is None:
+                make_agg, make_mat = _scan.make_delta_scan_fns(kd)
+                gmk = _gb.make_delta_group_fns(kd)
+            else:
+                span_of = tiered._make_span_of(base.page_of_raw, kd)
+                shape = dict(num_pages=base.num_pages, lw_pad=base.lw_pad,
+                             tile=base.tile, key_dtype=kd,
+                             mask_value=TOMBSTONE)
+                make_agg, make_mat = _scan.make_paged_scan_fns(span_of,
+                                                               **shape)
+                gmk = _gb.make_paged_group_fns(span_of, base.page_of_raw,
+                                               **shape)
+            self._scan_fns = {"key": key, "make_agg": make_agg,
+                              "make_mat": make_mat, "gmk": gmk}
+        if self._scan_state is None or self._scan_state[0] != self._rev:
+            aux = None
+            if base is not None:
+                if self._dirty_rows:
+                    # push the host-synced shadowed values to the device
+                    # rows (the keys of these rows did not change)
+                    idx = np.fromiter(sorted(self._dirty_rows), np.int64,
+                                      len(self._dirty_rows))
+                    base.dev_vals.index_copy_(
+                        0, upload_async(idx, self.device),
+                        upload_async(base.vals[idx], self.device))
+                    self._dirty_rows.clear()
+                aux = _scan.build_page_aux(base.cnt, base.vals, np.int32,
+                                           mask_value=TOMBSTONE,
+                                           device=self.device)
+            tiers = tuple(_scan.tier_view(t.h_keys, t.h_vals, t.h_shadow,
+                                          t.h_ss, t.h_tomb, self.device)
+                          for t in (self.sealed, self.delta))
+            self._scan_state = (self._rev, aux, tiers)
+        return self._scan_fns, *self._scan_state[1:]
+
+    def _scan_args(self, *queries):
+        """The scan operands: (scan fns, the query tensors, then ``kpages,
+        vpages, aux`` (with a base) and the sealed and active tiers'
+        views). The caller holds the lock across the whole dispatch: a
+        maintenance thread's fold rewrites page rows in place on the same
+        stream, and a scan's later kernels must not read them against the
+        aux and views of before the fold."""
+        fns, aux, tiers = self._ensure_scan()
+        qs = tuple(as_queries(x, tiers[0].keys).contiguous()
+                   for x in queries)
+        if self.base is None:
+            return fns, (*qs, *tiers)
+        b = self.base
+        return fns, (*qs, b.dev_keys, b.dev_vals, aux, *tiers)
 
     def scan_range(self, lo, hi, *, aggs=None, materialize=None):
-        self._scans_not_ported("scan_range")
+        """Batched delta-aware range scan (DESIGN.md §8.2): count / sum /
+        min / max over the live values in [lo, hi] and exact merged
+        searchsorted ranks, with no host sync (span pipeline over the
+        gapped pages, each tier's sorted view, the shadow corrections).
+        ``aggs`` caps the pushdown depth as on the immutable index (count
+        mode never reads the value pages). ``materialize=K`` also returns
+        the first K matches' slot addresses (base region, then the delta
+        region at ``P*lw_pad + slot``) and values in key order, with an
+        overflow flag. Returns ``engine.scan.ScanResult``."""
+        mode = _scan.mode_for_aggs(aggs)
+        # the reference's store.scan span and scan timer: item 10
+        with self._lock:                 # across the dispatch, as lookup
+            fns, args = self._scan_args(lo, hi)
+            if materialize is None:
+                count, vsum, vmin, vmax, r_lo, r_hi = \
+                    fns["make_agg"](mode)(*args)
+                return _scan.ScanResult(count=count, r_lo=r_lo,
+                                        r_hi_excl=r_hi, vsum=vsum,
+                                        vmin=vmin, vmax=vmax)
+            count, vsum, vmin, vmax, r_lo, r_hi, ranks, vals, over = \
+                fns["make_mat"](int(materialize), mode)(*args)
+        return _scan.ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
+                                vsum=vsum, vmin=vmin, vmax=vmax,
+                                ranks=ranks, values=vals, overflow=over)
 
     def search_range(self, lo, hi):
-        self._scans_not_ported("search_range")
+        """Exact merged range ranks over base + delta: for each ``lo[i] <=
+        hi[i]`` the half-open interval [r_lo, r_hi_excl) among the live
+        merged keys, and the match count; lo > hi normalizes to the empty
+        interval at r_lo. A count-mode scan: the value pages are never
+        read."""
+        r = self.scan_range(lo, hi, aggs=("count",))
+        return r.r_lo, r.r_hi_excl, r.count
 
     def scan_groups(self, lo, hi, num_groups, *, aggs=None, top_k=None,
                     candidates=None):
-        self._scans_not_ported("scan_groups")
+        """Delta-aware GROUP BY bucket(key) over [lo, hi] (DESIGN.md
+        §8.3): G equal-width buckets per query; count / sum through the
+        (G+1)-edge prefix pipeline with per-tier shadow corrections, min /
+        max through the per-bucket span expansion, optional per-bucket
+        ``top_k`` by value over a ``candidates``-bounded merged window.
+        Returns ``engine.groupby.GroupScanResult`` (topk_ranks are slot
+        addresses, as materialize gives)."""
+        mode = _scan.mode_for_aggs(aggs)
+        G = int(num_groups)
+        if not 1 <= G <= _gb.MAX_GROUPS:
+            raise ValueError(f"num_groups must be in [1, {_gb.MAX_GROUPS}]"
+                             f", got {num_groups}")
+        K = C = None
+        if top_k is not None:
+            K = int(top_k)
+            if K < 1:
+                raise ValueError(f"top_k must be positive, got {top_k}")
+            C = max(int(candidates) if candidates is not None
+                    else max(2 * K, 32), K)
+        # the reference's store.scan span and scan_groups timer: item 10
+        with self._lock:                 # across the dispatch, as lookup
+            fns, args = self._scan_args(lo, hi)
+            mk_gagg, mk_gtopk, _ = fns["gmk"]
+            out = (mk_gagg(G, mode) if K is None
+                   else mk_gtopk(G, mode, K, C))(*args)
+        names = ("edges", "r_edge", "count", "vsum", "vmin", "vmax",
+                 "topk_values", "topk_ranks", "overflow")
+        return _gb.GroupScanResult(**dict(zip(names, out)))
 
     def scan_multi(self, ranges, *, op="union", aggs=None):
-        self._scans_not_ported("scan_multi")
+        """Delta-aware composite R-range predicates ([Q, R, 2] inclusive
+        pairs; union = IN-list, intersect = conjunction) through the
+        coverage-count decomposition. Returns ``engine.scan.ScanResult``
+        whose r_lo / r_hi_excl are the merged-rank hull of the matching
+        set ((0, 0) when empty)."""
+        if op not in _gb.MULTI_OPS:
+            raise ValueError(f"unknown multi-range op {op!r}; "
+                             f"want one of {_gb.MULTI_OPS}")
+        mode = _scan.mode_for_aggs(aggs)
+        # the reference's store.scan span and scan_multi timer: item 10
+        with self._lock:                 # across the dispatch, as lookup
+            fns, args = self._scan_args(ranges)
+            r = args[0]
+            if r.dim() != 3 or r.shape[-1] != 2:
+                raise ValueError(f"ranges must be [Q, R, 2], got "
+                                 f"{tuple(r.shape)}")
+            R = int(r.shape[1])
+            if R < 1:
+                raise ValueError("ranges needs at least one range per "
+                                 "query")
+            _, _, mk_magg = fns["gmk"]
+            count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
+                r[..., 0], r[..., 1], *args[1:])
+        return _scan.ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
+                                vsum=vsum, vmin=vmin, vmax=vmax)
 
-    def save(self, ckpt_dir=None):
-        raise not_ported("MutableIndex.save", "item 8 (durability)")
+    # ----------------------------------------------------------- durability
+    def _open_journal(self, ckpt_dir: str):
+        """Open (or continue) the journal segment of the latest snapshot
+        step, cutting any torn tail and resuming the sequence counter
+        after the last valid record."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        step = _ckpt.latest_step(ckpt_dir) or 0
+        path = _jr.segment_path(ckpt_dir, step)
+        seq = 0
+        if os.path.exists(path):
+            _jr.truncate_torn(path)
+            _, recs = _jr.read_segment(path)
+            if recs:
+                seq = recs[-1][0] + 1
+        self._journal = _jr.Journal(path, self._key_dtype, next_seq=seq,
+                                    fsync=self._fsync_policy())
+
+    def _fsync_policy(self) -> str:
+        return self.config.journal_fsync or "rotate"
+
+    def save(self, ckpt_dir: Optional[str] = None) -> str:
+        """Snapshot the whole store (leaf pages, both delta tiers) through
+        the manifest-verified checkpoint writer, then rotate the journal
+        to a fresh segment keyed by the new step. A crash between journal
+        writes and the next save loses nothing: the previous snapshot and
+        its segment's replay rebuild this state (DESIGN.md §6.5). Returns
+        the snapshot's directory."""
+        with self._lock:
+            d = ckpt_dir or self._ckpt_dir
+            if d is None:
+                raise ValueError("no checkpoint directory: pass ckpt_dir "
+                                 "or set IndexConfig.ckpt_dir")
+            step = (_ckpt.latest_step(d) or 0) + 1
+            tree = {"active": self.delta.state(),
+                    "sealed": self.sealed.state()}
+            if self.base is not None:
+                tree["base"] = self.base.state()
+            # the reference's store.snapshot_save span and timer: item 10
+            path = _ckpt.save(d, step, tree, keep=self._ckpt_keep)
+            self._rotate_journal(d, step)
+            return path
+
+    def _rotate_journal(self, ckpt_dir: str, step: int):
+        old, seq = self._journal, 0
+        if old is not None:
+            seq = old.seq
+            old.close()
+            # the rotated segment is immutable from here on: collapse each
+            # key's overwrite chain to its last writer
+            _jr.compact_segment(old.path)
+        self._journal = _jr.Journal(_jr.segment_path(ckpt_dir, step),
+                                    self._key_dtype, next_seq=seq,
+                                    fsync=self._fsync_policy())
+        self._ckpt_dir = self._ckpt_dir or ckpt_dir
+        # drop the segments no retained snapshot can replay from
+        retained = _ckpt.all_steps(ckpt_dir)
+        floor = min(retained) if retained else 0
+        for s, p in _jr.scan_dir(ckpt_dir):
+            if s < floor and s != step:
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
 
     @classmethod
-    def restore(cls, ckpt_dir, config):
-        raise not_ported("MutableIndex.restore", "item 8 (durability)")
+    def restore(cls, ckpt_dir: str, config, *, device=None
+                ) -> "MutableIndex":
+        """Bring a store back from the newest VERIFYING snapshot (a
+        corrupt or torn latest degrades to the previous step) plus a
+        replay of every journaled write after it, on ``device`` (default:
+        the CUDA card): array adoption, one top derive and at most the
+        un-snapshotted writes, never an O(n) rebuild. Journaling resumes
+        on the restored store. Reads what either package wrote."""
+        cfg = dataclasses.replace(config, ckpt_dir=None) \
+            if config.ckpt_dir else config
+        # the reference's store.snapshot_restore span and timer: item 10
+        self = cls(cfg, device=device)
+        try:
+            raw, step = _ckpt.restore(ckpt_dir)
+        except FileNotFoundError:
+            raw, step = None, 0                  # journal-only recovery
+        if raw is not None:
+            def sub(prefix):
+                return {k[len(prefix) + 1:]: v for k, v in raw.items()
+                        if k.startswith(prefix + "/")}
+            if "flat/keys" in raw:
+                raise not_ported("restoring a non-tiered base's snapshot",
+                                 "item 12 (the other index kinds)")
+            self.delta = _delta.DeltaBuffer.from_state(sub("active"),
+                                                       device=self.device)
+            self.sealed = _delta.DeltaBuffer.from_state(sub("sealed"),
+                                                        device=self.device)
+            self._key_dtype = self.delta.dtype
+            if "base/keys" in raw:
+                self.base = _PagedBase.from_state(sub("base"),
+                                                  top=config.top,
+                                                  device=self.device)
+                self.stats["top_derives"] = self.base.derives
+            self._fused = self._make_lookup()
+            self._upload_tiers()
+            self._rev += 1
+        applied, last_seq = self._replay(ckpt_dir, step)
+        self.stats["journal_replayed"] = applied
+        segs = [s for s, _ in _jr.scan_dir(ckpt_dir) if s >= step]
+        path = _jr.segment_path(ckpt_dir, max(segs) if segs else step)
+        if os.path.exists(path):
+            _jr.truncate_torn(path)
+        self._ckpt_dir = ckpt_dir
+        self._journal = _jr.Journal(path, self._key_dtype,
+                                    next_seq=last_seq + 1,
+                                    fsync=self._fsync_policy())
+        return self
+
+    def _replay(self, ckpt_dir: str, from_step: int):
+        """Apply the journaled writes of every segment at or after the
+        restored step, in step order, stopping at the first torn or
+        corrupt record or sequence regression (everything before it is
+        intact by CRC). Returns (records applied, last sequence number)."""
+        applied, last = 0, -1
+        run_op, run_k, run_v = None, [], []
+
+        def flush_run():
+            if not run_k:
+                return
+            ks = np.asarray(run_k, self._key_dtype)
+            if run_op == _jr.OP_DELETE:
+                self.delete(ks)
+            else:
+                self.insert(ks, np.asarray(run_v, np.int32))
+
+        for s, p in _jr.scan_dir(ckpt_dir):
+            if s < from_step:
+                continue
+            _, recs = _jr.read_segment(p)
+            for seq, op, k, v in recs:
+                if seq <= last:
+                    flush_run()                 # replay order broken: stop
+                    return applied, last
+                last = seq
+                # consecutive records of one op go in one write call:
+                # _write applies keys in order, so this equals applying
+                # them one by one
+                if op != run_op:
+                    flush_run()
+                    run_op, run_k, run_v = op, [], []
+                run_k.append(k)
+                run_v.append(v)
+                applied += 1
+        flush_run()
+        return applied, last
 
     @property
     def n(self) -> int:

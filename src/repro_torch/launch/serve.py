@@ -50,8 +50,6 @@ def _unported(args) -> list:
          "--queue-capacity/--queue-deadline-us/--no-queue-adapt/"
          "--queue-max-share/--no-adaptive-deadline (the probe queue)",
          "item 9 (queue and admission)"),
-        (args.ckpt_dir is not None or args.restore or args.fsync != "rotate",
-         "--ckpt-dir/--restore/--fsync", "item 8 (durability)"),
         (args.metrics_port is not None or args.metrics_selftest
          or args.trace_out is not None,
          "--metrics-port/--metrics-selftest/--trace-out",
@@ -94,16 +92,26 @@ def main():
     ap.add_argument("--tenants", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--top-p", type=float, default=0.9)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="snapshot directory for the prefix store; the "
+                         "store is saved there after the run, and the "
+                         "mutable index journals its writes")
+    ap.add_argument("--restore", action="store_true",
+                    help="warm-start the prefix store from --ckpt-dir "
+                         "(newest verifiable snapshot + journal replay)")
     ap.add_argument("--fsync", default="rotate",
-                    choices=["never", "rotate", "always"])
+                    choices=["never", "rotate", "always"],
+                    help="journal durability: 'never' = OS page cache, "
+                         "'rotate' = fsync at segment rotation, 'always' "
+                         "= fsync every acknowledged write batch")
     ap.add_argument("--metrics-port", type=int, default=None)
     ap.add_argument("--metrics-selftest", action="store_true")
     ap.add_argument("--trace-out", default=None, metavar="FILE")
     ap.add_argument("--tune", action="store_true")
     ap.add_argument("--tuned-profile", default=None, metavar="PLATFORM")
     args = ap.parse_args()
+    if args.restore and not args.ckpt_dir:
+        ap.error("--restore requires --ckpt-dir")
 
     from ..core.util import not_ported
     for is_set, what, item in _unported(args):
@@ -127,11 +135,26 @@ def main():
           f"prefix-index={args.index} device={device}")
     index_config = IndexConfig(kind=args.index, levels=2,
                                compiled_node_width=3,
-                               mutable=not args.wholesale)
+                               mutable=not args.wholesale,
+                               journal_fsync=args.fsync)
     eng = ServeEngine(
         cfg, params, max_len=args.max_len, page_size=args.page_size,
         index_config=index_config, decode_batching=False,
         sampler=SamplerConfig(temperature=args.temperature, top_p=args.top_p))
+    restore_s = None
+    if args.restore:
+        import time
+        from ..serve.kv_cache import PrefixPageStore
+        t0 = time.perf_counter()
+        eng.store = PrefixPageStore.restore(
+            args.ckpt_dir, index_config=eng.store.index_config,
+            device=device)
+        if eng.store._index is not None:      # one probe: servable
+            eng.store._index.lookup(torch.zeros(1, dtype=torch.int32,
+                                                device=device))
+        restore_s = time.perf_counter() - t0
+        print(f"restored prefix store: {len(eng.store.hashes)} pages "
+              f"from {args.ckpt_dir}")
     prompts = make_prompts(cfg.vocab, args.requests, args.prompt_len,
                            args.shared_prefix)
     gen = torch.Generator(device).manual_seed(0)
@@ -146,6 +169,12 @@ def main():
     print(f"probe: {s.probe_s:.3f}s in batched store probes")
     if eng.store.index_config.mutable:
         print(f"write path:   {eng.store.index_stats}")
+    if restore_s is not None:
+        print(f"restore:      {restore_s:.3f}s snapshot+journal-replay to "
+              f"servable (no wholesale rebuild)")
+    if args.ckpt_dir:
+        path = eng.store.save(args.ckpt_dir)
+        print(f"saved prefix store: {len(eng.store.hashes)} pages -> {path}")
 
 
 if __name__ == "__main__":

@@ -12,19 +12,22 @@ The default probe is the mutable tiered store (``engine/store.py``), as
 in the reference: inserts go through its delta buffer and page-local
 merges, never a wholesale rebuild. With ``mutable=False`` inserts mark
 the immutable snapshot dirty and the next probe rebuilds it (the
-reference's wholesale posture). ``save`` / ``restore`` raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 8, per-tenant probes
-and the probe queue item 9. Payloads are device tensors: cloned slices of
-the prefill cache.
+reference's wholesale posture). ``save`` / ``restore`` snapshot the pages
+(and the mutable index's own snapshot and journal) as the reference does;
+per-tenant probes and the probe queue raise ``NotImplementedError``
+naming ROADMAP Queue 1 item 9. Payloads are device tensors: cloned slices
+of the prefill cache.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..ckpt import checkpoint as _ckpt
 from ..core import IndexConfig, build_index, check_ported
 from ..core.util import not_ported, resolve_device
 
@@ -218,11 +221,59 @@ class PrefixPageStore:
 
     # ---------------------------------------------------------------- durability
     def save(self, ckpt_dir: str) -> str:
-        raise not_ported("PrefixPageStore.save", "item 8 (durability)")
+        """Snapshot the page store (hashes, tokens, payloads) plus, for the
+        mutable posture, the index's own snapshot and journal under
+        ``ckpt_dir/index`` (DESIGN.md §6.5). Payloads are copied to the
+        host. Returns the snapshot's directory."""
+        tree = {
+            "meta": np.asarray([self.page_size, len(self.hashes)], np.int64),
+            "hashes": np.asarray(self.hashes, np.int32),
+            "tok": {str(i): np.asarray(t, np.int32)
+                    for i, t in enumerate(self.tokens)},
+            "pay": {str(i): {name: t.cpu().numpy() for name, t in ent.items()}
+                    for i, ent in enumerate(self.payloads)},
+        }
+        step = (_ckpt.latest_step(ckpt_dir) or 0) + 1
+        path = _ckpt.save(ckpt_dir, step, tree)
+        if self.index_config.mutable and self._index is not None:
+            self._index.save(os.path.join(ckpt_dir, "index"))
+        return path
 
     @classmethod
-    def restore(cls, ckpt_dir: str, index_config=None) -> "PrefixPageStore":
-        raise not_ported("PrefixPageStore.restore", "item 8 (durability)")
+    def restore(cls, ckpt_dir: str, index_config: Optional[IndexConfig] = None,
+                device=None) -> "PrefixPageStore":
+        """A servable store from the newest verifying snapshot, on
+        ``device`` (default: the CUDA card). The mutable index restores
+        from its own snapshot and journal replay (no O(n) rebuild); the
+        wholesale posture marks the index dirty, rebuilt at the first
+        lookup."""
+        raw, _step = _ckpt.restore(ckpt_dir)
+        page_size, n = (int(x) for x in np.asarray(raw["meta"]))
+        kw = {"page_size": page_size, "device": device}
+        if index_config is not None:
+            kw["index_config"] = index_config
+        store = cls(**kw)
+        store.hashes = [int(h) for h in np.asarray(raw["hashes"])[:n]]
+        store.tokens = [np.asarray(raw[f"tok/{i}"], np.int32)
+                        for i in range(n)]
+        # one pass over the snapshot's "pay/<page>/<name>" entries
+        store.payloads = [{} for _ in range(n)]
+        for k, v in raw.items():
+            if k.startswith("pay/"):
+                i, name = k[len("pay/"):].split("/", 1)
+                if int(i) < n:
+                    store.payloads[int(i)][name] = \
+                        torch.from_numpy(v).to(store.device)
+        store._known = set(store.hashes)
+        idx_dir = os.path.join(ckpt_dir, "index")
+        if store.index_config.mutable and os.path.isdir(idx_dir):
+            from ..engine.store import MutableIndex
+            store._index = MutableIndex.restore(idx_dir, store.index_config,
+                                                device=store.device)
+            store._dirty = False
+        else:
+            store._dirty = True          # wholesale: rebuilt on lookup
+        return store
 
 
 # --------------------------------------------------------------- KV slicing

@@ -6,6 +6,8 @@ package, so it runs where only the port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -701,3 +703,148 @@ def test_page_kernel_on_gapped_pages_at_stride_lw_pad(cuda, dtype):
                                 stride=b.lw_pad)
     torch.cuda.synchronize()
     assert torch.equal(got[:used], want[:used])
+
+
+# ------------------------------------------------- the mutable store's scans
+def store_scans(store, lo, hi, ranges):
+    """Every scan kind of the store, as (name, result) pairs."""
+    return [("scan_range", store.scan_range(lo, hi)),
+            ("scan_range_count", store.scan_range(lo, hi, aggs=("count",))),
+            ("materialize", store.scan_range(lo, hi, materialize=16)),
+            ("groups_count", store.scan_groups(lo, hi, 16,
+                                               aggs=("count",))),
+            ("groups_sum", store.scan_groups(lo, hi, 16,
+                                             aggs=("count", "sum"))),
+            ("groups_full", store.scan_groups(lo, hi, 16)),
+            ("groups_top_k", store.scan_groups(lo, hi, 16, top_k=4)),
+            ("multi_union", store.scan_multi(ranges, op="union")),
+            ("multi_intersect", store.scan_multi(ranges, op="intersect"))]
+
+
+def scan_inputs(rng, device):
+    lo = rng.integers(0, 10**8, 2048).astype(np.int32)
+    hi = (lo + rng.integers(-1000, 10**6, 2048)).astype(np.int32)
+    hi[-4:] = I32.max                             # the sentinel bound
+    ranges = np.stack([lo[:1024].reshape(256, 4), hi[:1024].reshape(256, 4)],
+                      -1)
+    return [torch.from_numpy(a).to(device) for a in (lo, hi, ranges)]
+
+
+@pytest.mark.cuda
+def test_store_scans_on_the_card_match_the_cpu_store_with_no_sync(cuda):
+    """Every scan kind on the card (page-scan and page-prefix kernels at
+    stride lw_pad with the tombstone mask, the tiers' sorted views)
+    against the same store on the CPU (plain versions), field for field;
+    the first scan after a write round (dirty rows pushed, page
+    aggregates and tier views rebuilt) and the next make no host sync."""
+    stores, _ = store_pair(cuda)
+    gpu, cpu = stores
+    rng = np.random.default_rng(31)
+    for s in stores:                     # both tiers hold writes again
+        s.insert(np.arange(10, 300_000, 997, dtype=np.int32),
+                 np.arange(301, dtype=np.int32))
+        s.delete(np.arange(10, 150_000, 1994, dtype=np.int32))
+    assert gpu.sealed.count > 0 and gpu._dirty_rows
+    lo, hi, ranges = scan_inputs(rng, cuda)
+    for _ in range(2):
+        ps.page_scan_bucketed.launches = ps.page_prefix_bucketed.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = store_scans(gpu, lo, hi, ranges)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert ps.page_scan_bucketed.launches > 0
+        assert ps.page_prefix_bucketed.launches == 2
+    want = store_scans(cpu, lo.cpu(), hi.cpu(), ranges.cpu())
+    for (name, g), (_, w) in zip(got, want):
+        for f, wv in vars(w).items():
+            gv = getattr(g, f)
+            assert (gv is None) == (wv is None), (name, f)
+            if wv is not None:
+                assert torch.equal(gv.cpu(), wv), (name, f)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_on_store_operands_match_plain(cuda):
+    """The page-scan kernel (count, sum, full) and the page-prefix kernel
+    (count, sum) on the operands the store's own scans build (gapped
+    pages at lw_pad, the TOMBSTONE value mask, tombstone-synced slots)
+    equal their plain versions over the steps the plan used."""
+    from repro_torch.engine import groupby, scan
+    stores, _ = store_pair(cuda)
+    gpu = stores[0]
+    lo, hi, _ = scan_inputs(np.random.default_rng(33), cuda)
+    cases = [(scan, "page_scan_bucketed", ps.page_scan_plain,
+              lambda m: gpu.scan_range(lo, hi, aggs=m), a)
+             for a in (("count",), ("count", "sum"), None)]
+    cases += [(groupby, "page_prefix_bucketed", ps.page_prefix_plain,
+               lambda m: gpu.scan_groups(lo, hi, 16, aggs=m), a)
+              for a in (("count",), ("count", "sum"))]
+    for mod, name, plain, call, aggs in cases:
+        seen = {}
+        real = getattr(mod._pscan, name)
+
+        def record(*args, **kw):
+            seen["args"], seen["kw"] = args, kw
+            return real(*args, **kw)
+
+        kernels = mod._pscan
+        mod._pscan = types.SimpleNamespace(**{**vars(kernels), name: record})
+        try:
+            call(aggs)
+        finally:
+            mod._pscan = kernels
+        args, kw = seen["args"], seen["kw"]
+        used = int(kw["steps_used"])
+        got = real(*args, **kw)
+        want = plain(*args, **{k: v for k, v in kw.items()
+                               if k != "steps_used"})
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert args[2 if name == "page_scan_bucketed" else 1].dtype \
+            == torch.int32
+        for a, b in zip(got, want):
+            assert torch.equal(a[:used], b[:used]), (name, aggs)
+
+
+@pytest.mark.cuda
+def test_store_save_restore_round_trip_on_the_card(cuda, tmp_path):
+    """save, journaled writes, a dropped store and a torn last record,
+    then restore_index on the card: lookups and scans equal a store on
+    the CPU that made every write but the torn one."""
+    from repro_torch.ckpt import journal
+    from repro_torch.core import IndexConfig, build_index, restore_index
+    rng = np.random.default_rng(35)
+    keys = np.unique(rng.integers(0, 10**8, 30_000).astype(np.int32))
+    cfg = IndexConfig(kind="tiered", mutable=True, delta_capacity=256,
+                      leaf_width=128)
+    gpu = build_index(keys, config=cfg, device=cuda)
+    cpu = build_index(keys, config=cfg, device="cpu")
+    d = str(tmp_path / "ck")
+    gpu.save(d)
+    new = rng.integers(0, 10**8, 700).astype(np.int32)
+    gone = keys[rng.integers(0, keys.size, 200)]
+    for s in (gpu, cpu):
+        s.insert(new, np.arange(700, dtype=np.int32))
+        s.delete(gone[:-1])
+    gpu.delete(gone[-1:])                        # the record torn below
+    del gpu
+    seg = journal.scan_dir(d)[-1][1]
+    with open(seg, "r+b") as f:
+        f.truncate(f.seek(0, 2) - 9)
+    got = restore_index(d, cfg, device=cuda)
+    assert got.stats["journal_replayed"] == 700 + 199
+    assert got.device.type == "cuda" and got.base.dev_keys.is_cuda
+    q = np.concatenate([new, gone, keys[::13]]).astype(np.int32)
+    a, b = got.lookup(torch.from_numpy(q).to(cuda)), \
+        cpu.lookup(torch.from_numpy(q))
+    assert torch.equal(a.found.cpu(), b.found)
+    assert torch.equal(a.values.cpu()[b.found], b.values[b.found])
+    lo, hi, _ = scan_inputs(rng, cuda)
+    ga, wa = got.scan_range(lo, hi), cpu.scan_range(lo.cpu(), hi.cpu())
+    for f in ("count", "vsum", "vmin", "vmax", "r_lo"):
+        assert torch.equal(getattr(ga, f).cpu(), getattr(wa, f)), f
+    got.close()

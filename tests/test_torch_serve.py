@@ -12,6 +12,7 @@ counts, store stats and the mutable store's write-path counters must be
 identical."""
 import contextlib
 import io
+import os
 import sys
 
 import numpy as np
@@ -238,14 +239,59 @@ def test_prefix_store_mutable_default_matches_reference():
     assert stores[0]._index.base is not None
 
 
+@pytest.mark.parametrize("mutable", [True, False])
+def test_prefix_store_save_restore_matches_reference(tmp_path, mutable):
+    """save, restore, then the same probes and one more insert round: the
+    restored port store answers and counts as the restored reference
+    store does (the mutable one through its index's snapshot and journal,
+    the wholesale one through a rebuild), and its payloads come back."""
+    cfg = dict(kind="tiered", plan="device", mutable=mutable,
+               delta_capacity=4)
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, 50, 8)
+    prompts = [np.concatenate([shared[:int(rng.integers(2, 9))],
+                               rng.integers(0, 50, 10)]) for _ in range(10)]
+    port = pt_kv.PrefixPageStore(2, IndexConfig(**cfg), device="cpu")
+    ref = ref_kv.PrefixPageStore(2, RefIndexConfig(**cfg))
+
+    def pay(i, p):
+        return [{"k": torch.full((2, 1, 2), float(i * 100 + j)),
+                 "v": torch.full((2, 1, 2), -float(j))}
+                for j in range(len(p) // 2)]
+
+    for i, p in enumerate(prompts[:6]):
+        port.insert(p, pay(i, p))
+        ref.insert(p, [{"l0": {"k": np.asarray(x["k"]),
+                               "v": np.asarray(x["v"])}}
+                       for x in pay(i, p)])
+    port.save(str(tmp_path / "port"))
+    ref.save(str(tmp_path / "ref"))
+    stores = [pt_kv.PrefixPageStore.restore(str(tmp_path / "port"),
+                                            IndexConfig(**cfg),
+                                            device="cpu"),
+              ref_kv.PrefixPageStore.restore(str(tmp_path / "ref"),
+                                             RefIndexConfig(**cfg))]
+    assert stores[0].hashes == stores[1].hashes == port.hashes
+    assert stores[0].index_stats == stores[1].index_stats
+    for s in stores:
+        for i, p in enumerate(prompts[6:]):
+            s.insert(p, pay(i + 6, p) if s is stores[0] else
+                     [{"l0": {"k": 0, "v": 0}}] * (len(p) // 2))
+    got = [s.lookup_batch(prompts) for s in stores]
+    assert [g[0] for g in got[0]] == [g[0] for g in got[1]]
+    assert stores[0].stats == stores[1].stats
+    assert stores[0].index_stats == stores[1].index_stats
+    n, payloads = stores[0].lookup(prompts[0])
+    want = port.lookup(prompts[0])[1]
+    assert n == len(want) > 0
+    for a, b in zip(payloads, want):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
 def test_prefix_store_unported_surface_raises():
     default = pt_kv.PrefixPageStore(8, device="cpu")  # the mutable default
     assert default.index_config.mutable and default.index_stats == {}
     store = pt_kv.PrefixPageStore(8, IndexConfig(**WHOLESALE), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        store.save("unused")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt_kv.PrefixPageStore.restore("unused")
     with pytest.raises(NotImplementedError, match="item 9"):
         store.lookup_batch([np.arange(8)], tenants=["a"])
 
@@ -402,12 +448,46 @@ def test_launcher_on_the_mutable_store_prints_the_reference_lines(
             "'journal_replayed': 0}") in out
 
 
+def test_launcher_saves_and_restores_with_the_reference_lines(
+        monkeypatch, tmp_path):
+    """--ckpt-dir saves the prefix store after the run; a second run with
+    --restore serves from it: the reference launcher prints these lines
+    for the same flags (the restored store starts with all 10 pages in
+    its index's delta buffer and inserts none)."""
+    d = str(tmp_path / "ck")
+    argv = ("--reduced", "--device", "cpu", "--no-decode-queue",
+            "--rounds", "2", "--steps", "2", "--ckpt-dir", d)
+    out = run_launcher(monkeypatch, *argv)
+    assert "prefill computed/reused: 288/480" in out
+    assert f"saved prefix store: 10 pages -> {d}/step_00000001" in out
+    out = run_launcher(monkeypatch, *argv, "--restore")
+    assert f"restored prefix store: 10 pages from {d}" in out
+    assert "prefill computed/reused: 256/512" in out
+    assert ("prefix store: {'lookups': 16, 'hits': 16, 'rebuilds': 0, "
+            "'verify_rejects': 0}") in out
+    assert ("write path:   {'inserts': 0, 'upserts': 0, 'deletes': 0, "
+            "'merges': 0, 'splits': 0, 'pages_touched': 0, "
+            "'rows_rewritten': 0, 'top_derives': 0, 'base_rebuilds': 0, "
+            "'shadowed': 0, 'seals': 0, 'maintains': 0, "
+            "'journal_replayed': 0}") in out
+    assert "snapshot+journal-replay to servable" in out
+    assert f"saved prefix store: 10 pages -> {d}/step_00000002" in out
+    assert sorted(os.listdir(os.path.join(d, "index"))) == [
+        "journal_00000001.log", "journal_00000002.log", "step_00000001",
+        "step_00000002"]
+    with pytest.raises(SystemExit):
+        run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                     "--no-decode-queue", "--restore")
+
+
 @pytest.mark.parametrize("argv,item", [
     ((), "item 9"), (("--wholesale",), "item 9"),
     (("--wholesale", "--no-decode-queue", "--index", "css"), "item 12"),
     (("--wholesale", "--no-decode-queue", "--tenants", "2"), "item 9"),
-    (("--wholesale", "--no-decode-queue", "--ckpt-dir", "x"), "item 8"),
-    (("--wholesale", "--no-decode-queue", "--fsync", "always"), "item 8"),
+    (("--wholesale", "--no-decode-queue", "--metrics-port", "0"),
+     "item 10"),
+    (("--wholesale", "--no-decode-queue", "--tuned-profile", "auto"),
+     "item 11"),
     (("--wholesale", "--no-decode-queue", "--queue-capacity", "16"),
      "item 9"),
     (("--wholesale", "--no-decode-queue", "--queue-deadline-us", "500"),
