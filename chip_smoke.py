@@ -132,12 +132,40 @@ Phases, in order; any failure exits non-zero with its traceback:
      restore_index (ms, records replayed), then 2^20 lookups and 2^18
      scan ranges of the restored store under set_sync_debug_mode
      ("error") against the oracle of the surviving writes;
- 13. one line {"kernels": [...]} with each kernel's launches, times
+ 13. the micro-batch queues and telemetry:
+     a. the probe queue (engine/queue.py, admission.py) over phase 12's
+        restored store and over phase 4's immutable index: tenants t0-t3
+        weighted 1, 1, 2 and 4, capacity 2^16, share cap 0.5, adaptive
+        deadline, no timer; 256 numpy submits of 4,096 queries (half
+        hits) interleaved across the tenants, with the launch counters
+        set to 0 before and read after, and the submits, flushes, result
+        slices and the last feedback drain under set_sync_debug_mode
+        ("error"); every caller's result equal to a direct lookup of its
+        own queries bit for bit, and to numpy. Prints flushes, mean batch,
+        each tenant's admitted share, the flush_at trajectory, host µs a
+        submit, the CUDA-event ms of the submit that fills 2^16 queries
+        and flushes them beside the lookup and the upload alone, the
+        launches a flush and the idle share (profiler);
+     b. the decode queue: phase 9's serving (same weights, prompts and
+        sampler, two rounds of 32 steps) inline, with decode_batching=
+        True, then with tenants t0-t3 twice over: tokens equal the inline
+        run's bit for bit for the same generator seed, one cdf_search
+        launch a step, EngineStats' registry views; then one decode step
+        of each kind timed in turns (CUDA events), profiled (launches a
+        step, idle share), the tenant step under sync-debug "error",
+        beside phase 9's inline numbers;
+     c. telemetry: the tenant run's registry scraped from
+        start_http_server(0) on 127.0.0.1 and parsed back (queue series
+        of both paths), a trace of probe-queue flushes exported as JSON
+        (queue.flush, queue.dispatch, tiered.search spans), and phase 4's
+        2^20-query lookup timed with metrics off and on, in turns;
+ 14. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
-     launches a lookup, and for the scan kernels the store's launches,
-     times and bound (phase 11); the last line {"ok": true, "device":
-     {...}}.
+     launches a lookup and their launches on the probe-queue runs, for
+     the scan kernels the store's launches, times and bound (phase 11),
+     for the CDF kernel its launches on the decode-queue runs; the last
+     line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -2446,7 +2474,9 @@ def store_durability_path(dev, rng, holder: list, ok, ov, write_us: float):
     """Phase 12: save the 2^24-key store, a journaled write round, a
     simulated crash (the store dropped without close, the newest segment
     cut inside its last record), restore_index, then lookups and scans of
-    the restored store against the oracle of the surviving writes."""
+    the restored store against the oracle of the surviving writes.
+    Returns the summary, the restored store (its journal closed) and that
+    oracle (sorted live keys and their values)."""
     import gc
     import tempfile
     from repro_torch import IndexConfig
@@ -2549,7 +2579,7 @@ def store_durability_path(dev, rng, holder: list, ok, ov, write_us: float):
         same(scan_res.count, cnt, "restored scan count")
         same(scan_res.r_lo, r_lo, "restored scan r_lo")
         same(scan_res.vsum, vsum, "restored scan vsum")
-        got.close()
+        got.close()                           # the journal; still readable
         return {"save_ms": save_ms, "snapshot_bytes": snap_bytes,
                 "journal_us_per_write": journaled_us,
                 "phase10_us_per_write": write_us,
@@ -2559,9 +2589,356 @@ def store_durability_path(dev, rng, holder: list, ok, ov, write_us: float):
                 "journal_replayed": replayed, "restored_n": int(got.n),
                 "restored_pages": got.base.num_pages,
                 "lookups": N_QUERIES, "hits": int(found.sum()),
-                "scan_ranges": N_RANGES, "launches": launches}
+                "scan_ranges": N_RANGES, "launches": launches}, got, ok, ov
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+# -------------------------------------------------------------- phase 13
+# 13a: the probe queue over phase 12's restored store (phase 10's store
+# after one more journaled round) and over phase 4's immutable index: four
+# tenants weighted 1, 1, 2 and 4, capacity 2^16, a share cap of one half,
+# the adaptive deadline on and no timer thread; 256 submits of 4,096
+# queries each (2^20 in all, half hits), interleaved across the tenants.
+QUEUE_TENANTS = {"t0": 1.0, "t1": 1.0, "t2": 2.0, "t3": 4.0}
+QUEUE_SUBMITS, QUEUE_SUBMIT_Q = 256, 4096
+QUEUE_CAPACITY = 1 << 16
+QUEUE_TIMED_REPS = 8
+
+
+def queue_submits(rng, keys: np.ndarray) -> list:
+    """QUEUE_SUBMITS host arrays of QUEUE_SUBMIT_Q int32 queries, half
+    drawn from `keys`, half uniform."""
+    half = QUEUE_SUBMIT_Q // 2
+    return [rng.permutation(np.concatenate([
+        keys[rng.integers(0, keys.size, half)],
+        rng.integers(I32.min + 1, I32.max - 1, half, dtype=np.int64
+                     ).astype(np.int32)])) for _ in range(QUEUE_SUBMITS)]
+
+
+def make_probe_queue(index, **kw):
+    from repro_torch.engine.queue import MicroBatchQueue, index_probe_fn
+    q = MicroBatchQueue(index_probe_fn(index), capacity=QUEUE_CAPACITY,
+                        max_share=0.5, adaptive_deadline=True, timer=False,
+                        record_flushes=True, path="probe", **kw)
+    for t, w in QUEUE_TENANTS.items():
+        q.set_tenant_weight(t, w)
+    return q
+
+
+def probe_queue_run(dev, rng, index, keys, check_host, what: str) -> dict:
+    """The counted run of 13a on one index: the launch counters set to 0
+    before, read after; submits, flushes, the results' slices and the
+    last feedback drain under sync-debug "error"; every caller's result
+    against a direct lookup of its own queries (bit for bit) and against
+    numpy (`check_host(queries, result)`); half the queries come from
+    `keys`. Then the host µs a submit, the
+    CUDA-event ms of the submit that fills 2^16 queries and flushes them,
+    the same lookup, upload and admission plan alone, and one profiled
+    flush."""
+    from repro_torch.core.util import upload_async
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_search as pk
+    subs = queue_submits(rng, keys)
+    names = list(QUEUE_TENANTS)
+    pk.page_search_bucketed.launches = kk.kary_search_levels.launches = 0
+    index.lookup(torch.from_numpy(subs[0]).to(dev))
+    per_lookup = {"page_search_bucketed": pk.page_search_bucketed.launches,
+                  "kary_search_levels": kk.kary_search_levels.launches}
+    q = make_probe_queue(index)
+    torch.cuda.synchronize()
+    trajectory = [q.flush_at]
+    pk.page_search_bucketed.launches = kk.kary_search_levels.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        futs = []
+        for i, sub in enumerate(subs):
+            futs.append(q.submit(sub, tenant=names[i % len(names)]))
+            if q.flush_at != trajectory[-1]:
+                trajectory.append(q.flush_at)
+        q.flush()
+        results = [f.result() for f in futs]
+        q.drain_feedback()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"page_search_bucketed": pk.page_search_bucketed.launches,
+                "kary_search_levels": kk.kary_search_levels.launches}
+    st = q.stats
+    check(st.flushes > 0 and all(v > 0 for v in per_lookup.values()) and all(
+        launches[k] == st.flushes * per_lookup[k] for k in launches),
+        f"{what}: {launches} launches in {st.flushes} flushes, "
+        f"{per_lookup} a lookup")
+    check(sum(e["total"] for e in q.flush_log) == QUEUE_SUBMITS
+          * QUEUE_SUBMIT_Q, f"{what}: queries lost or duplicated")
+    for sub, res in zip(subs, results):
+        direct = index.lookup(torch.from_numpy(sub).to(dev))
+        for name in ("rank", "found", "values"):
+            check(torch.equal(getattr(res, name), getattr(direct, name)),
+                  f"{what}: a caller's {name} != a direct lookup")
+        check_host(sub, res)
+    total = st.queries
+    share = {t: st.tenants[t].admitted / total for t in names}
+
+    # ---- times: fill 2^16 queries (16 submits), the last one flushes
+    tq = make_probe_queue(index, min_flush=QUEUE_CAPACITY, adapt=False)
+    batch = subs[:QUEUE_CAPACITY // QUEUE_SUBMIT_Q]
+    submit_us, flush_ms = [], []
+
+    def fill():
+        for i, sub in enumerate(batch[:-1]):
+            tq.submit(sub, tenant=names[i % len(names)])
+        return tq.submit(batch[-1], tenant=names[-1])
+
+    fill().result()
+    torch.cuda.synchronize()
+    for _ in range(QUEUE_TIMED_REPS):
+        for i, sub in enumerate(batch[:-1]):
+            t0 = time.perf_counter()
+            tq.submit(sub, tenant=names[i % len(names)])
+            submit_us.append((time.perf_counter() - t0) * 1e6)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tq.submit(batch[-1], tenant=names[-1])
+        end.record()
+        end.synchronize()
+        flush_ms.append(start.elapsed_time(end))
+    check(tq.stats.flushes == QUEUE_TIMED_REPS + 1
+          and tq.stats.max_batch == QUEUE_CAPACITY,
+          f"{what}: the timed queue flushed {tq.stats.flushes} times")
+    joined = np.concatenate(batch)
+    q_dev = torch.from_numpy(joined).to(dev)
+    lanes = {t: [QUEUE_SUBMIT_Q] * (len(batch) // len(names)) for t in names}
+    plan_us = []
+    for _ in range(9):                       # the flush's admission plan
+        policy = make_probe_queue(index).admission
+        t0 = time.perf_counter()
+        policy.plan(lanes)
+        plan_us.append((time.perf_counter() - t0) * 1e6)
+    prof = device_profile(lambda: fill().result())
+    flush_med = float(np.median(flush_ms))
+    prof["idle_share"] = 1 - prof["kernels_ms"] / flush_med
+    return {
+        "queries": total, "flushes": st.flushes, "mean_batch": st.mean_batch,
+        "max_batch": st.max_batch, "capped_flushes": st.capped_flushes,
+        "reasons": {r: getattr(st, f"{r}_flushes") for r in
+                    ("capacity", "deadline", "demand", "manual")},
+        "admitted_share": share,
+        "deferred": {t: st.tenants[t].deferred for t in names},
+        "flush_at_trajectory": trajectory,
+        "mean_occupancy": st.mean_occupancy,
+        "launches": launches, "launches_per_lookup": per_lookup,
+        "counted_run_s": wall_s,
+        "submit_us_median": float(np.median(submit_us)),
+        "flush_ms_median": flush_med, "flush_ms": flush_ms,
+        "lookup_2e16_ms": cuda_ms(lambda: index.lookup(q_dev)),
+        "upload_concat_2e16_ms": cuda_ms(
+            lambda: upload_async(np.concatenate(batch), dev)),
+        "admission_plan_2e16_us": float(np.median(plan_us)),
+        "launches_per_flush": prof["kernel_launches"],
+        "profile_flush": prof,
+    }
+
+
+def probe_queue_path(dev, rng, store, ok, ov, index, keys_sorted,
+                     values_sorted) -> dict:
+    """13a on the restored mutable store and on the immutable index."""
+    def store_host(sub, res):
+        pos = np.minimum(np.searchsorted(ok, sub), ok.size - 1)
+        found = res.found.cpu().numpy()
+        check(np.array_equal(found, ok[pos] == sub), "queue: found")
+        check(np.array_equal(res.values.cpu().numpy()[found],
+                             ov[pos][found]), "queue: values")
+
+    def index_host(sub, res):
+        check_lookup(res, oracle(keys_sorted, values_sorted, sub),
+                     "queue over the immutable index")
+
+    out = {"mutable_store": probe_queue_run(dev, rng, store, ok, store_host,
+                                            "mutable store"),
+           "immutable_index": probe_queue_run(dev, rng, index, keys_sorted,
+                                              index_host, "immutable index")}
+    out["store_pages"] = store.base.num_pages
+    out["store_keys"] = int(store.n)
+    return out
+
+
+def decode_queue_path(dev, seed: int, phase9: dict):
+    """13b: phase 9's serving at full width, two rounds of 32 sampled
+    steps, inline, through the decode queue, and through it with four
+    tenants; the tokens equal the inline run's bit for bit (the same
+    generator seed) and each run launches the CDF kernel once a step.
+    Then one decode step of each kind timed in turns in CUDA events,
+    profiled, and the tenant step under sync-debug "error". Returns the
+    summary and the tenant run's registry."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve import sampler as S
+    cfg = get_config(SERVE_ARCH)
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
+    prompts = make_prompts(cfg.vocab)
+    tenants = [f"t{i}" for i in range(4)] * 2
+    steps = SERVE_STEPS * SERVE_ROUNDS
+    runs, out, queues = {}, {}, {}
+    for name, batching, tn in (("inline", False, None),
+                               ("queue", True, None),
+                               ("tenants", True, tenants)):
+        with obs.use_registry() as reg:
+            eng = ServeEngine(cfg, params, max_len=256, page_size=16,
+                              decode_batching=batching, sampler=scfg)
+            gen = torch.Generator(dev).manual_seed(seed)
+            cs.cdf_search.launches = 0
+            toks = [eng.generate(prompts, SERVE_STEPS, generator=gen,
+                                 tenants=tn) for _ in range(SERVE_ROUNDS)]
+            torch.cuda.synchronize()
+            launches = cs.cdf_search.launches
+            st = eng.stats
+            runs[name] = torch.cat(toks, dim=1)
+            out[name] = {
+                "cdf_launches": launches,
+                "engine_decode_ms_per_step": st.decode_s / steps * 1e3,
+                "probe_batches": st.probe_batches,
+                "decode_flushes": st.decode_flushes,
+                "decode_occupancy": st.decode_occupancy,
+                "tenants": {f"{p}:{t}": [r.submits, r.queries, r.flushes,
+                                         r.admitted, r.deferred]
+                            for (p, t), r in st.tenants.items()},
+                "reuse": [st.prefill_tokens, st.reused_tokens]}
+            check(launches == steps, f"decode {name}: {launches} cdf_search "
+                  f"launches in {steps} steps")
+            if batching:
+                check(st.decode_flushes == steps and st.probe_batches == 1,
+                      f"decode {name}: {st.decode_flushes} decode flushes, "
+                      f"{st.probe_batches} probe flushes")
+                queues[name] = eng.decode_queue()
+        if name == "tenants":
+            tenant_reg = reg
+    for name in ("queue", "tenants"):
+        check(torch.equal(runs[name], runs["inline"]), f"decode {name}: "
+              "tokens differ from the inline sampler's")
+
+    # one decode step of each kind, on the batch prefill of the prompts
+    tok8 = torch.from_numpy(np.stack(prompts).astype(np.int32)).to(dev)
+    lg8, cache = T.prefill(cfg, params, tok8, max_len=256,
+                           compute_dtype=torch.float32)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def stepper(kind):
+        def step():
+            if kind == "inline":
+                nxt = S.sample(lg8, scfg, generator=gen)
+            else:
+                nxt = S.sample_queued(
+                    lg8, scfg, queues[kind], generator=gen,
+                    tenants=tenants if kind == "tenants" else None)
+            return T.decode_step(cfg, params, nxt, cache,
+                                 compute_dtype=torch.float32)
+        return step
+
+    torch.cuda.synchronize()
+    cs.cdf_search.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepper("tenants")()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(cs.cdf_search.launches == 1, "a queued step with tenants "
+          f"launched cdf_search {cs.cdf_search.launches} times")
+    step_ms = {k: [] for k in ("inline", "queue", "tenants")}
+    for kind in ("inline", "queue", "tenants", "tenants", "queue",
+                 "inline"):
+        step_ms[kind].append(cuda_ms(stepper(kind), reps=9, warmup=2))
+    profiles = {}
+    for kind in step_ms:
+        prof = device_profile(stepper(kind))
+        prof["idle_share"] = 1 - prof["kernels_ms"] / min(step_ms[kind])
+        profiles[kind] = prof
+    summary = {"runs": out, "decode_step_ms": step_ms,
+               "launches_per_step": {k: p["kernel_launches"]
+                                     for k, p in profiles.items()},
+               "profiles": profiles,
+               "phase9_inline_decode_step_ms": phase9["decode_step_ms"],
+               "phase9_engine_decode_ms_per_step":
+                   phase9["engine_decode_ms_per_step"]}
+    return summary, tenant_reg
+
+
+def telemetry_path(dev, rng, index, keys_sorted, registry) -> dict:
+    """13c: the tenant run's registry scraped over HTTP on 127.0.0.1 and
+    parsed back; a trace of probe-queue flushes over the immutable index
+    exported with the tracer enabled; phase 4's 2^20-query lookup timed
+    with metrics off and on, in turns."""
+    import tempfile
+    import urllib.request
+    from repro_torch import obs
+    srv, port = obs.start_http_server(0, registry=registry)
+    try:
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=10).read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    parsed = obs.parse_prometheus(body)
+    for series in (("repro_queue_submits_total",
+                    '{path="decode",tenant="t0"}'),
+                   ("repro_queue_submits_total",
+                    '{path="probe",tenant="t3"}'),
+                   ("repro_queue_flushes_total",
+                    '{path="decode",reason="demand"}'),
+                   ("repro_engine_op_seconds_count", '{path="probe"}'),
+                   ("repro_engine_op_seconds_count", '{path="decode"}')):
+        check(series in parsed, f"scrape: no {series}")
+    check(parsed[("repro_queue_flushes_total",
+                  '{path="decode",reason="demand"}')]
+          == SERVE_STEPS * SERVE_ROUNDS, "scrape: decode flushes")
+
+    subs = queue_submits(rng, keys_sorted)[:8]
+    tracer = obs.TRACER
+    tracer.clear()
+    tracer.enable()
+    try:
+        q = make_probe_queue(index)
+        futs = [q.submit(s, tenant="t0") for s in subs]
+        q.flush()
+        [f.result() for f in futs]
+    finally:
+        tracer.disable()
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="chip_smoke_trace_")
+    os.close(fd)
+    try:
+        tracer.export(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.remove(path)
+    names = {e["name"] for e in doc["traceEvents"]}
+    check({"queue.flush", "queue.dispatch", "tiered.search"} <= names,
+          f"trace: spans {sorted(names)}")
+    tracer.clear()
+
+    q_dev = torch.from_numpy(rng.integers(
+        I32.min + 1, I32.max - 1, N_QUERIES, dtype=np.int64
+    ).astype(np.int32)).to(dev)
+    lookup_ms = {"metrics_off": [], "metrics_on": []}
+    try:
+        for on in (False, True, True, False):
+            obs.configure(metrics=on)
+            lookup_ms["metrics_on" if on else "metrics_off"].append(
+                cuda_ms(lambda: index.lookup(q_dev)))
+    finally:
+        obs.configure()
+    return {"scrape_samples": len(parsed), "scrape_bytes": len(body),
+            "trace_events": len(doc["traceEvents"]),
+            "trace_spans": sorted(names), "lookup_ms": lookup_ms}
 
 
 def kernel_resources() -> dict:
@@ -2621,36 +2998,49 @@ def main() -> int:
         phase_scan_kernels(dev, rng)), flush=True)
     scan_rows, scan_main = scan_path(dev, rng, *state)
     print("phase 7: scan path " + json.dumps(scan_main), flush=True)
-    _, keys_sorted, values_sorted = state      # phase 10's keys; the index
-    del state                                  # itself is freed here
+    imm_idx, keys_sorted, values_sorted = state   # phases 10 and 13
+    del state
     print("phase 8: cdf kernel == plain " + json.dumps(
         phase_cdf(dev, rng, earlier_cdf)), flush=True)
     cdf_row, serve_main = serve_path(dev, args.seed)
     print("phase 9: serve path " + json.dumps(serve_main), flush=True)
     store_main, store, ok, ov = store_path(dev, rng, keys_sorted,
                                            values_sorted, main["lookup_ms"])
-    del keys_sorted, values_sorted
     print("phase 10: mutable store " + json.dumps(store_main), flush=True)
     scan11, store_rows, ok, ov = store_scan_path(dev, rng, store, ok, ov,
                                                  scan_main)
     print("phase 11: store scans " + json.dumps(scan11), flush=True)
     holder = [store]
     del store
-    print("phase 12: durability " + json.dumps(store_durability_path(
-        dev, rng, holder, ok, ov, store_main["insert_us_per_op"])),
-        flush=True)
+    durable, store, ok, ov = store_durability_path(
+        dev, rng, holder, ok, ov, store_main["insert_us_per_op"])
+    print("phase 12: durability " + json.dumps(durable), flush=True)
+    probe13 = probe_queue_path(dev, rng, store, ok, ov, imm_idx, keys_sorted,
+                               values_sorted)
+    print("phase 13a: probe queue " + json.dumps(probe13), flush=True)
+    decode13, tenant_reg = decode_queue_path(dev, args.seed, serve_main)
+    print("phase 13b: decode queue " + json.dumps(decode13), flush=True)
+    print("phase 13c: telemetry " + json.dumps(telemetry_path(
+        dev, rng, imm_idx, keys_sorted, tenant_reg)), flush=True)
     for row, key in zip(rows, ("page", "kary")):
         checks = store_main["kernel_checks"]
         row["store_launches_per_lookup"] = store_main["launches"][row["name"]]
         row["store_max_abs_err"] = max(c[f"{key}_max_abs_err"]
                                        for c in checks)
         row["store_ms_before_after_repack"] = [c[f"{key}_ms"] for c in checks]
+        row["probe_queue_launches"] = {
+            k: {"launches": v["launches"][row["name"]],
+                "flushes": v["flushes"]}
+            for k, v in probe13.items() if isinstance(v, dict)}
     for row in scan_rows:                # the store's scans (phase 11)
         st = store_rows[row["name"]]
         row["store"] = {k: st[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "library_device_ms",
             "steps_used", "grid", "pages_touched", "items")}
+    cdf_row["decode_queue_launches"] = {
+        k: {"launches": v["cdf_launches"], "flushes": v["decode_flushes"]}
+        for k, v in decode13["runs"].items() if k != "inline"}
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,10 @@ The ``fsync`` policy:
   acknowledged write batch: no acknowledged write is lost, at the cost of
   a disk barrier a batch.
 
-The reference's append / byte / sync counters come with ROADMAP Queue 1
-item 10.
+The reference's counters go to the metrics registry (``obs``):
+``journal_appends`` and ``journal_bytes`` at each flush of a batch,
+``journal_syncs{policy}`` at each ``os.fsync``, ``journal_compactions``
+and ``journal_compacted_records`` at each compaction that drops records.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..obs import get_registry
 
 MAGIC = b"RJL1"
 HEADER = struct.Struct("<4s12s")
@@ -104,6 +108,7 @@ class Journal:
         self.dtype = np.dtype(key_dtype)
         self.seq = int(next_seq)
         self.fsync = fsync
+        self.syncs = 0                    # os.fsync calls on this segment
         self._pending = 0                 # appends since the last flush()
         fresh = not os.path.exists(path) or os.path.getsize(path) == 0
         self._f = open(path, "ab")
@@ -136,14 +141,22 @@ class Journal:
         self._f.flush()
         if self._pending:
             if self.fsync == "always":
-                os.fsync(self._f.fileno())
+                self._sync()
+            reg = get_registry()
+            reg.counter("journal_appends").inc(self._pending)
+            reg.counter("journal_bytes").inc(self._pending * RECORD.size)
             self._pending = 0
+
+    def _sync(self):
+        os.fsync(self._f.fileno())
+        self.syncs += 1
+        get_registry().counter("journal_syncs", policy=self.fsync).inc()
 
     def close(self):
         try:
             self.flush()
             if self.fsync == "rotate":
-                os.fsync(self._f.fileno())
+                self._sync()
         finally:
             self._f.close()
 
@@ -201,6 +214,9 @@ def compact_segment(path: str) -> int:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+    reg = get_registry()
+    reg.counter("journal_compactions").inc()
+    reg.counter("journal_compacted_records").inc(dropped)
     return dropped
 
 

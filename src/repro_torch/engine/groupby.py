@@ -36,6 +36,7 @@ import torch
 from ..core.util import numpy_dtype
 from ..kernels import page_scan as _pscan
 from ..kernels.page_scan import agg_identities
+from ..obs import annotate
 from . import scan as _scan
 from .schedule import edge_scan_plan, ladder_grid, run_scheduled_multi
 
@@ -220,9 +221,11 @@ def make_edge_prefix(page_of_raw: Callable, *, num_pages: int, tile: int,
 
     def prefix(e, kpages, vpages, aux: _scan.ScanAux):
         n_items = e.shape[0]
-        pids = page_of_raw(e).int()
-        g_cap = ladder_grid(n_items, tile, num_pages)
-        plan = edge_scan_plan(pids, tile, g_cap, num_pages)
+        with annotate("groupby/edge_of"):
+            pids = page_of_raw(e).int()
+        with annotate("groupby/edge_plan"):
+            g_cap = ladder_grid(n_items, tile, num_pages)
+            plan = edge_scan_plan(pids, tile, g_cap, num_pages)
 
         def body(qbs, step_pages, steps_used):
             outs = _pscan.page_prefix_bucketed(
@@ -230,7 +233,8 @@ def make_edge_prefix(page_of_raw: Callable, *, num_pages: int, tile: int,
                 mask_value=mask_value, steps_used=steps_used)
             return outs if with_sum else (outs,)
 
-        outs = run_scheduled_multi(plan, (e,), tile, g_cap, body)
+        with annotate("groupby/page_prefix"):
+            outs = run_scheduled_multi(plan, (e,), tile, g_cap, body)
         pl = pids.long()
         pcnt = aux.cum_cnt[pl] + outs[0]
         psum = aux.cum_sum[pl] + outs[1] if with_sum else None

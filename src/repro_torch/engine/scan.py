@@ -28,9 +28,12 @@ prefix differences a query, where the reference compares each query with
 every slot.
 
 The reference caches one ``jax.jit`` dispatch per shape; here the
-pipelines are plain functions. Left out: the non-tiered kinds'
-``FlatAggregator`` (item 12), the specialized index (item 11) and the
-scan's telemetry spans and counters (item 10).
+pipelines are plain functions. Each entry point of :class:`TieredScanner`
+records the reference's ``scan.dispatch`` span and its
+``engine_op_seconds`` / ``engine_ops`` (paths ``scan``, ``scan_groups``,
+``scan_multi``); the span pipeline's stages carry ``obs.annotate``
+ranges while the tracer is enabled. Left out: the non-tiered kinds'
+``FlatAggregator`` (item 12) and the specialized index (item 11).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from ..core.util import (as_queries, not_ported, numpy_dtype,
                          resolve_device, sentinel_for, take, upload_async)
 from ..kernels import page_scan as _pscan
 from ..kernels.page_scan import MODES, agg_identities
+from ..obs import annotate, timed_op
 from . import tiered as _tiered
 from .schedule import ladder_grid, run_scheduled_multi, span_scan_plan
 
@@ -255,7 +259,8 @@ def make_span_pipeline(span_of: Callable, *, num_pages: int, tile: int,
     def pipeline(lo, hi, kpages, vpages, aux: ScanAux) -> SpanScan:
         q_n = lo.shape[0]
         empty = lo > hi
-        plo, phi = span_of(lo, hi)
+        with annotate("scan/span_of"):
+            plo, phi = span_of(lo, hi)
         single = plo == phi
         # item i scans the lower boundary page: its lower bound stays lo
         # even for empty ranges (the below-lo count anchors r_lo); its upper
@@ -267,25 +272,28 @@ def make_span_pipeline(span_of: Callable, *, num_pages: int, tile: int,
         off = empty | single
         lob_b = torch.full_like(lo, lo_min).masked_fill(off, inert_lo)
         hib_b = hi.masked_fill(off, inert_hi)
-        g_cap = ladder_grid(2 * q_n, tile, num_pages)
-        _, plan = span_scan_plan(plo, phi, tile, g_cap, num_pages)
+        with annotate("scan/span_plan"):
+            g_cap = ladder_grid(2 * q_n, tile, num_pages)
+            _, plan = span_scan_plan(plo, phi, tile, g_cap, num_pages)
 
         def body(qbs, step_pages, steps_used):
             return _pscan.page_scan_bucketed(
                 qbs[0], qbs[1], step_pages, kpages, vpages, mode=mode,
                 mask_value=mask_value, steps_used=steps_used)
 
-        outs = run_scheduled_multi(plan, (torch.cat([lo, lob_b]),
-                                          torch.cat([hib_a, hib_b])),
-                                   tile, g_cap, body)
+        with annotate("scan/page_kernel"):
+            outs = run_scheduled_multi(plan, (torch.cat([lo, lob_b]),
+                                              torch.cat([hib_a, hib_b])),
+                                       tile, g_cap, body)
         lt, le = outs[0], outs[1]
         # in-range count per item; the clamp zeroes inert bound pairs
         cnt = (le - lt).clamp_min(0)
         cnt = cnt[:q_n] + cnt[q_n:]
         # interior pages (plo, phi): aggregated, never scanned; an empty
         # range has phi == plo, so its interval is empty by construction
-        a, b = plo + 1, phi
-        has = b > a
+        with annotate("scan/interior"):
+            a, b = plo + 1, phi
+            has = b > a
         al, bl = a.long(), b.long()
         icnt = torch.where(has, aux.cum_cnt[bl] - aux.cum_cnt[al], 0)
         vsum = vmin = vmax = None
@@ -398,14 +406,17 @@ class TieredScanner:
         lo, hi = self._coerce(lo, hi)
         mode = mode_for_aggs(aggs, self.has_values)
         if materialize is None:
-            cnt, vs, mn, mx, r_lo, r_hi = self._agg(mode, lo, hi,
-                                                    *self._operands())
+            with timed_op("scan.dispatch", "scan", mode=mode):
+                cnt, vs, mn, mx, r_lo, r_hi = self._agg(mode, lo, hi,
+                                                        *self._operands())
             return ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi,
                               vsum=vs, vmin=mn, vmax=mx)
         # materialize composes with the requested aggregates in the same
         # pass (aggs=("count",) for the lean locator-only form)
-        cnt, vs, mn, mx, r_lo, r_hi, ranks, vals, over = self._mat(
-            int(materialize), mode, lo, hi, *self._operands())
+        K = int(materialize)
+        with timed_op("scan.dispatch", "scan", mode=mode, materialize=K):
+            cnt, vs, mn, mx, r_lo, r_hi, ranks, vals, over = self._mat(
+                K, mode, lo, hi, *self._operands())
         return ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi, vsum=vs,
                           vmin=mn, vmax=mx, ranks=ranks, values=vals,
                           overflow=over)
@@ -457,7 +468,7 @@ class TieredScanner:
         mode = mode_for_aggs(aggs, self.has_values)
         mk_gagg, mk_gtopk, _ = self._group_makers()
         if top_k is None:
-            out = mk_gagg(G, mode)(lo, hi, *self._operands())
+            fn = mk_gagg(G, mode)
         else:
             K = int(top_k)
             if K < 1:
@@ -466,7 +477,9 @@ class TieredScanner:
                 raise ValueError("top_k needs an index built with values")
             C = max(int(candidates) if candidates is not None
                     else max(2 * K, 32), K)
-            out = mk_gtopk(G, mode, K, C)(lo, hi, *self._operands())
+            fn = mk_gtopk(G, mode, K, C)
+        with timed_op("scan.dispatch", "scan_groups", mode=mode, groups=G):
+            out = fn(lo, hi, *self._operands())
         names = ("edges", "r_edge", "count", "vsum", "vmin", "vmax",
                  "topk_values", "topk_ranks", "overflow")
         return _gb.GroupScanResult(**dict(zip(names, out)))
@@ -490,8 +503,9 @@ class TieredScanner:
             raise ValueError("ranges needs at least one range per query")
         mode = mode_for_aggs(aggs, self.has_values)
         _, _, mk_magg = self._group_makers()
-        count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
-            r[..., 0], r[..., 1], *self._operands())
+        with timed_op("scan.dispatch", "scan_multi", mode=mode, op=op):
+            count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
+                r[..., 0], r[..., 1], *self._operands())
         return ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
                           vsum=vsum, vmin=vmin, vmax=vmax)
 

@@ -30,10 +30,16 @@ write batch is journaled ahead of application (``ckpt/journal.py``),
 adopts the newest verifying snapshot and replays the journal; the files
 are the reference's, so either package restores the other's.
 
+**Telemetry**: the reference's ``store.*`` and ``journal.*`` spans and
+its ``engine_op_seconds`` / ``engine_ops`` paths (lookup, seal, fold,
+journal, scan, scan_groups, scan_multi, snapshot_save, snapshot_restore),
+at the same boundaries. The executed plan's step count leaves a lookup
+through :meth:`MutableIndex.pop_plan_feedback`, whose thunk waits on a
+CUDA event instead of the stream.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
 item: a non-tiered base and its "flat" snapshot (item 12) and
-``specialize=True`` (item 11). The reference's spans and counters come
-with item 10.
+``specialize=True`` (item 11).
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from ..ckpt import journal as _jr
 from ..core.util import (as_queries, ceil_to, not_ported, resolve_device,
                          sentinel_for, take, upload_async)
 from ..kernels import ops
+from ..obs import get_registry, span, timed_op
 from . import delta as _delta
 from . import groupby as _gb
 from . import scan as _scan
@@ -455,12 +462,14 @@ class MutableIndex:
             if jr is not None:
                 # write-ahead for the WHOLE batch, then apply: replay is an
                 # idempotent upsert, so batch-level WAL ordering is
-                # equivalent to per-key interleaving (the reference's
-                # journal.append span and journal timer: item 10); a
-                # delete journals value 0, as the reference's does
-                jr.append_many(keys, np.zeros(keys.shape, np.int32)
-                               if delete else values, delete=delete)
-                jr.flush()
+                # equivalent to per-key interleaving, and it puts the
+                # journal cost in one measured place; a delete journals
+                # value 0, as the reference's does
+                with timed_op("journal.append", "journal",
+                              n=int(keys.size)):
+                    jr.append_many(keys, np.zeros(keys.shape, np.int32)
+                                   if delete else values, delete=delete)
+                    jr.flush()
             for k, v in zip(keys, values):
                 if self.delta.full:
                     self._seal()
@@ -498,16 +507,17 @@ class MutableIndex:
         O(1) hot-path hand-off. Backpressure: if the previous sealed
         buffer has not been folded yet, fold it now (the only path where
         a writer still pays a merge)."""
-        # the reference's store.seal span and seal counter: item 10
-        if self.sealed.count:
-            self.maintain()
-        self.delta, self.sealed = self.sealed, self.delta
-        self.stats["seals"] += 1
-        self._rev += 1
-        if self._mode == "inline":
-            self.maintain()
-        elif self._mode == "thread":
-            self._arm_timer()
+        with span("store.seal"):
+            if self.sealed.count:
+                self.maintain()
+            self.delta, self.sealed = self.sealed, self.delta
+            self.stats["seals"] += 1
+            get_registry().counter("engine_ops", path="seal").inc()
+            self._rev += 1
+            if self._mode == "inline":
+                self.maintain()
+            elif self._mode == "thread":
+                self._arm_timer()
 
     def maintain(self) -> bool:
         """Fold the sealed buffer into the base — the off-hot-path
@@ -522,8 +532,8 @@ class MutableIndex:
             self.stats["maintains"] += 1
             self.stats["merges"] += 1
             self._rev += 1
-            # the reference's store.fold span and fold timer: item 10
-            self._fold(dk, dv, dt)
+            with timed_op("store.fold", "fold", n=int(dk.size)):
+                self._fold(dk, dv, dt)
             self.delta.promote_ss()
             self._upload_tiers()
             return True
@@ -594,7 +604,9 @@ class MutableIndex:
         :meth:`pop_plan_feedback`."""
         from ..core.api import LookupResult
         # the lock spans the whole dispatch: a maintenance thread's fold
-        # rewrites rows in place on the same stream, after these kernels
+        # rewrites rows in place on the same stream, after these kernels.
+        # The timer measures the host cost of issuing the kernels, which
+        # return without waiting on the device: no sync added
         with self._lock:
             ak, av, asp = self.delta.device_state()
             _, _, atb = self.delta.device_bits()
@@ -602,27 +614,42 @@ class MutableIndex:
             _, _, stb = self.sealed.device_bits()
             tiers = (ak, av, atb, asp, sk, sv, stb, ssp)
             q = as_queries(queries, ak)
-            # the reference's store.lookup span and lookup timer: item 10
-            if self.base is not None:
-                rank, found, vals, steps = self._fused(
-                    q, self.base.dev_keys, self.base.dev_vals, *tiers)
-                self._last_plan = (int(q.shape[0]), steps, self.base.tile,
-                                   self.base.num_pages)
-            else:
-                rank, found, vals, _ = self._fused(q, *tiers)
-                self._last_plan = None
+            with timed_op("store.lookup", "lookup", n=int(q.shape[0])):
+                if self.base is not None:
+                    rank, found, vals, steps = self._fused(
+                        q, self.base.dev_keys, self.base.dev_vals, *tiers)
+                    self._last_plan = (int(q.shape[0]), steps,
+                                       self.base.tile, self.base.num_pages)
+                else:
+                    rank, found, vals, _ = self._fused(q, *tiers)
+                    self._last_plan = None
         return LookupResult(rank=rank, found=found, values=vals)
 
     def pop_plan_feedback(self):
         """Executed-plan occupancy of the most recent lookup, as a lazy
-        thunk (or None when there is no base / nothing ran). Resolving
-        the thunk reads one device scalar — callers defer that outside the
-        dispatch path, keeping lookups sync-free."""
+        thunk (or None when there is no base / nothing ran), with no host
+        sync here or in the thunk's normal case. On the card the step
+        count is copied now, behind the lookup's kernels, into page-locked
+        host memory without blocking, and a CUDA event is recorded after
+        the copy; the thunk waits on that event alone (not on the stream),
+        and a caller that resolves it a dispatch later (the micro-batch
+        queue, at its next flush) finds it complete."""
         fb, self._last_plan = self._last_plan, None
         if fb is None:
             return None
         q_n, steps, tile, num_pages = fb
-        return lambda: executed_occupancy(q_n, int(steps), tile, num_pages)
+        if steps.device.type != "cuda":
+            return lambda: executed_occupancy(q_n, int(steps), tile,
+                                              num_pages)
+        host = torch.empty((), dtype=steps.dtype, pin_memory=True)
+        host.copy_(steps, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(steps.device))
+
+        def thunk():
+            copied.synchronize()
+            return executed_occupancy(q_n, int(host), tile, num_pages)
+        return thunk
 
     # ---------------------------------------------------------------- scan
     def _ensure_scan(self):
@@ -697,17 +724,19 @@ class MutableIndex:
         region at ``P*lw_pad + slot``) and values in key order, with an
         overflow flag. Returns ``engine.scan.ScanResult``."""
         mode = _scan.mode_for_aggs(aggs)
-        # the reference's store.scan span and scan timer: item 10
         with self._lock:                 # across the dispatch, as lookup
             fns, args = self._scan_args(lo, hi)
             if materialize is None:
-                count, vsum, vmin, vmax, r_lo, r_hi = \
-                    fns["make_agg"](mode)(*args)
+                with timed_op("store.scan", "scan", mode=mode):
+                    count, vsum, vmin, vmax, r_lo, r_hi = \
+                        fns["make_agg"](mode)(*args)
                 return _scan.ScanResult(count=count, r_lo=r_lo,
                                         r_hi_excl=r_hi, vsum=vsum,
                                         vmin=vmin, vmax=vmax)
-            count, vsum, vmin, vmax, r_lo, r_hi, ranks, vals, over = \
-                fns["make_mat"](int(materialize), mode)(*args)
+            K = int(materialize)
+            with timed_op("store.scan", "scan", mode=mode, materialize=K):
+                count, vsum, vmin, vmax, r_lo, r_hi, ranks, vals, over = \
+                    fns["make_mat"](K, mode)(*args)
         return _scan.ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
                                 vsum=vsum, vmin=vmin, vmax=vmax,
                                 ranks=ranks, values=vals, overflow=over)
@@ -742,12 +771,12 @@ class MutableIndex:
                 raise ValueError(f"top_k must be positive, got {top_k}")
             C = max(int(candidates) if candidates is not None
                     else max(2 * K, 32), K)
-        # the reference's store.scan span and scan_groups timer: item 10
         with self._lock:                 # across the dispatch, as lookup
             fns, args = self._scan_args(lo, hi)
             mk_gagg, mk_gtopk, _ = fns["gmk"]
-            out = (mk_gagg(G, mode) if K is None
-                   else mk_gtopk(G, mode, K, C))(*args)
+            with timed_op("store.scan", "scan_groups", mode=mode, groups=G):
+                out = (mk_gagg(G, mode) if K is None
+                       else mk_gtopk(G, mode, K, C))(*args)
         names = ("edges", "r_edge", "count", "vsum", "vmin", "vmax",
                  "topk_values", "topk_ranks", "overflow")
         return _gb.GroupScanResult(**dict(zip(names, out)))
@@ -762,7 +791,6 @@ class MutableIndex:
             raise ValueError(f"unknown multi-range op {op!r}; "
                              f"want one of {_gb.MULTI_OPS}")
         mode = _scan.mode_for_aggs(aggs)
-        # the reference's store.scan span and scan_multi timer: item 10
         with self._lock:                 # across the dispatch, as lookup
             fns, args = self._scan_args(ranges)
             r = args[0]
@@ -774,8 +802,9 @@ class MutableIndex:
                 raise ValueError("ranges needs at least one range per "
                                  "query")
             _, _, mk_magg = fns["gmk"]
-            count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
-                r[..., 0], r[..., 1], *args[1:])
+            with timed_op("store.scan", "scan_multi", mode=mode, op=op):
+                count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
+                    r[..., 0], r[..., 1], *args[1:])
         return _scan.ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
                                 vsum=vsum, vmin=vmin, vmax=vmax)
 
@@ -806,7 +835,7 @@ class MutableIndex:
         writes and the next save loses nothing: the previous snapshot and
         its segment's replay rebuild this state (DESIGN.md §6.5). Returns
         the snapshot's directory."""
-        with self._lock:
+        with self._lock, timed_op("store.snapshot_save", "snapshot_save"):
             d = ckpt_dir or self._ckpt_dir
             if d is None:
                 raise ValueError("no checkpoint directory: pass ckpt_dir "
@@ -816,22 +845,23 @@ class MutableIndex:
                     "sealed": self.sealed.state()}
             if self.base is not None:
                 tree["base"] = self.base.state()
-            # the reference's store.snapshot_save span and timer: item 10
             path = _ckpt.save(d, step, tree, keep=self._ckpt_keep)
             self._rotate_journal(d, step)
             return path
 
     def _rotate_journal(self, ckpt_dir: str, step: int):
-        old, seq = self._journal, 0
-        if old is not None:
-            seq = old.seq
-            old.close()
-            # the rotated segment is immutable from here on: collapse each
-            # key's overwrite chain to its last writer
-            _jr.compact_segment(old.path)
-        self._journal = _jr.Journal(_jr.segment_path(ckpt_dir, step),
-                                    self._key_dtype, next_seq=seq,
-                                    fsync=self._fsync_policy())
+        with span("journal.rotate", step=step):
+            old, seq = self._journal, 0
+            if old is not None:
+                seq = old.seq
+                old.close()
+                # the rotated segment is immutable from here on: collapse
+                # each key's overwrite chain to its last writer
+                _jr.compact_segment(old.path)
+            self._journal = _jr.Journal(_jr.segment_path(ckpt_dir, step),
+                                        self._key_dtype, next_seq=seq,
+                                        fsync=self._fsync_policy())
+            get_registry().counter("journal_rotations").inc()
         self._ckpt_dir = self._ckpt_dir or ckpt_dir
         # drop the segments no retained snapshot can replay from
         retained = _ckpt.all_steps(ckpt_dir)
@@ -854,7 +884,11 @@ class MutableIndex:
         on the restored store. Reads what either package wrote."""
         cfg = dataclasses.replace(config, ckpt_dir=None) \
             if config.ckpt_dir else config
-        # the reference's store.snapshot_restore span and timer: item 10
+        with timed_op("store.snapshot_restore", "snapshot_restore"):
+            return cls._restore(cfg, config, ckpt_dir, device)
+
+    @classmethod
+    def _restore(cls, cfg, config, ckpt_dir: str, device) -> "MutableIndex":
         self = cls(cfg, device=device)
         try:
             raw, step = _ckpt.restore(ckpt_dir)

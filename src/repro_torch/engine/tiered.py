@@ -21,8 +21,11 @@ one pass (``_make_span_of``) and run through the range-scan subsystem,
 ``engine/scan.py``.
 
 Tier sizing (``plan_tiers``) keeps the reference's arithmetic, so the
-layout matches it for every n. Telemetry spans come with the telemetry
-slice (ROADMAP).
+layout matches it for every n. ``search`` records the reference's
+``tiered.search`` span and its ``engine_op_seconds`` / ``engine_ops`` at
+``path=search``; the pipeline's stages carry ``obs.annotate`` ranges
+(``tiered/top_descent``, ``tiered/device_plan``, ``tiered/page_kernel``)
+while the tracer is enabled.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from ..core.util import (as_queries, as_sorted_numpy, ceil_to, next_pow,
 from ..kernels import ops
 from ..kernels import kary_search as _kary
 from ..kernels import page_search as _page
+from ..obs import annotate, timed_op
 from .schedule import (BucketPlan, bucket_plan, device_plan, ladder_grid,
                        run_scheduled)
 
@@ -116,16 +120,19 @@ def _make_pipeline(page_of_raw: Callable, *, num_pages: int, stride: int,
 
     def pipeline(q, pages):
         q_n = q.shape[0]
-        pids = page_of_raw(q)
-        g_cap = ladder_grid(q_n, tile, num_pages)
-        plan = device_plan(pids, tile, g_cap, num_pages)
+        with annotate("tiered/top_descent"):
+            pids = page_of_raw(q)
+        with annotate("tiered/device_plan"):
+            g_cap = ladder_grid(q_n, tile, num_pages)
+            plan = device_plan(pids, tile, g_cap, num_pages)
 
         def body(qb, step_pages, steps_used):
             return _page.page_search_bucketed(qb, step_pages, pages,
                                               stride=stride,
                                               steps_used=steps_used)
 
-        out = run_scheduled(plan, q, tile, g_cap, body).clamp_max(clip)
+        with annotate("tiered/page_kernel"):
+            out = run_scheduled(plan, q, tile, g_cap, body).clamp_max(clip)
         return (out, plan.steps_used) if with_stats else out
 
     return pipeline
@@ -272,7 +279,11 @@ def search(index: TieredIndex, queries, *, plan: str | None = None
     if mode == "host":
         ranks, _ = search_with_plan(index, queries)
         return ranks
-    return index.search_raw(as_queries(queries, index.pages), index.pages)
+    q = as_queries(queries, index.pages)
+    # dispatch-boundary timer: the pipeline returns once its kernels are
+    # issued, so observing it adds no sync
+    with timed_op("tiered.search", "search", n=int(q.shape[0])):
+        return index.search_raw(q, index.pages)
 
 
 def searcher(index: TieredIndex) -> Callable:

@@ -16,12 +16,18 @@ atomics, no zero fill, no clamp after. The design is in the source.
 
 ``invert_cdf`` is the same function in plain PyTorch. ``cdf_search`` uses
 it for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises. The queue adapter ``cdf_probe_fn`` comes with the decode queue
-(ROADMAP Queue 1 item 9).
+raises.
+
+Decode-step micro-batching (DESIGN.md §7.1): one request's decode step is
+a B=1 inversion, a near-empty launch. :func:`cdf_probe_fn` adapts the
+inversion to the micro-batch queue's ``search_fn`` contract over
+``(cdf, u)`` submissions, so the decode steps of concurrent requests
+flush as one launch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import torch
 
@@ -77,3 +83,28 @@ def cdf_search(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 cdf_search.launches = 0
+
+
+def cdf_probe_fn() -> Callable:
+    """Adapt CDF inversion to the micro-batch queue's ``search_fn``
+    contract (``engine.queue.MicroBatchQueue``), the decode-step twin of
+    ``engine.queue.index_probe_fn``.
+
+    Submissions are ``(cdf [b, V], u [b])`` tensors on one device; the
+    queue joins them along the batch axis (one engine, one vocabulary)
+    and pads with zero rows, whose inversion lands on index 0 and is never
+    read back through any caller's slice. The probe is one
+    :func:`cdf_search` over the flushed batch: one kernel launch on the
+    card, ``invert_cdf`` on the CPU.
+
+    Occupancy feedback: the inversion has no bucket schedule, so the
+    probe reports 1.0 and the queue scales it by real/dispatched rows,
+    making the feedback exactly the pad waste."""
+
+    def probe(batch):
+        cdf, u = batch
+        if cdf.shape[0] == 0:
+            return torch.zeros(0, dtype=torch.int32, device=cdf.device), None
+        return cdf_search(cdf, u), (lambda: 1.0)
+
+    return probe

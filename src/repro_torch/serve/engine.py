@@ -2,16 +2,15 @@
 port of ``repro/serve/engine.py``).
 
 Flow per request: probe the PrefixPageStore (by default the mutable tiered
-store on the card) for the longest cached page chain -> install hit pages into a fresh cache
--> prefill only the uncached tail (``prefill_continue``) -> store the new
-pages. Requests then decode together as one batch, each step sampling
-inline: for a sampled config, one CDF-inversion kernel launch a step.
-
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the decode micro-batch queue (``decode_batching=True`` with a
-sampled config) and tenants (item 9), and the registry views of
-``EngineStats`` (item 10). The reference's tracing spans are left out
-with them (item 10).
+store on the card) for the longest cached page chain -> install hit pages
+into a fresh cache -> prefill only the uncached tail
+(``prefill_continue``) -> store the new pages. The batch's probes go out
+as one flush of the store's micro-batch queue. Requests then decode
+together as one batch; each sampled step's CDF inversions go through the
+decode queue (``decode_batching=True``, the default: one CDF-kernel
+launch a step, per-tenant admission lanes with ``tenants``) or inline.
+``EngineStats``' queue views read the metrics registry; the loop records
+the reference's ``serve.*`` spans.
 """
 from __future__ import annotations
 
@@ -23,34 +22,59 @@ import numpy as np
 import torch
 
 from ..core import IndexConfig
-from ..core.util import not_ported
+from ..engine.queue import MicroBatchQueue, tenant_summary
+from ..kernels.cdf_search import cdf_probe_fn
 from ..models import transformer as T
+from ..obs import get_registry, span
 from . import kv_cache as KV
-from .sampler import SamplerConfig, sample
-
-
-def _registry_view(name: str):
-    def view(self):
-        raise not_ported(f"EngineStats.{name}", "item 10 (telemetry)")
-    return property(view, doc=f"Registry view {name} (not ported yet).")
+from .sampler import SamplerConfig, sample, sample_queued
 
 
 @dataclass
 class EngineStats:
-    """Serving counters of the engine loop; the wall-clock fields are
-    host-clock seconds."""
+    """Serving counters. The wall-clock fields are engine-loop-local
+    host-clock seconds; the queue-derived fields (probe / decode flushes,
+    occupancy, per-tenant rows) are VIEWS over the metrics registry — the
+    queues write there once and this dataclass reads it back (DESIGN.md
+    §9)."""
     prefill_tokens: int = 0
     reused_tokens: int = 0
     decode_tokens: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
     probe_s: float = 0.0          # wall time in batched store probes
+    registry: object = None       # metrics registry (None = process default)
 
-    probe_batches = _registry_view("probe_batches")
-    probe_occupancy = _registry_view("probe_occupancy")
-    decode_flushes = _registry_view("decode_flushes")
-    decode_occupancy = _registry_view("decode_occupancy")
-    tenants = _registry_view("tenants")
+    def _reg(self):
+        return self.registry if self.registry is not None else get_registry()
+
+    @property
+    def probe_batches(self) -> int:
+        """Probe-queue flushes (one index lookup each)."""
+        return int(self._reg().total("queue_flushes", path="probe"))
+
+    @property
+    def probe_occupancy(self) -> float:
+        """Mean executed-plan lane occupancy of the probe path."""
+        return self._reg().merged_histogram("queue_flush_occupancy",
+                                            path="probe").mean
+
+    @property
+    def decode_flushes(self) -> int:
+        """Decode-queue flushes (one CDF inversion each)."""
+        return int(self._reg().total("queue_flushes", path="decode"))
+
+    @property
+    def decode_occupancy(self) -> float:
+        return self._reg().merged_histogram("queue_flush_occupancy",
+                                            path="decode").mean
+
+    @property
+    def tenants(self) -> dict:
+        """{(path, tenant): TenantRow} across the probe and decode queues,
+        rendered from the registry by ``engine.queue.tenant_summary``."""
+        return {(r.path, r.tenant): r
+                for r in tenant_summary(self._reg())}
 
 
 class ServeEngine:
@@ -58,7 +82,7 @@ class ServeEngine:
                  index_config: Optional[IndexConfig] = None,
                  sampler: SamplerConfig = SamplerConfig(temperature=0.0),
                  decode_batching: bool = True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, registry=None):
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.max_len, self.page_size = max_len, page_size
@@ -72,7 +96,28 @@ class ServeEngine:
                                                    plan="device",
                                                    mutable=True),
             device=self.device)
-        self.stats = EngineStats()
+        self.stats = EngineStats(registry=registry)
+        self._decode_queue = None
+
+    def decode_queue(self):
+        """The decode-step micro-batch queue (DESIGN.md §7.1), lazily built
+        from the store's IndexConfig queue knobs: every sampled step's CDF
+        inversions submit per tenant and flush as one launch. Timer-free —
+        ``generate`` drives flushes synchronously (each step's blocking
+        ``result()`` demand-flushes), so no daemon thread races the decode
+        loop."""
+        if self._decode_queue is None:
+            c = self.store.index_config
+            self._decode_queue = MicroBatchQueue(
+                cdf_probe_fn(),
+                capacity=c.queue_capacity, deadline_s=c.queue_deadline_s,
+                min_flush=c.queue_min_flush, adapt=c.queue_adapt,
+                max_share=c.queue_max_share,
+                adaptive_deadline=c.queue_adaptive_deadline,
+                deadline_floor_s=c.queue_deadline_floor_s,
+                max_backlog=c.queue_max_backlog, timer=False,
+                path="decode")
+        return self._decode_queue
 
     # ------------------------------------------------------------- prefill
     def prefill_one(self, tokens: np.ndarray, probe=None):
@@ -116,16 +161,21 @@ class ServeEngine:
 
     # ------------------------------------------------------------- probes
     def _probe_batch(self, prompts: list, tenants=None):
-        """One store probe for the whole prompt batch: every prompt's hash
-        chain in one index lookup over the pre-batch store snapshot (see
-        PrefixPageStore.lookup_batch). Returns per-prompt (n_hit,
-        payloads)."""
+        """One store probe for the whole prompt batch, routed through the
+        store's micro-batch queue (DESIGN.md §7): B prompts submit their
+        hash chains (on their tenants' admission lanes when given) and the
+        queue flushes them as ONE index lookup over the pre-batch store
+        snapshot (see PrefixPageStore.lookup_batch). Returns per-prompt
+        (n_hit, payloads); the queue's occupancy feedback is drained into
+        the registry."""
         if not self.pageable:
             return [None] * len(prompts)
-        t0 = time.perf_counter()
-        probes = self.store.lookup_batch(
-            [np.asarray(p, np.int32) for p in prompts], tenants=tenants)
-        self.stats.probe_s += time.perf_counter() - t0
+        with span("serve.probe_batch", n=len(prompts)):
+            t0 = time.perf_counter()
+            probes = self.store.lookup_batch(
+                [np.asarray(p, np.int32) for p in prompts], tenants=tenants)
+            self.stats.probe_s += time.perf_counter() - t0
+            self.store.probe_queue().drain_feedback()
         return probes
 
     # ------------------------------------------------------------- decode
@@ -133,20 +183,25 @@ class ServeEngine:
                  generator: Optional[torch.Generator] = None,
                  tenants=None) -> torch.Tensor:
         """Prefill each prompt (with reuse), then decode ``steps`` tokens
-        for the whole batch, sampling inline. Store probes for all B
-        prompts go out as one batched lookup before the prefill loop.
-        ``generator`` (on the engine's device) drives the sampled draws;
-        None seeds one with 0. Returns [B, steps] int32 token ids on the
+        for the whole batch. Store probes for all B prompts go out as one
+        micro-batch before the prefill loop; sampled decode steps route
+        their CDF inversions through the decode queue (one launch a step)
+        unless ``decode_batching=False``, which samples inline.
+        ``tenants`` (one id per prompt) lands both the probes and the
+        decode submissions on per-tenant admission lanes. ``generator``
+        (on the engine's device) drives the sampled draws; None seeds one
+        with 0, and the queued and inline samplers give the same tokens
+        for the same generator. Returns [B, steps] int32 token ids on the
         engine's device; the decode loop synchronizes once, at its end."""
         if tenants is not None and len(tenants) != len(prompts):
             raise ValueError(f"tenants must have one id per prompt: "
                              f"{len(tenants)} != {len(prompts)}")
-        if self.decode_batching and self.sampler.temperature != 0.0:
-            raise not_ported("the decode micro-batch queue (pass "
-                             "decode_batching=False)",
-                             "item 9 (queue and admission)")
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        with span("serve.generate", batch=len(prompts), steps=steps):
+            return self._generate(prompts, steps, generator, tenants)
+
+    def _generate(self, prompts, steps, generator, tenants):
         probes = self._probe_batch(prompts, tenants=tenants)
         revision = self.store.revision
         logits_list, caches = [], []
@@ -159,7 +214,8 @@ class ServeEngine:
                 full = probe[0] >= (len(p) - 1) // self.page_size
                 if not full:
                     probe = None
-            lg, c = self.prefill_one(p, probe=probe)
+            with span("serve.prefill", tokens=len(p)):
+                lg, c = self.prefill_one(p, probe=probe)
             logits_list.append(lg)
             caches.append(c)
         # stack along batch: lengths on axis 0, K/V [L, B, ...] on axis 1
@@ -169,14 +225,25 @@ class ServeEngine:
         del caches
         logits = torch.cat(logits_list, dim=0)
         toks_out = []
+        use_queue = self.decode_batching and self.sampler.temperature != 0.0
+        dq = self.decode_queue() if use_queue else None
         t0 = time.perf_counter()
-        for _ in range(steps):
-            nxt = sample(logits, self.sampler, generator=generator)
-            toks_out.append(nxt)
-            logits, cache = T.decode_step(self.cfg, self.params, nxt, cache,
-                                          compute_dtype=self.dtype)
+        for i in range(steps):
+            with span("serve.decode_step", step=i):
+                if use_queue:
+                    nxt = sample_queued(logits, self.sampler, dq,
+                                        tenants=tenants,
+                                        generator=generator)
+                else:
+                    nxt = sample(logits, self.sampler, generator=generator)
+                toks_out.append(nxt)
+                logits, cache = T.decode_step(self.cfg, self.params, nxt,
+                                              cache,
+                                              compute_dtype=self.dtype)
         if logits.is_cuda:
             torch.cuda.synchronize(logits.device)
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_tokens += steps * len(prompts)
+        if dq is not None:
+            dq.drain_feedback()
         return torch.stack(toks_out, dim=1)

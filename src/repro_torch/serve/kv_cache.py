@@ -13,10 +13,11 @@ in the reference: inserts go through its delta buffer and page-local
 merges, never a wholesale rebuild. With ``mutable=False`` inserts mark
 the immutable snapshot dirty and the next probe rebuilds it (the
 reference's wholesale posture). ``save`` / ``restore`` snapshot the pages
-(and the mutable index's own snapshot and journal) as the reference does;
-per-tenant probes and the probe queue raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 9. Payloads are device tensors: cloned slices
-of the prefill cache.
+(and the mutable index's own snapshot and journal) as the reference does.
+Batched probes (``lookup_batch``) go through the store's micro-batch
+queue (``probe_queue``, DESIGN.md §7), each prompt's hash chain on its
+tenant's admission lane. Payloads are device tensors: cloned slices of
+the prefill cache.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import torch
 
 from ..ckpt import checkpoint as _ckpt
 from ..core import IndexConfig, build_index, check_ported
-from ..core.util import not_ported, resolve_device
+from ..core.util import resolve_device
+from ..engine.queue import DEFAULT_TENANT, MicroBatchQueue, index_probe_fn
 
 _MASK31 = (1 << 31) - 1
 _SEED = 0x9E3779B1
@@ -96,6 +98,7 @@ class PrefixPageStore:
     _index: Any = None
     _dirty: bool = True
     _known: set = field(default_factory=set)         # hashes, kept incrementally
+    _queue: Any = None                               # lazy MicroBatchQueue
     revision: int = 0                                # bumps when pages land
     stats: dict = field(default_factory=lambda: {
         "lookups": 0, "hits": 0, "rebuilds": 0, "verify_rejects": 0})
@@ -192,31 +195,62 @@ class PrefixPageStore:
             return 0, []
         return self._verify(prompt_tokens, hs, *self._probe(hs))
 
+    def probe_queue(self):
+        """The store's cross-request micro-batch queue (DESIGN.md §7),
+        lazily built from the IndexConfig queue knobs. All batched probes
+        (:meth:`lookup_batch`) aggregate through it, so concurrent callers
+        share one index lookup a flush."""
+        if self._queue is None:
+            c = self.index_config
+            self._queue = MicroBatchQueue(
+                # late-bound: rebuild_index / the mutable store may swap
+                # self._index between flushes
+                lambda q: index_probe_fn(self._index)(q),
+                capacity=c.queue_capacity, deadline_s=c.queue_deadline_s,
+                min_flush=c.queue_min_flush, adapt=c.queue_adapt,
+                max_share=c.queue_max_share,
+                adaptive_deadline=c.queue_adaptive_deadline,
+                deadline_floor_s=c.queue_deadline_floor_s,
+                max_backlog=c.queue_max_backlog, path="probe")
+        return self._queue
+
     def lookup_batch(self, prompts: list, tenants: Optional[list] = None):
-        """Longest reusable prefix for MANY prompts with ONE index probe
-        over their concatenated hash chains (what one queue flush
-        dispatches in the reference); each prompt verifies its own slice.
-        Returns ``[(n_pages_hit, payloads), ...]`` in prompt order.
+        """Longest reusable prefix for MANY prompts with ONE index probe:
+        every prompt's hash chain is submitted to the micro-batch queue,
+        the first blocking result demand-flushes the lot as one lookup
+        (the chains joined on the host and uploaded once), and each prompt
+        verifies its own slice. Returns ``[(n_pages_hit, payloads), ...]``
+        in prompt order.
+
+        ``tenants`` (optional, one id per prompt) lands each prompt's probe
+        on that tenant's admission lane (DESIGN.md §7.1), and per-tenant
+        wait / occupancy stats accrue in the queue's ledger. The chains
+        are submitted as one arrival (``submit_many``): the queue's
+        deadline timer cannot flush part of them ahead of the rest.
 
         Probes in one batch see the same store snapshot: a prompt cannot
         reuse pages another prompt of the *same* batch is about to
         insert."""
-        if tenants is not None:
-            raise not_ported("per-tenant probes", "item 9 (queue and "
-                             "admission)")
         self.stats["lookups"] += len(prompts)
         if self._dirty and not self.index_config.mutable:
             self.rebuild_index()
         if self._index is None:
             return [(0, [])] * len(prompts)
         hs_list = [chain_hashes(p, self.page_size) for p in prompts]
-        found, slot = self._probe(np.concatenate(hs_list))
-        out, at = [], 0
-        for prompt, hs in zip(prompts, hs_list):
-            n = hs.size
-            out.append(self._verify(prompt, hs, found[at:at + n],
-                                    slot[at:at + n]) if n else (0, []))
-            at += n
+        queue = self.probe_queue()
+        tenants = tenants or [DEFAULT_TENANT] * len(prompts)
+        live = [i for i, hs in enumerate(hs_list) if hs.size]
+        futs = dict(zip(live, queue.submit_many(
+            [(hs_list[i], tenants[i]) for i in live])))
+        out = []
+        for i, (prompt, hs) in enumerate(zip(prompts, hs_list)):
+            fut = futs.get(i)
+            if fut is None:
+                out.append((0, []))
+                continue
+            res = fut.result()
+            out.append(self._verify(prompt, hs, res.found.cpu().numpy(),
+                                    res.values.cpu().numpy()))
         return out
 
     # ---------------------------------------------------------------- durability

@@ -10,15 +10,22 @@ kept field for field with the reference and routes nothing.
 The reference's ``_nucleus_cdf`` is split in two: ``nucleus_cdf`` builds
 the order and the CDF, ``draw_u`` draws the per-row point to invert, so a
 test can feed the reference's draw into the port's inversion.
+
+``sample_queued`` routes the inversion through a decode micro-batch queue
+(``kernels.cdf_search.cdf_probe_fn`` behind ``engine.queue``, DESIGN.md
+§7.1): rows are submitted per tenant and the flush inverts all pending
+decode steps in one launch. Its tokens are bit-identical to ``sample``
+with the same generator: the same CDF, the same draw, the same count.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core.util import not_ported
+from ..core.util import upload_async
 from ..kernels import ops as kops
 
 
@@ -65,7 +72,46 @@ def sample(logits: torch.Tensor, cfg: SamplerConfig = SamplerConfig(), *,
     return order.gather(1, idx[:, None].long())[:, 0].to(torch.int32)
 
 
-def sample_queued(logits, cfg: SamplerConfig, queue, tenants=None, *,
-                  generator=None):
-    raise not_ported("sample_queued (the decode micro-batch queue)",
-                     "item 9 (queue and admission)")
+def sample_queued(logits: torch.Tensor, cfg: SamplerConfig, queue,
+                  tenants=None, *,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """``sample`` with the CDF inversion routed through a decode
+    micro-batch queue (``MicroBatchQueue(cdf_probe_fn())``): each tenant's
+    rows are one submit, so concurrent requests' decode steps aggregate
+    into one inversion a flush, admission-fairly shared.
+
+    ``tenants``: optional per-row tenant ids ([B]); the rows of one tenant
+    submit together, gathered on the device, and their inversions are
+    scattered back on the device (no host round trip). Greedy decoding
+    (temperature 0) has no inversion to batch and bypasses the queue."""
+    if cfg.temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    order, cdf = nucleus_cdf(logits, cfg)
+    u = draw_u(cdf, cfg, generator)
+    if tenants is None:
+        idx = queue.submit((cdf, u)).result()
+    else:
+        tenants = list(tenants)
+        B = cdf.shape[0]
+        if len(tenants) != B:
+            raise ValueError(f"tenants must have one id per row: "
+                             f"{len(tenants)} != {B}")
+        groups: dict = {}
+        for row, t in enumerate(tenants):
+            groups.setdefault(t, []).append(row)
+        # rows grouped by tenant, in first-seen tenant order: one upload
+        # of the permutation, one gather, a view a tenant
+        perm = upload_async(np.concatenate(
+            [np.asarray(rows, np.int64) for rows in groups.values()]),
+            cdf.device)
+        cdf_g, u_g = cdf.index_select(0, perm), u.index_select(0, perm)
+        futs, at = [], 0
+        for t, rows in groups.items():
+            n = len(rows)
+            futs.append(queue.submit((cdf_g[at:at + n], u_g[at:at + n]),
+                                     tenant=t))
+            at += n
+        got = torch.cat([f.result() for f in futs])
+        idx = torch.empty_like(got).scatter_(0, perm, got)
+    return order.gather(1, idx[:, None].long())[:, 0].to(torch.int32)

@@ -848,3 +848,80 @@ def test_store_save_restore_round_trip_on_the_card(cuda, tmp_path):
     for f in ("count", "vsum", "vmin", "vmax", "r_lo"):
         assert torch.equal(getattr(ga, f).cpu(), getattr(wa, f)), f
     got.close()
+
+
+# ------------------------------------------------ the micro-batch queues
+@pytest.mark.cuda
+def test_probe_queue_flush_makes_no_sync_and_equals_lookup(cuda):
+    """Probe-queue submits (numpy chains joined on the host and uploaded
+    once; tensors joined on the card) on three tenants, their flushes and
+    the feedback drain of the earlier flush, all under sync-debug
+    "error": each caller's result equals a direct lookup of its own
+    queries, and the drained occupancy equals the CPU store's."""
+    from repro_torch.engine.queue import MicroBatchQueue, index_probe_fn
+    stores, q = store_pair(cuda)
+    gpu, cpu = stores
+    parts = np.array_split(q, 6)
+    pq, cq = (MicroBatchQueue(index_probe_fn(s), capacity=1 << 14,
+                              min_flush=1 << 14, timer=False)
+              for s in (gpu, cpu))
+    gpu.lookup(torch.from_numpy(q).to(cuda))
+    on_card = [torch.from_numpy(p).to(cuda) for p in parts]
+    torch.cuda.synchronize()
+    futs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for subs in (parts, on_card):
+            for i, (p, sub) in enumerate(zip(parts, subs)):
+                futs.append((p, pq.submit(sub, tenant=f"t{i % 3}")))
+            pq.flush()                   # the second drains the first's
+        results = [(p, f.result()) for p, f in futs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pq.drain_feedback()
+    for p, r in results:
+        want = gpu.lookup(torch.from_numpy(p).to(cuda))
+        for name in ("rank", "found", "values"):
+            assert torch.equal(getattr(r, name), getattr(want, name))
+    for _ in range(2):
+        for i, p in enumerate(parts):
+            cq.submit(p, tenant=f"t{i % 3}")
+        cq.flush()
+    cq.drain_feedback()
+    assert pq.stats.flushes == 2 and pq.stats.occ_n == 2
+    assert pq.stats.occ_sum == cq.stats.occ_sum > 0
+
+
+@pytest.mark.cuda
+def test_decode_queue_flush_makes_no_sync_and_equals_the_kernel(cuda):
+    """(cdf, u) rows of three tenants through the decode queue under
+    sync-debug "error": one cdf_search launch a flush, each caller's rows
+    equal a direct kernel call; sample_queued with tenants gives the
+    inline sampler's tokens for the same generator, with no sync."""
+    from repro_torch.engine.queue import MicroBatchQueue
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.serve import sampler as S
+    gen = torch.Generator(cuda).manual_seed(3)
+    logits = torch.randn((8, 152_064), generator=gen, device=cuda) * 3
+    scfg = S.SamplerConfig(temperature=0.8, top_p=0.9)
+    _, cdf = S.nucleus_cdf(logits, scfg)
+    u = S.draw_u(cdf, scfg, gen)
+    dq = MicroBatchQueue(cs.cdf_probe_fn(), timer=False, path="decode")
+    torch.cuda.synchronize()
+    cs.cdf_search.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        futs = [dq.submit((cdf[a:b], u[a:b]), tenant=f"t{i}")
+                for i, (a, b) in enumerate(((0, 3), (3, 5), (5, 8)))]
+        dq.flush()
+        got = [f.result() for f in futs]
+        dq.drain_feedback()
+        toks = S.sample_queued(logits, scfg, dq, tenants=list("abcabcab"),
+                               generator=torch.Generator(cuda).manual_seed(9))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cs.cdf_search.launches == 2 and dq.stats.flushes == 2
+    assert torch.equal(torch.cat(got), cs.cdf_search(cdf, u))
+    want = S.sample(logits, scfg,
+                    generator=torch.Generator(cuda).manual_seed(9))
+    assert torch.equal(toks, want)

@@ -1,6 +1,7 @@
 """The port's serving stack against the reference: the CDF inversion
 (``kernels/cdf_search.py``, ``ops.topp_search``), the sampler, the prefix
-page store, the engine as a whole, and the launcher.
+page store, the engine as a whole, and the launcher (its count lines for
+the queue, tenant and telemetry flags are the reference launcher's).
 
 On the CPU the port's inversion is its plain version; it must be
 bit-identical to the reference's Pallas kernel (interpret mode), its jnp
@@ -12,7 +13,9 @@ counts, store stats and the mutable store's write-path counters must be
 identical."""
 import contextlib
 import io
+import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -32,13 +35,15 @@ from repro.serve import ServeEngine as RefServeEngine
 from repro.serve import kv_cache as ref_kv
 from repro.serve import sampler as ref_sampler
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core import IndexConfig
+from repro_torch.engine.queue import MicroBatchQueue, tenant_summary
 from repro_torch.kernels import cdf_search as pt_cdf
 from repro_torch.kernels import ops as pt_ops
 from repro_torch.launch import serve as pt_launch
 from repro_torch.models import transformer as pt_T
-from repro_torch.serve import EngineStats, SamplerConfig, ServeEngine
+from repro_torch.serve import SamplerConfig, ServeEngine
 from repro_torch.serve import kv_cache as pt_kv
 from repro_torch.serve import sampler as pt_sampler
 
@@ -166,8 +171,12 @@ def test_sample_greedy_and_nucleus_membership():
     _, cdf = pt_sampler.nucleus_cdf(t(logits), cfg)
     u = pt_sampler.draw_u(cdf, cfg, torch.Generator().manual_seed(3))
     assert bool(((u >= 1e-6 * 0.8 * 0.99) & (u < 0.8)).all())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt_sampler.sample_queued(t(logits), cfg, None)
+    # the decode queue gives the inline sampler's tokens, one flush a call
+    q = MicroBatchQueue(pt_cdf.cdf_probe_fn(), timer=False, path="decode")
+    queued = pt_sampler.sample_queued(t(logits), cfg, q,
+                                      generator=torch.Generator()
+                                      .manual_seed(1))
+    assert torch.equal(queued, toks) and q.stats.flushes == 1
 
 
 # ------------------------------------------------------------- prefix store
@@ -289,11 +298,24 @@ def test_prefix_store_save_restore_matches_reference(tmp_path, mutable):
 
 
 def test_prefix_store_unported_surface_raises():
+    """Per-tenant probes (once unported) answer as the untenanted ones,
+    on the tenants' lanes of the store's probe queue, as the reference's
+    store does."""
     default = pt_kv.PrefixPageStore(8, device="cpu")  # the mutable default
     assert default.index_config.mutable and default.index_stats == {}
-    store = pt_kv.PrefixPageStore(8, IndexConfig(**WHOLESALE), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        store.lookup_batch([np.arange(8)], tenants=["a"])
+    prompts = [np.arange(8), np.arange(16), np.arange(3)]
+    stores = [pt_kv.PrefixPageStore(8, IndexConfig(**WHOLESALE),
+                                    device="cpu"),
+              ref_kv.PrefixPageStore(8, RefIndexConfig(**WHOLESALE))]
+    for store in stores:
+        store.insert(np.arange(16), [{"pay": 0}, {"pay": 1}])
+        plain = store.lookup_batch(prompts)
+        tenanted = store.lookup_batch(prompts, tenants=["a", "b", "a"])
+        assert [n for n, _ in plain] == [n for n, _ in tenanted] == [1, 2, 0]
+    q = stores[0].probe_queue()
+    assert set(q.stats.tenants) == {"default", "a", "b"}
+    assert q.stats.flushes == 2              # one a lookup_batch
+    assert stores[0].stats == stores[1].stats
 
 
 # ------------------------------------------------------------- the engine
@@ -392,21 +414,40 @@ def test_engine_sampled_decode_stays_in_nucleus(engines):
 
 
 def test_engine_unported_surface_raises(engines):
+    """The decode queue, the default, serves (once unported): with and
+    without tenants its sampled tokens are the inline sampler's for the
+    same generator, one decode flush a step, and EngineStats' views read
+    the flushes back from the registry."""
     cfg, pp, _, _ = engines
     default = ServeEngine(cfg, pp)                    # the mutable default
     assert default.store.index_config == IndexConfig(kind="tiered",
                                                      plan="device",
                                                      mutable=True)
-    queued = ServeEngine(cfg, pp, index_config=IndexConfig(**WHOLESALE),
-                         sampler=SamplerConfig(temperature=0.8))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        queued.generate([np.arange(8)], 2)
+    assert default.decode_batching
+    prompts = [np.arange(8), np.arange(5, 17) % cfg.vocab]
+    scfg = SamplerConfig(temperature=0.8)
+    inline = ServeEngine(cfg, pp, index_config=IndexConfig(**WHOLESALE),
+                         sampler=scfg, decode_batching=False)
+    want = inline.generate(prompts, 3,
+                           generator=torch.Generator().manual_seed(5))
+    for tenants in (None, ["a", "b"]):
+        with obs.use_registry() as reg:
+            queued = ServeEngine(cfg, pp,
+                                 index_config=IndexConfig(**WHOLESALE),
+                                 sampler=scfg)
+            got = queued.generate(prompts, 3, tenants=tenants,
+                                  generator=torch.Generator().manual_seed(5))
+            assert torch.equal(got, want)
+            st = queued.stats
+            assert st.decode_flushes == 3 and st.decode_occupancy > 0
+            assert st.probe_batches == 0 and st.probe_occupancy == 0.0
+            rows = st.tenants
+            assert sum(r.queries for k, r in rows.items()
+                       if k[0] == "decode") == 6
+            assert {k[1] for k in rows} == set(tenants or ["default"])
+            assert reg.total("queue_flushes", path="decode") == 3
     with pytest.raises(ValueError, match="one id per prompt"):
         queued.generate([np.arange(8)], 2, tenants=["a", "b"])
-    for view in ("probe_batches", "probe_occupancy", "decode_flushes",
-                 "decode_occupancy", "tenants"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(EngineStats(), view)
 
 
 # ------------------------------------------------------------- the launcher
@@ -481,24 +522,79 @@ def test_launcher_saves_and_restores_with_the_reference_lines(
 
 
 @pytest.mark.parametrize("argv,item", [
-    ((), "item 9"), (("--wholesale",), "item 9"),
     (("--wholesale", "--no-decode-queue", "--index", "css"), "item 12"),
-    (("--wholesale", "--no-decode-queue", "--tenants", "2"), "item 9"),
-    (("--wholesale", "--no-decode-queue", "--metrics-port", "0"),
-     "item 10"),
     (("--wholesale", "--no-decode-queue", "--tuned-profile", "auto"),
      "item 11"),
-    (("--wholesale", "--no-decode-queue", "--queue-capacity", "16"),
-     "item 9"),
-    (("--wholesale", "--no-decode-queue", "--queue-deadline-us", "500"),
-     "item 9"),
-    (("--wholesale", "--no-decode-queue", "--no-queue-adapt"), "item 9"),
-    (("--wholesale", "--no-decode-queue", "--queue-max-share", "0.5"),
-     "item 9"),
-    (("--wholesale", "--no-decode-queue", "--no-adaptive-deadline"),
-     "item 9"),
-    (("--wholesale", "--no-decode-queue", "--trace-out", "x"), "item 10"),
     (("--wholesale", "--no-decode-queue", "--tune"), "item 11")])
 def test_launcher_unported_flags_exit(monkeypatch, argv, item):
     with pytest.raises(SystemExit, match=item):
         run_launcher(monkeypatch, "--reduced", "--device", "cpu", *argv)
+
+
+# What the reference launcher prints (and its registry holds) for
+# ``--reduced --rounds 2 --steps 2`` plus each case's flags: probe-queue
+# and decode-queue flushes, prefix-store rebuilds, and per (path, tenant)
+# row (submits, queries, flushes, admitted, deferred). Round 1 probes an
+# empty store (no flush); round 2's 8 probes of 3 hashes go out as one
+# flush, or as a capacity flush of 5 and a demand flush of 3 at
+# --queue-capacity 16; each of the 4 sampled steps is one decode flush.
+ONE_TENANT = {("decode", "default"): (4, 32, 4, 32, 0),
+              ("probe", "default"): (8, 24, 1, 24, 0)}
+LAUNCHER_CASES = {
+    "default": ((), 1, 4, 0, ONE_TENANT),
+    "wholesale": (("--wholesale",), 1, 4, 9, ONE_TENANT),
+    "tenants": (("--tenants", "2"), 1, 4, 0, {
+        ("decode", "t0"): (4, 16, 4, 16, 0),
+        ("decode", "t1"): (4, 16, 4, 16, 0),
+        ("probe", "t0"): (4, 12, 1, 12, 0),
+        ("probe", "t1"): (4, 12, 1, 12, 0)}),
+    "capacity": (("--queue-capacity", "16"), 2, 4, 0, {
+        **ONE_TENANT, ("probe", "default"): (8, 24, 2, 24, 1)}),
+    "deadline": (("--queue-deadline-us", "500"), 1, 4, 0, ONE_TENANT),
+    "no_adapt": (("--no-queue-adapt",), 1, 4, 0, ONE_TENANT),
+    "max_share": (("--queue-max-share", "0.5"), 1, 4, 0, ONE_TENANT),
+    "no_adaptive_deadline": (("--no-adaptive-deadline",), 1, 4, 0,
+                             ONE_TENANT),
+    "metrics": (("--metrics-port", "0", "--metrics-selftest"), 1, 4, 0,
+                ONE_TENANT),
+    "trace": (("--trace-out", "TRACE"), 1, 4, 0, ONE_TENANT),
+}
+TENANT_ROW = re.compile(r"tenant\[(\w+):(\w+)\]: (\d+) queries / (\d+) "
+                        r"flushes, admitted (\d+), deferred (\d+), drops 0")
+
+
+@pytest.mark.parametrize("case", list(LAUNCHER_CASES))
+def test_launcher_queue_and_telemetry_flags_print_the_reference_lines(
+        monkeypatch, tmp_path, case):
+    """The flags that once exited as unported (the decode queue by
+    default, tenants, each probe-queue flag, the metrics server, the
+    trace) serve and print the reference launcher's count lines for the
+    same flags; times are not compared."""
+    flags, probe, decode, rebuilds, rows = LAUNCHER_CASES[case]
+    trace = str(tmp_path / "trace.json")
+    flags = tuple(trace if f == "TRACE" else f for f in flags)
+    with obs.use_registry() as reg:
+        out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                           "--rounds", "2", "--steps", "2", *flags)
+        submits = {(r.path, r.tenant): r.submits
+                   for r in tenant_summary(reg)}
+    assert "prefill computed/reused: 288/480" in out
+    assert (f"prefix store: {{'lookups': 23, 'hits': 15, 'rebuilds': "
+            f"{rebuilds}, 'verify_rejects': 0}}") in out
+    assert f"probe queue:  {probe} fused batches in " in out
+    assert f"decode queue: {decode} fused inversion batches, mean " \
+        "occupancy 1.000" in out
+    printed = {(m[0], m[1]): tuple(int(x) for x in m[2:])
+               for m in TENANT_ROW.findall(out)}
+    assert {k: (submits[k], *v) for k, v in printed.items()} == rows
+    if case == "metrics":
+        assert re.search(r"metrics: http://127\.0\.0\.1:\d+/metrics", out)
+        assert "series ok" in out
+    if case == "trace":
+        with open(trace) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+        assert {"serve.generate", "serve.probe_batch", "serve.prefill",
+                "serve.decode_step", "queue.flush", "store.lookup"} <= names
+        assert f"events -> {trace}" in out
+        obs.TRACER.disable()
+        obs.TRACER.clear()
