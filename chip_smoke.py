@@ -159,12 +159,40 @@ Phases, in order; any failure exits non-zero with its traceback:
         of both paths), a trace of probe-queue flushes exported as JSON
         (queue.flush, queue.dispatch, tiered.search spans), and phase 4's
         2^20-query lookup timed with metrics off and on, in turns;
- 14. one line {"kernels": [...]} with each kernel's launches, times
+ 14. specialization (IndexConfig(specialize=True)): the index bound into
+     CUDA graphs, beside the args posture on the same data and calls.
+     Every kernel that a capture records is held to its plain version on
+     the operands and output of the graph's replay; the counted runs are
+     under set_sync_debug_mode("error") with the launch counters set to 0
+     before and read after (a replay raises them by the kernels it holds).
+     a. the frozen index over phase 4's keys: 2^20 lookups and searches
+        bit for bit with phase 4's index and numpy, an earlier result
+        unchanged by a later replay; ms in turns, launches (the host's
+        runtime launch calls and the device's kernels, profiler), idle
+        share, capture ms, memory reserved; then the reference's §10.3
+        gate cells, tile {128, 256} x leaf_width {2048, 4096}: whether
+        the specialized search is no slower than args by more than 10% in
+        every cell and faster in one (printed, not checked);
+     b. phase 7's entry points at phase 7's shapes on that index, bit for
+        bit with phase 4's index, each in turns with it;
+     c. phase 10's eight write rounds on a specialize=True store in
+        lockstep with an args store: stats and 2^20 lookups equal every
+        round (found / values against numpy), the twin re-armed and a
+        graph captured at round 4's repack only; ms in turns, launches;
+     d. phase 13a's probe queue over that store: a first pass captures
+        the padded flush sizes, the counted pass captures none; every
+        caller's result against numpy and a direct lookup; the ms of the
+        submit that fills and flushes 2^16 queries;
+     e. autotune(smoke=True) at 2^24 keys and 2^16 queries into a
+        temporary directory, then verify_profile (checked ok), each leg
+        measured 32 times (the tuner's default is 8);
+ 15. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
      the scan kernels the store's launches, times and bound (phase 11),
-     for the CDF kernel its launches on the decode-queue runs; the last
+     for the CDF kernel its launches on the decode-queue runs, and for
+     kernels 1-4 their launches inside phase 14's replays; the last
      line {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -2941,6 +2969,528 @@ def telemetry_path(dev, rng, index, keys_sorted, registry) -> dict:
             "trace_spans": sorted(names), "lookup_ms": lookup_ms}
 
 
+# -------------------------------------------------------------- phase 14
+# Specialization (DESIGN.md §10): the index bound into CUDA graphs
+# (engine/capture.py), beside the args posture on the same data and the
+# same calls. The reference's §10.3 gate cells: tile x leaf_width.
+GATE_TILES = (128, 256)
+GATE_LEAF_WIDTHS = (None, 4096)          # None: the planner's 2048
+SPEC_TIMED_REPS = 15
+# Reps of each measured leg of the autotuner (its default is 8). The
+# lookup p50s of a sweep's trials span about three sqrt-2 buckets on the
+# card (host dispatch jitter, experiments/tune_verify_spread.py), and the
+# median of 8 once moved two buckets between a sweep and its verify, so
+# here the sweep and verify_profile take the median of 32 (the rule, 10%
+# or one bucket, is unchanged).
+TUNE_REPS = 32
+
+
+class ReplayRecorder:
+    """Inside the ``with``, every kernel call made while a CUDA graph is
+    being captured keeps its operands and its output: the tensors a graph
+    replay then reads and writes (they stay referenced, so the capture
+    reuses none of their memory). Calls outside a capture pass through
+    unrecorded. Patches the engine modules' kernel namespaces, not the
+    kernel modules (their wrappers count launches on their own function
+    objects)."""
+
+    SITES = (("tiered", "_page", "page_search_bucketed"),
+             ("tiered", "_kary", "kary_search_levels"),
+             ("scan", "_pscan", "page_scan_bucketed"),
+             ("groupby", "_pscan", "page_prefix_bucketed"))
+
+    def __init__(self):
+        self.calls = []
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        for mod_name, attr, fn_name in self.SITES:
+            mod = importlib.import_module(f"repro_torch.engine.{mod_name}")
+            real = getattr(mod, attr)
+            orig = getattr(real, fn_name)
+
+            def record(*args, _orig=orig, _name=fn_name, **kw):
+                out = _orig(*args, **kw)
+                if torch.cuda.is_current_stream_capturing():
+                    self.calls.append((_name, args, kw, out))
+                return out
+
+            self._saved.append((mod, attr, real))
+            setattr(mod, attr, types.SimpleNamespace(
+                **{**vars(real), fn_name: record}))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in reversed(self._saved):
+            setattr(mod, attr, real)
+        self._saved = []
+        return False
+
+
+def replayed_kernels_vs_plain(calls, what: str) -> dict:
+    """Each kernel recorded inside a capture, on the operands and with the
+    output of the graph's last replay, against its plain version: the
+    steps the plan used bit for bit (float sums to rtol 1e-4). Returns
+    per kernel the calls checked and the largest error."""
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_scan as ps
+    from repro_torch.kernels import page_search as pk
+    plain = {"page_search_bucketed": (pk.page_search_plain, -1),
+             "kary_search_levels": (kk.kary_search_plain, -1),
+             "page_scan_bucketed": (ps.page_scan_plain, 2),
+             "page_prefix_bucketed": (ps.page_prefix_plain, 1)}
+    torch.cuda.synchronize()
+    check(calls, f"{what}: no kernel was recorded inside a capture")
+    out = {}
+    for name, args, kw, got in calls:
+        fn, sum_at = plain[name]
+        steps = kw.get("steps_used")
+        want = fn(*args, **{k: v for k, v in kw.items()
+                            if k != "steps_used"})
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        used = int(steps) if steps is not None else got[0].shape[0]
+        worst = {"max_abs_err": 0, "float_sum_rel_err": 0.0}
+        compare_outputs(got, want, used, sum_at,
+                        f"{what}: {name} inside a replay", worst)
+        row = out.setdefault(name, {"calls": 0, "max_abs_err": 0})
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], worst["max_abs_err"])
+    return out
+
+
+def reset_launches() -> list:
+    from repro_torch.engine.capture import kernel_wrappers
+    ws = kernel_wrappers()
+    for w in ws:
+        w.launches = 0
+        if hasattr(w, "mode_launches"):
+            w.mode_launches = dict.fromkeys(w.mode_launches, 0)
+    return ws
+
+
+def read_launches(ws) -> dict:
+    return {w.__name__: w.launches for w in ws if w.launches}
+
+
+def same_fields(a, b, what: str) -> None:
+    """Two results (a tensor, a tuple, a LookupResult or a scan result)
+    equal field for field, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    if not isinstance(a, tuple):
+        names = list(vars(b))
+        a, b = ([getattr(x, f) for f in names] for x in (a, b))
+    for i, (x, y) in enumerate(zip(a, b)):
+        check((x is None) == (y is None), f"{what}: field {i} None-ness")
+        if y is not None:
+            check(x.dtype == y.dtype and torch.equal(x, y),
+                  f"{what}: field {i} differs from the args posture")
+
+
+def launch_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device kernels (count
+    and summed time) and the host's launch calls by runtime API name (a
+    graph replay is one cudaGraphLaunch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    api = {e.key: e.count for e in events
+           if e.key.startswith("cuda") and "Launch" in e.key
+           or e.key in ("cudaMemcpyAsync", "cudaMemsetAsync")}
+    return {"kernels_ms": sum(e.self_device_time_total for e in kernels)
+            / 1e3, "device_kernels": sum(e.count for e in kernels),
+            "host_launch_calls": api,
+            "host_launches": sum(api.values())}
+
+
+def in_turns(fns: dict, reps: int = SPEC_TIMED_REPS) -> dict:
+    """CUDA-event ms of each callable, in turns a, b, b, a (two medians
+    each)."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {k: [] for k in names}
+    for k in order:
+        out[k].append(cuda_ms(fns[k], reps=reps, warmup=2))
+    return out
+
+
+def spec_frozen_path(dev, rng, args_idx, keys_sorted, values_sorted) -> dict:
+    """14a: the frozen index built with specialize=True beside phase 4's
+    args index: 2^20 lookups replayed from one graph, bit for bit with the
+    args posture and numpy; the kernels inside the replay against their
+    plain versions; ms in turns, launches, idle share, capture cost and
+    memory; then the §10.3 gate cells."""
+    from repro_torch import IndexConfig, build_index
+    queries = rng.permutation(np.concatenate([
+        keys_sorted[rng.integers(0, N_KEYS, N_QUERIES // 2)],
+        rng.integers(I32.min + 1, I32.max - 1, N_QUERIES - N_QUERIES // 2
+                     ).astype(np.int32)]))
+    q_dev = torch.from_numpy(queries).to(dev)
+    t0 = time.perf_counter()
+    spec = build_index(keys_sorted, values_sorted,
+                       IndexConfig(kind="tiered", specialize=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(spec.impl.num_pages == args_idx.impl.num_pages, "layouts differ")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the capture empties the cache too
+    memory0 = [torch.cuda.memory_reserved(), torch.cuda.memory_allocated()]
+    with ReplayRecorder() as rec:
+        t0 = time.perf_counter()
+        first = spec.lookup(q_dev)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+    memory1 = [torch.cuda.memory_reserved(), torch.cuda.memory_allocated()]
+    kernels = replayed_kernels_vs_plain(rec.calls, "frozen lookup")
+    want = args_idx.lookup(q_dev)
+    same_fields(first, want, "frozen lookup (first call)")
+    spec.search(q_dev)                        # captures the search graph
+    torch.cuda.synchronize()
+    ws = reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = spec.lookup(q_dev)
+        ranks = spec.search(q_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = read_launches(ws)
+    torch.cuda.synchronize()
+    check(launches == {"page_search_bucketed": 2, "kary_search_levels": 2},
+          f"frozen replays: launches {launches}")
+    same_fields(res, want, "frozen lookup")
+    same_fields(ranks, args_idx.search(q_dev), "frozen search")
+    check_lookup(res, oracle(keys_sorted, values_sorted, queries),
+                 "frozen specialized lookup")
+    # a later replay leaves an earlier result alone
+    keep = res.rank.clone()
+    spec.lookup(q_dev.flip(0).contiguous())
+    check(torch.equal(res.rank, keep), "a replay changed an earlier result")
+    times = in_turns({"args": lambda: args_idx.lookup(q_dev),
+                      "spec": lambda: spec.lookup(q_dev)})
+    search_times = in_turns({"args": lambda: args_idx.search(q_dev),
+                             "spec": lambda: spec.search(q_dev)})
+    prof = {k: launch_profile(fn) for k, fn in (
+        ("args", lambda: args_idx.lookup(q_dev)),
+        ("spec", lambda: spec.lookup(q_dev)))}
+    for k, p in prof.items():
+        p["idle_share"] = 1 - p["kernels_ms"] / min(times[k])
+    return {"build_s": build_s, "capture_ms": capture_ms,
+            "captures": spec.impl.captures.n,
+            "memory_reserved_allocated_before": memory0,
+            "memory_reserved_allocated_after": memory1,
+            "replayed_kernels": kernels, "launches": launches,
+            "lookup_ms": times, "search_ms": search_times,
+            "profile": prof}, spec
+
+
+def spec_gate(dev, rng, keys_sorted, values_sorted) -> dict:
+    """The reference's §10.3 cells: for tile x leaf_width, the search
+    dispatch of the args and the specialized index on the same 2^20
+    queries, in turns; whether the specialized one is no slower than args
+    by more than 10% in every cell and faster in one (a finding, not a
+    gate here)."""
+    from repro_torch import IndexConfig, build_index
+    q_dev = torch.from_numpy(rng.permutation(np.concatenate([
+        keys_sorted[rng.integers(0, N_KEYS, N_QUERIES // 2)],
+        rng.integers(I32.min + 1, I32.max - 1, N_QUERIES - N_QUERIES // 2
+                     ).astype(np.int32)]))).to(dev)
+    cells = []
+    for tile in GATE_TILES:
+        for lw in GATE_LEAF_WIDTHS:
+            pair = {s: build_index(keys_sorted, values_sorted, IndexConfig(
+                kind="tiered", tile=tile, leaf_width=lw, specialize=s))
+                for s in (False, True)}
+            same_fields(pair[True].search(q_dev), pair[False].search(q_dev),
+                        f"gate cell tile={tile} leaf_width={lw}")
+            t = in_turns({"args": lambda: pair[False].search(q_dev),
+                          "spec": lambda: pair[True].search(q_dev)})
+            a, s = float(np.median(t["args"])), float(np.median(t["spec"]))
+            cells.append({"tile": tile,
+                          "leaf_width": pair[True].impl.leaf_width,
+                          "num_pages": pair[True].impl.num_pages,
+                          "args_ms": t["args"], "spec_ms": t["spec"],
+                          "spec_over_args": s / a})
+            del pair
+    ratios = [c["spec_over_args"] for c in cells]
+    return {"cells": cells,
+            "holds": bool(max(ratios) <= 1.10 and min(ratios) < 1.0)}
+
+
+def spec_scan_path(dev, rng, args_idx, spec_idx, ks) -> dict:
+    """14b: phase 7's entry points at phase 7's shapes on the specialized
+    index, bit for bit with the args posture; the kernels inside each
+    replay against their plain versions; a counted run under sync-debug
+    "error"; each entry's ms in turns."""
+    lo, hi = scan_ranges(rng, ks, N_RANGES)
+    ranges = multi_ranges(rng, ks, N_MULTI, MULTI_R)
+    lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
+    r_d = torch.from_numpy(ranges).to(dev)
+    calls = scan_calls(spec_idx, lo_d, hi_d, r_d)
+    args_calls = scan_calls(args_idx, lo_d, hi_d, r_d)
+    t0 = time.perf_counter()
+    with ReplayRecorder() as rec:
+        for fn in calls.values():               # one capture each
+            fn()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    kernels = replayed_kernels_vs_plain(rec.calls, "specialized scans")
+    ws = reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = {k: fn() for k, fn in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = read_launches(ws)
+    mode_launches = {w.__name__: dict(w.mode_launches) for w in ws
+                     if hasattr(w, "mode_launches")}
+    torch.cuda.synchronize()
+    check(all(v > 0 for m in mode_launches.values() for v in m.values())
+          and launches.get("kary_search_levels", 0) > 0,
+          f"specialized scans: launches {launches} {mode_launches}")
+    for k, fn in args_calls.items():
+        same_fields(res[k], fn(), f"specialized {k}")
+    times = {}
+    for k in calls:
+        t = in_turns({"args": args_calls[k], "spec": calls[k]}, reps=7)
+        times[k] = t
+    prof = {k: launch_profile(fn) for k, fn in (
+        ("args", args_calls["scan_range"]), ("spec", calls["scan_range"]))}
+    for k, p in prof.items():
+        p["idle_share"] = 1 - p["kernels_ms"] / min(times["scan_range"][k])
+    return {"capture_s": capture_s, "captures": spec_idx.impl.captures.n,
+            "replayed_kernels": kernels, "launches": launches,
+            "mode_launches": mode_launches,
+            "ms": times, "profile_scan_range": prof}
+
+
+def spec_store_path(dev, rng, keys_sorted, values_sorted) -> tuple:
+    """14c: phase 10's eight write rounds on a specialize=True store in
+    lockstep with an args store over phase 4's 2^24 keys: lookups equal
+    every round (and found / values equal numpy), the capture count rising
+    at round 4's repack only; the kernels inside each capture's replay
+    against their plain versions; then ms in turns and launches."""
+    from repro_torch import IndexConfig, build_index
+    stores = {s: build_index(keys_sorted, values_sorted, IndexConfig(
+        kind="tiered", mutable=True, specialize=s)) for s in (False, True)}
+    spec, args = stores[True], stores[False]
+    ok, ov = keys_sorted, values_sorted
+    rounds, kernels = [], {}
+    reserved = []
+    for r in range(STORE_ROUNDS):
+        new_k = fresh_keys(rng, ok, I32.min + 1, I32.max - 1, STORE_NEW)
+        pick = rng.choice(ok.size, STORE_UPSERTS + STORE_DELETES,
+                          replace=False)
+        up_k, del_k = ok[pick[:STORE_UPSERTS]], ok[pick[STORE_UPSERTS:]]
+        ins_k = rng.permutation(np.concatenate([new_k, up_k]))
+        ins_v = rng.integers(I32.min + 1, I32.max, ins_k.size,
+                             dtype=np.int64).astype(np.int32)
+        twin = spec._spec_fused
+        for s in (args, spec):
+            for h in (0, 1):
+                ih = slice(h * ins_k.size // 2, (h + 1) * ins_k.size // 2)
+                dh = slice(h * del_k.size // 2, (h + 1) * del_k.size // 2)
+                s.insert(ins_k[ih], ins_v[ih])
+                s.delete(del_k[dh])
+            s.maintain()
+        ok, ov = store_oracle_write(ok, ov, ins_k, ins_v, del_k)
+        written = np.concatenate([ins_k, del_k])
+        if r == STORE_SPLIT_ROUND:
+            for s in (args, spec):
+                s.flush()
+            b = spec.base
+            p = b.num_pages // 2
+            split_k = fresh_keys(rng, ok, int(b.seps[p - 1]) + 1,
+                                 int(b.seps[p]), STORE_SPLIT_KEYS)
+            split_v = np.arange(split_k.size, dtype=np.int32)
+            for s in (args, spec):
+                s.insert(split_k, split_v)
+                s.flush()
+            ok, ov = store_oracle_write(ok, ov, split_k, split_v,
+                                        split_k[:0])
+            written = np.concatenate([written, split_k])
+            check(spec.stats["splits"] > 0, "round 4 did not repack")
+        check(spec.stats == args.stats, f"round {r}: stats differ")
+        check((spec._spec_fused is twin) == (r != STORE_SPLIT_ROUND),
+              f"round {r}: the twin was re-armed outside a repack")
+        half, quarter = N_QUERIES // 2, N_QUERIES // 4
+        q = rng.permutation(np.concatenate([
+            ok[rng.integers(0, ok.size, half)],
+            written[rng.integers(0, written.size, quarter)],
+            rng.integers(I32.min + 1, I32.max - 1, quarter,
+                         dtype=np.int64).astype(np.int32)]))
+        q_dev = torch.from_numpy(q).to(dev)
+        caps0 = spec.captures.n
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        with ReplayRecorder() as rec:
+            spec.lookup(q_dev)                 # captures when re-armed
+        if rec.calls:
+            reserved.append([before, torch.cuda.memory_reserved()])
+            for k, v in replayed_kernels_vs_plain(
+                    rec.calls, f"store round {r}").items():
+                row = kernels.setdefault(k, {"calls": 0, "max_abs_err": 0})
+                row["calls"] += v["calls"]
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         v["max_abs_err"])
+        torch.cuda.synchronize()
+        ws = reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = spec.lookup(q_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = read_launches(ws)
+        check(launches == {"page_search_bucketed": 1,
+                           "kary_search_levels": 1},
+              f"round {r}: specialized store launches {launches}")
+        same_fields(res, args.lookup(q_dev), f"store round {r}")
+        pos = np.minimum(np.searchsorted(ok, q), ok.size - 1)
+        found = res.found.cpu().numpy()
+        check(np.array_equal(found, ok[pos] == q), f"round {r}: found")
+        check(np.array_equal(res.values.cpu().numpy()[found],
+                             ov[pos][found]), f"round {r}: values")
+        rounds.append({"round": r, "captures": spec.captures.n,
+                       "new_captures": spec.captures.n - caps0,
+                       "num_pages": spec.base.num_pages,
+                       "derives": spec.base.derives,
+                       "merges": spec.stats["merges"],
+                       "splits": spec.stats["splits"]})
+    caps = [x["captures"] for x in rounds]
+    check(caps[:STORE_SPLIT_ROUND] == [1] * STORE_SPLIT_ROUND
+          and caps[STORE_SPLIT_ROUND:]
+          == [2] * (STORE_ROUNDS - STORE_SPLIT_ROUND),
+          f"captures by round {caps}: not only at round 4's repack")
+    times = in_turns({"args": lambda: args.lookup(q_dev),
+                      "spec": lambda: spec.lookup(q_dev)})
+    prof = {k: launch_profile(fn) for k, fn in (
+        ("args", lambda: args.lookup(q_dev)),
+        ("spec", lambda: spec.lookup(q_dev)))}
+    for k, p in prof.items():
+        p["idle_share"] = 1 - p["kernels_ms"] / min(times[k])
+    args.close()
+    del args, stores
+    return {"rounds": rounds, "replayed_kernels": kernels,
+            "launches": launches,
+            "memory_reserved_around_captures": reserved,
+            "lookup_ms": times, "profile": prof}, spec, ok, ov
+
+
+def spec_queue_path(dev, rng, store, ok, ov) -> dict:
+    """14d: phase 13a's probe queue over the specialized store: a first
+    pass captures each padded flush size; the second pass (the counted
+    one, under sync-debug "error") captures nothing, and every caller's
+    result equals a direct lookup of its queries and numpy; then the ms
+    of the submit that fills and flushes 2^16 queries."""
+    subs = queue_submits(rng, ok)
+    names = list(QUEUE_TENANTS)
+    caps0 = store.captures.n
+    with ReplayRecorder() as rec:
+        q = make_probe_queue(store)
+        futs = [q.submit(s, tenant=names[i % len(names)])
+                for i, s in enumerate(subs)]
+        q.flush()
+        [f.result() for f in futs]
+    kernels = replayed_kernels_vs_plain(rec.calls, "probe-queue flushes")
+    caps1 = store.captures.n
+    torch.cuda.synchronize()
+    q = make_probe_queue(store)
+    ws = reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        futs = [q.submit(s, tenant=names[i % len(names)])
+                for i, s in enumerate(subs)]
+        q.flush()
+        results = [f.result() for f in futs]
+        q.drain_feedback()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = read_launches(ws)
+    torch.cuda.synchronize()
+    st = q.stats
+    check(store.captures.n == caps1, "the counted pass captured again")
+    check(launches.get("page_search_bucketed") == st.flushes,
+          f"queue: {launches} launches in {st.flushes} flushes")
+    for sub, res in zip(subs, results):
+        pos = np.minimum(np.searchsorted(ok, sub), ok.size - 1)
+        found = res.found.cpu().numpy()
+        check(np.array_equal(found, ok[pos] == sub), "queue: found")
+        check(np.array_equal(res.values.cpu().numpy()[found],
+                             ov[pos][found]), "queue: values")
+    for sub, res in zip(subs[:16], results[:16]):
+        same_fields(res, store.lookup(torch.from_numpy(sub).to(dev)),
+                    "queue caller vs a direct lookup")
+    tq = make_probe_queue(store, min_flush=QUEUE_CAPACITY, adapt=False)
+    batch = subs[:QUEUE_CAPACITY // QUEUE_SUBMIT_Q]
+
+    def fill():
+        for i, sub in enumerate(batch[:-1]):
+            tq.submit(sub, tenant=names[i % len(names)])
+        return tq.submit(batch[-1], tenant=names[-1])
+
+    fill().result()
+    torch.cuda.synchronize()
+    flush_ms = []
+    for _ in range(QUEUE_TIMED_REPS):
+        for i, sub in enumerate(batch[:-1]):
+            tq.submit(sub, tenant=names[i % len(names)])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tq.submit(batch[-1], tenant=names[-1])
+        end.record()
+        end.synchronize()
+        flush_ms.append(start.elapsed_time(end))
+    q_dev = torch.from_numpy(np.concatenate(batch)).to(dev)
+    return {"flushes": st.flushes, "mean_batch": st.mean_batch,
+            "flush_at_end": q.flush_at,
+            "captures_first_pass": caps1 - caps0,
+            "captures_counted_pass": store.captures.n - caps1,
+            "replayed_kernels": kernels, "launches": launches,
+            "flush_ms_median": float(np.median(flush_ms)),
+            "flush_ms": flush_ms,
+            "lookup_2e16_ms": cuda_ms(lambda: store.lookup(q_dev))}
+
+
+def spec_autotune_path(dev) -> dict:
+    """14e: the autotuner's smoke sweep at 2^24 keys and 2^16 queries into
+    a temporary profile directory, then verify_profile, each leg
+    measured TUNE_REPS times."""
+    import tempfile
+    from repro_torch.engine import schedule
+    from repro_torch.tune import autotune, verify_profile
+    prev = schedule.set_plan_thresholds()
+    d = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        t0 = time.perf_counter()
+        prof, path = autotune(smoke=True, n=N_KEYS, q_n=1 << 16,
+                              reps=TUNE_REPS, profile_dir=d)
+        tune_s = time.perf_counter() - t0
+        v = verify_profile(prof, profile_dir=d, n=N_KEYS, q_n=1 << 16,
+                           reps=TUNE_REPS)
+    finally:
+        schedule.set_plan_thresholds(**prev)
+        shutil.rmtree(d, ignore_errors=True)
+    check(v["ok"], f"verify_profile: {v}")
+    return {"tune_s": tune_s, "knobs": prof.knobs,
+            "device_kind": prof.device_kind, "backend": prof.backend,
+            "objective": prof.objective,
+            "trials": [{"knobs": t["knobs"], "score": t["score"],
+                        **{p: t["objective"][p] for p in
+                           ("lookup", "scan", "flush")}}
+                       for t in prof.trials],
+            "verify": v}
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -3022,6 +3572,25 @@ def main() -> int:
     print("phase 13b: decode queue " + json.dumps(decode13), flush=True)
     print("phase 13c: telemetry " + json.dumps(telemetry_path(
         dev, rng, imm_idx, keys_sorted, tenant_reg)), flush=True)
+    del store
+    frozen14, spec_idx = spec_frozen_path(dev, rng, imm_idx, keys_sorted,
+                                          values_sorted)
+    print("phase 14a: specialized lookup " + json.dumps(frozen14),
+          flush=True)
+    scan14 = spec_scan_path(dev, rng, imm_idx, spec_idx, keys_sorted)
+    print("phase 14b: specialized scans " + json.dumps(scan14), flush=True)
+    del spec_idx
+    gate14 = spec_gate(dev, rng, keys_sorted, values_sorted)
+    print("phase 14a: gate cells " + json.dumps(gate14), flush=True)
+    store14, spec_store, sok, sov = spec_store_path(dev, rng, keys_sorted,
+                                                    values_sorted)
+    print("phase 14c: specialized store " + json.dumps(store14), flush=True)
+    queue14 = spec_queue_path(dev, rng, spec_store, sok, sov)
+    print("phase 14d: probe queue on it " + json.dumps(queue14), flush=True)
+    spec_store.close()
+    del spec_store
+    print("phase 14e: autotune " + json.dumps(spec_autotune_path(dev)),
+          flush=True)
     for row, key in zip(rows, ("page", "kary")):
         checks = store_main["kernel_checks"]
         row["store_launches_per_lookup"] = store_main["launches"][row["name"]]
@@ -3038,6 +3607,22 @@ def main() -> int:
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "library_device_ms",
             "steps_used", "grid", "pages_touched", "items")}
+    for row in rows:                     # inside graph replays (phase 14)
+        n = row["name"]
+        row["specialized"] = {
+            "lookup_and_search_launches": frozen14["launches"][n],
+            "store_lookup_launches": store14["launches"][n],
+            "probe_queue_launches": queue14["launches"].get(n, 0),
+            "probe_queue_flushes": queue14["flushes"],
+            "max_abs_err_in_replays": max(
+                d["replayed_kernels"].get(n, {"max_abs_err": 0})
+                ["max_abs_err"] for d in (frozen14, store14, queue14))}
+    for row in scan_rows:
+        n, mode = row["name"].rstrip("]").split("[")
+        row["specialized"] = {
+            "launches": scan14["mode_launches"][n][mode],
+            "max_abs_err_in_replays":
+                scan14["replayed_kernels"][n]["max_abs_err"]}
     cdf_row["decode_queue_launches"] = {
         k: {"launches": v["cdf_launches"], "flushes": v["decode_flushes"]}
         for k, v in decode13["runs"].items() if k != "inline"}

@@ -10,10 +10,13 @@
     store.save(ckpt_dir); store = restore_index(ckpt_dir)
 
 ``build_index`` places the index on the CUDA card unless the caller passes
-``device``; without a card it raises unless ``device="cpu"``. Kinds,
-options and methods that are not ported yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them; none falls back to something
-else.
+``device``; without a card it raises unless ``device="cpu"``. With
+``IndexConfig(specialize=True)`` the built index is bound into its
+dispatches (DESIGN.md §10): CUDA graphs on the card, one per batch shape
+(``engine/capture.py``). ``IndexConfig.from_tuned`` reads a profile the
+autotuner persisted (``repro_torch.tune``). Kinds, options and methods
+that are not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item that brings them; none falls back to something else.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from ..engine import scan, tiered
+from ..engine.capture import Specialized
+from ..obs import timed_op
 from .util import as_queries, not_ported, resolve_device
 
 KINDS = ("binary", "css", "kary", "fast", "nitrogen", "tiered")
@@ -110,9 +115,24 @@ class IndexConfig:
                 f"{self.queue_max_backlog}")
 
     @classmethod
-    def from_tuned(cls, platform: Optional[str] = None, **overrides):
-        raise not_ported("IndexConfig.from_tuned",
-                         "item 11 (specialization and autotune)")
+    def from_tuned(cls, platform: Optional[str] = None, *,
+                   profile_dir: Optional[str] = None,
+                   **overrides) -> "IndexConfig":
+        """Config from a persisted autotuner profile (``repro_torch.tune``):
+        ``tuned_<platform>.json`` under ``src/repro_torch/configs/`` (or
+        ``profile_dir``) supplies tile / leaf_width / queue knobs /
+        specialize; ``platform=None`` resolves to "gpu" with a card, else
+        "cpu". The module-global plan threshold the profile carries
+        (``histogram_max_pages``) is applied to ``engine.schedule`` as a
+        side effect: it is machine-wide, not per-config. Keyword
+        ``overrides`` win over the profile's knobs."""
+        from ..tune.profile import load_profile
+        prof = load_profile(platform, profile_dir=profile_dir)
+        kw = prof.config_kwargs()
+        kw.update(overrides)
+        cfg = cls(**kw)
+        prof.apply_thresholds()
+        return cfg
 
 
 @dataclass(frozen=True)
@@ -135,13 +155,37 @@ class Index:
 
     def lookup(self, queries) -> LookupResult:
         q = as_queries(queries, self.keys_sorted)
-        rank = self.search(q)
+        if self.impl.search_spec is None:
+            rank = self.search(q)
+            return LookupResult(rank, *self._resolve(q, rank))
+        # specialized: the search and the found / values gathers bound
+        # into one dispatch (one graph replay on the card); it records the
+        # search op as tiered.search does
+        with timed_op("tiered.search", "search", n=int(q.shape[0])):
+            return LookupResult(*self._spec_lookup()(q))
+
+    def _resolve(self, q, rank):
+        """(found, values) of searchsorted-left ranks."""
         safe = rank.clamp_max(self.n - 1).long()
         found = (rank < self.n) & (self.keys_sorted[safe] == q)
         vals = None
         if self.values_sorted is not None:
             vals = self.values_sorted[safe]
-        return LookupResult(rank=rank, found=found, values=vals)
+        return found, vals
+
+    def _spec_lookup(self):
+        fn = getattr(self, "_spec_lookup_fn", None)
+        if fn is None:
+            impl = self.impl
+            pipeline, pages = impl.search_raw, impl.pages
+
+            def lookup(q):
+                rank = pipeline(q, pages)
+                return (rank, *self._resolve(q, rank))
+            fn = Specialized(lookup, device=pages.device,
+                             captures=impl.captures)
+            object.__setattr__(self, "_spec_lookup_fn", fn)
+        return fn
 
     def search_range(self, lo, hi) -> tuple:
         """Range query: for each pair, the half-open rank interval
@@ -211,9 +255,6 @@ def check_ported(config: IndexConfig) -> None:
     if config.kind not in PORTED_KINDS:
         raise not_ported(f"kind={config.kind!r}",
                          "item 12 (the other index kinds)")
-    if config.specialize:
-        raise not_ported("IndexConfig(specialize=True)",
-                         "item 11 (specialization and autotune)")
 
 
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
@@ -238,7 +279,7 @@ def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
         vals = torch.from_numpy(values[order]).to(device)
     c = config
     impl = tiered.build(srt, leaf_width=c.leaf_width, tile=c.tile, top=c.top,
-                        plan=c.plan, device=device)
+                        plan=c.plan, device=device, specialize=c.specialize)
     return Index(config=c, impl=impl, keys_sorted=torch.from_numpy(srt)
                  .to(device), values_sorted=vals, n=int(srt.size))
 
@@ -273,7 +314,8 @@ def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(
     return Index(
         config=config,
         impl=tiered.from_reference_arrays(dict(state, plan=config.plan),
-                                          device=device),
+                                          device=device,
+                                          specialize=config.specialize),
         keys_sorted=torch.from_numpy(srt).to(device),
         values_sorted=None if vals is None else torch.from_numpy(
             np.array(vals)).to(device),

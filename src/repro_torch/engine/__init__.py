@@ -2,7 +2,8 @@
 # sort-and-bucket schedule (host numpy plan and its device twin), the
 # single-device tiered engine behind IndexConfig(kind="tiered"), its
 # range scans and grouped analytics (scan, groupby), and the mutable store
-# behind IndexConfig(mutable=True) with its delta buffer (store, delta).
+# behind IndexConfig(mutable=True) with its delta buffer (store, delta),
+# and specialization's binding of an index into CUDA graphs (capture).
 from .schedule import (BucketPlan, DevicePlan, bucket_plan,  # noqa: F401
                        device_plan, executed_occupancy, ladder_for,
                        ladder_grid, ladder_rungs, lane_arrays,

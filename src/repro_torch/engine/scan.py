@@ -32,8 +32,12 @@ pipelines are plain functions. Each entry point of :class:`TieredScanner`
 records the reference's ``scan.dispatch`` span and its
 ``engine_op_seconds`` / ``engine_ops`` (paths ``scan``, ``scan_groups``,
 ``scan_multi``); the span pipeline's stages carry ``obs.annotate``
-ranges while the tracer is enabled. Left out: the non-tiered kinds'
-``FlatAggregator`` (item 12) and the specialized index (item 11).
+ranges while the tracer is enabled. On an index built with
+``specialize=True`` each entry point's pipeline has the key / value
+pages and the ``ScanAux`` arrays bound in, the ranges its only arguments
+(a CUDA graph replay per shape on the card, ``engine/capture.py``); the
+store's scans keep their data as arguments, as the reference's do. Left
+out: the non-tiered kinds' ``FlatAggregator`` (item 12).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from ..kernels import page_scan as _pscan
 from ..kernels.page_scan import MODES, agg_identities
 from ..obs import annotate, timed_op
 from . import tiered as _tiered
+from .capture import Specialized
 from .schedule import ladder_grid, run_scheduled_multi, span_scan_plan
 
 VALUE_DTYPES = (np.dtype(np.int32), np.dtype(np.float32))
@@ -362,6 +367,13 @@ class TieredScanner:
             self.span_of, num_pages=P, tile=index.tile, key_dtype=kd,
             val_dtype=vd, mode=m) for m in MODES}
         self._makers = None
+        # specialization (DESIGN.md §10): on a specialize=True index each
+        # dispatch has the key / value pages and the aux arrays bound in,
+        # the scan twin of the point pipeline's bound pages. A frozen index
+        # never mutates, so the binding cannot go stale (the store's scans
+        # keep their operands as arguments: its aux changes per write)
+        self._spec = bool(index.specialize)
+        self._specs = {}              # dispatch key -> Specialized
 
     def _rank_raw(self, mode, lo, hi, kpages, vpages, aux):
         s = self._pipes[mode](lo, hi, kpages, vpages, aux)
@@ -401,22 +413,36 @@ class TieredScanner:
     def _operands(self):
         return self.index.pages, self.vpages, self.aux, self.values_dev
 
+    def _dispatch(self, key, fn: Callable, *queries):
+        """``fn(*queries, *operands)``; on a specialized index through the
+        dispatch bound to the operands under ``key`` (built on first use)."""
+        if not self._spec:
+            return fn(*queries, *self._operands())
+        spec = self._specs.get(key)
+        if spec is None:
+            ops = self._operands()
+            spec = self._specs[key] = Specialized(
+                lambda *qs: fn(*qs, *ops), device=self.index.pages.device,
+                captures=self.index.captures)
+        return spec(*queries)
+
     def scan_range(self, lo, hi, *, aggs=None,
                    materialize: Optional[int] = None) -> ScanResult:
         lo, hi = self._coerce(lo, hi)
         mode = mode_for_aggs(aggs, self.has_values)
         if materialize is None:
             with timed_op("scan.dispatch", "scan", mode=mode):
-                cnt, vs, mn, mx, r_lo, r_hi = self._agg(mode, lo, hi,
-                                                        *self._operands())
+                cnt, vs, mn, mx, r_lo, r_hi = self._dispatch(
+                    ("agg", mode),
+                    lambda *a: self._agg(mode, *a), lo, hi)
             return ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi,
                               vsum=vs, vmin=mn, vmax=mx)
         # materialize composes with the requested aggregates in the same
         # pass (aggs=("count",) for the lean locator-only form)
         K = int(materialize)
         with timed_op("scan.dispatch", "scan", mode=mode, materialize=K):
-            cnt, vs, mn, mx, r_lo, r_hi, ranks, vals, over = self._mat(
-                K, mode, lo, hi, *self._operands())
+            cnt, vs, mn, mx, r_lo, r_hi, ranks, vals, over = self._dispatch(
+                ("mat", K, mode), lambda *a: self._mat(K, mode, *a), lo, hi)
         return ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi, vsum=vs,
                           vmin=mn, vmax=mx, ranks=ranks, values=vals,
                           overflow=over)
@@ -468,7 +494,7 @@ class TieredScanner:
         mode = mode_for_aggs(aggs, self.has_values)
         mk_gagg, mk_gtopk, _ = self._group_makers()
         if top_k is None:
-            fn = mk_gagg(G, mode)
+            key, fn = ("groups", G, mode), mk_gagg(G, mode)
         else:
             K = int(top_k)
             if K < 1:
@@ -477,9 +503,9 @@ class TieredScanner:
                 raise ValueError("top_k needs an index built with values")
             C = max(int(candidates) if candidates is not None
                     else max(2 * K, 32), K)
-            fn = mk_gtopk(G, mode, K, C)
+            key, fn = ("topk", G, mode, K, C), mk_gtopk(G, mode, K, C)
         with timed_op("scan.dispatch", "scan_groups", mode=mode, groups=G):
-            out = fn(lo, hi, *self._operands())
+            out = self._dispatch(key, fn, lo, hi)
         names = ("edges", "r_edge", "count", "vsum", "vmin", "vmax",
                  "topk_values", "topk_ranks", "overflow")
         return _gb.GroupScanResult(**dict(zip(names, out)))
@@ -502,10 +528,11 @@ class TieredScanner:
         if R < 1:
             raise ValueError("ranges needs at least one range per query")
         mode = mode_for_aggs(aggs, self.has_values)
-        _, _, mk_magg = self._group_makers()
+        magg = self._group_makers()[2](R, op, mode)
         with timed_op("scan.dispatch", "scan_multi", mode=mode, op=op):
-            count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
-                r[..., 0], r[..., 1], *self._operands())
+            count, vsum, vmin, vmax, r_lo, r_hi = self._dispatch(
+                ("multi", R, op, mode),
+                lambda rr, *ops: magg(rr[..., 0], rr[..., 1], *ops), r)
         return ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
                           vsum=vsum, vmin=vmin, vmax=vmax)
 

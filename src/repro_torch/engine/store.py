@@ -37,9 +37,16 @@ at the same boundaries. The executed plan's step count leaves a lookup
 through :meth:`MutableIndex.pop_plan_feedback`, whose thunk waits on a
 CUDA event instead of the stream.
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: a non-tiered base and its "flat" snapshot (item 12) and
-``specialize=True`` (item 11).
+**Specialization** (DESIGN.md §10): with ``specialize=True`` every
+derive (build, repack, restore) also arms ``_spec_fused``, the fused
+lookup with the base's key and value pages bound in; on the card it
+replays one CUDA graph per batch shape (``engine/capture.py``), the
+delta tiers copied into the graph's buffers when they change. Unlike the
+reference, a page-local fold or a value-row sync keeps it armed: the port
+rewrites base rows in place, so the bound pages stay the live ones.
+
+Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
+item: a non-tiered base and its "flat" snapshot (item 12).
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from . import delta as _delta
 from . import groupby as _gb
 from . import scan as _scan
 from . import tiered
+from .capture import Captures, Specialized
 from .schedule import executed_occupancy
 
 # Target page fill after a pack or split: the remaining (1-fill)·leaf_width
@@ -353,6 +361,8 @@ class MutableIndex:
         self._dirty_rows = set()      # pages with host-synced shadow values
         self._scan_fns = None         # scan fns per base structure
         self._scan_state = None       # (rev, ScanAux, tier views)
+        self.captures = Captures()    # specialized lookups armed / captured
+        self._spec_fused = None
         if keys.size:
             ks, vs = _dedup_last(keys, np.asarray(values, np.int32))
             if np.any(vs == TOMBSTONE):
@@ -392,8 +402,19 @@ class MutableIndex:
         the sealed tier is consulted, sealed before the base — and a
         tombstone anywhere reads as not-found. ``plan_steps`` is the
         executed device plan's step count (a 0-d device tensor), None
-        without a base."""
+        without a base.
+
+        With ``specialize=True`` it also (re-)arms ``self._spec_fused``:
+        the same lookup with the base's freshly derived key and value
+        pages bound in, the tiers still arguments. Armed only here, and
+        _make_lookup runs exactly at the derive boundaries (build, repack,
+        restore), so writes between derives never re-arm it. Unlike the
+        reference, which disarms it at every row scatter (its donation
+        deletes the bound buffers), the port writes base rows in place
+        (``_write_rows``, ``_ensure_scan``): the bound pages stay the live
+        ones and the twin stays armed."""
         probe_full = _delta.probe_full
+        self._spec_fused = None
 
         def overlay(q, bfound, bval, tiers):
             # tiers newest-first: [(dk, dv, dtb, dsp), ...]
@@ -427,6 +448,13 @@ class MutableIndex:
             found, val = overlay(q, bfound, bval, [(ak, av, atb, asp),
                                                    (sk, sv, stb, ssp)])
             return addr, found, val, steps
+        if self.config.specialize:
+            pages, vpages = self.base.dev_keys, self.base.dev_vals
+            # the tiers are replaced (never written in place) when they
+            # change, which is what operands= asks of them
+            self._spec_fused = Specialized(
+                lambda q, *tiers: fused(q, pages, vpages, *tiers),
+                device=self.device, captures=self.captures, operands=8)
         return fused
 
     # ---------------------------------------------------------------- write
@@ -555,6 +583,9 @@ class MutableIndex:
             self._dirty_rows.clear()
             self.stats["splits"] += info["splits"]
             self._fused = self._make_lookup()
+        # a page-local merge keeps the pipeline and the specialized twin:
+        # its rows were copied into the bound device pages in place (the
+        # reference disarms the twin here; its scatter donates them)
 
     def flush(self):
         """Force-fold everything (sealed, then active) into the base —
@@ -615,14 +646,18 @@ class MutableIndex:
             tiers = (ak, av, atb, asp, sk, sv, stb, ssp)
             q = as_queries(queries, ak)
             with timed_op("store.lookup", "lookup", n=int(q.shape[0])):
-                if self.base is not None:
-                    rank, found, vals, steps = self._fused(
-                        q, self.base.dev_keys, self.base.dev_vals, *tiers)
-                    self._last_plan = (int(q.shape[0]), steps,
-                                       self.base.tile, self.base.num_pages)
-                else:
+                if self.base is None:
                     rank, found, vals, _ = self._fused(q, *tiers)
                     self._last_plan = None
+                else:
+                    if self._spec_fused is not None:     # pages bound in
+                        out = self._spec_fused(q, *tiers)
+                    else:
+                        out = self._fused(q, self.base.dev_keys,
+                                          self.base.dev_vals, *tiers)
+                    rank, found, vals, steps = out
+                    self._last_plan = (int(q.shape[0]), steps,
+                                       self.base.tile, self.base.num_pages)
         return LookupResult(rank=rank, found=found, values=vals)
 
     def pop_plan_feedback(self):

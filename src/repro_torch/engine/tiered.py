@@ -20,6 +20,11 @@ Range queries (``search_range``) descend both endpoints of each range in
 one pass (``_make_span_of``) and run through the range-scan subsystem,
 ``engine/scan.py``.
 
+Specialization (DESIGN.md §10): ``build(..., specialize=True)`` also
+binds the pipeline to the built leaf pages (``search_spec``, the query
+batch its only argument), which ``search`` then dispatches; on the card
+that is a CUDA graph replay per batch shape (``engine/capture.py``).
+
 Tier sizing (``plan_tiers``) keeps the reference's arithmetic, so the
 layout matches it for every n. ``search`` records the reference's
 ``tiered.search`` span and its ``engine_op_seconds`` / ``engine_ops`` at
@@ -29,7 +34,7 @@ while the tracer is enabled.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -42,6 +47,7 @@ from ..kernels import ops
 from ..kernels import kary_search as _kary
 from ..kernels import page_search as _page
 from ..obs import annotate, timed_op
+from .capture import Captures, Specialized
 from .schedule import (BucketPlan, bucket_plan, device_plan, ladder_grid,
                        run_scheduled)
 
@@ -82,6 +88,10 @@ class TieredIndex:
     page_of: Callable            # q[batch] -> leaf-page id
     search_raw: Callable         # (q, pages) -> ranks, the device-plan pipeline
     plan: str = "device"         # default schedule placement
+    specialize: bool = False     # leaf pages bound into the dispatch
+    search_spec: Any = None      # q -> ranks over the bound pages
+    #                              (None unless built with specialize=True)
+    captures: Captures = field(default_factory=Captures)  # graphs / arms
 
 
 def _make_page_of_raw(top_kind: str, top, num_pages: int) -> Callable:
@@ -169,23 +179,34 @@ def build_top(seps: np.ndarray, *, top: str = "auto",
 
 def _assemble(pages: np.ndarray, seps: np.ndarray, *, n: int, leaf_width: int,
               tile: int, top_kind: str, top_idx, plan: str,
-              device: torch.device) -> TieredIndex:
+              device: torch.device, specialize: bool) -> TieredIndex:
     num_pages = int(pages.shape[0])
     page_of = _make_page_of_raw(top_kind, top_idx, num_pages)
+    pipeline = _make_pipeline(page_of, num_pages=num_pages,
+                              stride=leaf_width, tile=tile, clip=n)
+    pages_dev = torch.from_numpy(pages).to(device)
+    captures = Captures()
+    search_spec = None
+    if specialize:
+        # specialization mode (DESIGN.md §10): the same pipeline with the
+        # device leaf array bound in, so a dispatch takes the query batch
+        # alone. The frozen index never mutates, so the binding can never
+        # go stale; the mutable store's discipline is in engine/store.py.
+        search_spec = Specialized(lambda q: pipeline(q, pages_dev),
+                                  device=device, captures=captures)
     return TieredIndex(
-        pages=torch.from_numpy(pages).to(device),
+        pages=pages_dev,
         seps=torch.from_numpy(seps).to(device), n=n, leaf_width=leaf_width,
         lw_pad=int(pages.shape[1]), num_pages=num_pages, tile=tile,
         top_kind=top_kind, top=top_idx, page_of=page_of,
-        search_raw=_make_pipeline(page_of, num_pages=num_pages,
-                                  stride=leaf_width, tile=tile, clip=n),
-        plan=plan)
+        search_raw=pipeline, plan=plan, specialize=bool(specialize),
+        search_spec=search_spec, captures=captures)
 
 
 def build(keys, *, leaf_width: int | None = None, tile: int = 128,
           top: str = "auto", plan: str = "device",
           vmem_budget: int = ops.VMEM_BUDGET_BYTES,
-          device=None) -> TieredIndex:
+          device=None, specialize: bool = False) -> TieredIndex:
     if plan not in PLAN_MODES:
         raise ValueError(f"unknown plan mode {plan!r}; "
                          f"want one of {PLAN_MODES}")
@@ -203,15 +224,17 @@ def build(keys, *, leaf_width: int | None = None, tile: int = 128,
                                   device=device)
     return _assemble(pages, seps, n=n, leaf_width=lw, tile=int(tile),
                      top_kind=top_kind, top_idx=top_idx, plan=plan,
-                     device=device)
+                     device=device, specialize=specialize)
 
 
-def from_reference_arrays(state: dict, *, device) -> TieredIndex:
+def from_reference_arrays(state: dict, *, device,
+                          specialize: bool = False) -> TieredIndex:
     """The port's TieredIndex from the numpy form of a reference one:
     ``pages``, ``seps``, ``n``, ``leaf_width``, ``lw_pad``, ``num_pages``,
     ``tile`` and ``top_kind``, plus ``top_tree`` and ``top_level_offsets``
     when the top is k-ary (``plan`` optional, default "device"). A NitroGen
-    top is code, not data, so it is regenerated from ``seps``."""
+    top is code, not data, so it is regenerated from ``seps``.
+    ``specialize`` binds the pipeline to the pages, as ``build``'s."""
     device = resolve_device(device)
     pages = np.array(state["pages"])          # copies: torch wants writable
     seps = np.array(state["seps"])
@@ -232,7 +255,7 @@ def from_reference_arrays(state: dict, *, device) -> TieredIndex:
                      leaf_width=int(state["leaf_width"]),
                      tile=int(state["tile"]), top_kind=top_kind,
                      top_idx=top_idx, plan=str(state.get("plan", "device")),
-                     device=device)
+                     device=device, specialize=specialize)
 
 
 def _finish(q, pages, gather, valid, step_pages, *, leaf_width: int, n: int):
@@ -280,9 +303,13 @@ def search(index: TieredIndex, queries, *, plan: str | None = None
         ranks, _ = search_with_plan(index, queries)
         return ranks
     q = as_queries(queries, index.pages)
-    # dispatch-boundary timer: the pipeline returns once its kernels are
-    # issued, so observing it adds no sync
+    # dispatch-boundary timer: the pipeline (or the graph replay) returns
+    # once its kernels are issued, so observing it adds no sync. A
+    # specialized index dispatches on the query alone: the leaf pages are
+    # bound into search_spec, not passed.
     with timed_op("tiered.search", "search", n=int(q.shape[0])):
+        if index.search_spec is not None:
+            return index.search_spec(q)
         return index.search_raw(q, index.pages)
 
 

@@ -13,10 +13,14 @@ through the store's micro-batch queue and sampled decode steps through
 the decode queue unless ``--no-decode-queue``; ``--tenants N`` spreads
 the requests over N admission lanes. ``--metrics-port`` serves the
 metrics registry as Prometheus text on 127.0.0.1 and ``--trace-out``
-writes the run's spans as Chrome trace JSON. The flags and defaults are
-the reference's, and so are the prompts (``np.random.default_rng(0)``);
-weights are random, from the seed 0. Flags whose subsystem is not ported
-yet exit with the message naming the ROADMAP Queue 1 item that brings it.
+writes the run's spans as Chrome trace JSON. ``--tune`` runs the
+autotuner's smoke sweep first (``repro_torch.tune``) and serves with the
+profile it persists; ``--tuned-profile PLATFORM`` serves with a persisted
+one (``auto``: the current backend), the queue flags still winning. The
+flags and defaults are the reference's, and so are the prompts
+(``np.random.default_rng(0)``); weights are random, from the seed 0.
+Flags whose subsystem is not ported yet exit with the message naming the
+ROADMAP Queue 1 item that brings it.
 """
 from __future__ import annotations
 
@@ -43,8 +47,6 @@ def _unported(args) -> list:
     return [
         (args.index != "tiered", f"--index {args.index}",
          "item 12 (the other index kinds)"),
-        (args.tune or args.tuned_profile is not None,
-         "--tune/--tuned-profile", "item 11 (specialization and autotune)"),
     ]
 
 
@@ -116,8 +118,15 @@ def main():
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="record host tracing spans for the whole run and "
                          "dump Chrome/Perfetto trace_event JSON to FILE")
-    ap.add_argument("--tune", action="store_true")
-    ap.add_argument("--tuned-profile", default=None, metavar="PLATFORM")
+    ap.add_argument("--tune", action="store_true",
+                    help="run the platform autotuner micro-sweep first "
+                         "(repro_torch.tune), persist the tuned profile, "
+                         "then serve with it")
+    ap.add_argument("--tuned-profile", default=None, metavar="PLATFORM",
+                    help="serve with the persisted tuned profile for "
+                         "PLATFORM ('auto' = current backend); "
+                         "tile/leaf_width/queue knobs and specialize come "
+                         "from the profile, CLI queue flags still win")
     args = ap.parse_args()
     if args.restore and not args.ckpt_dir:
         ap.error("--restore requires --ckpt-dir")
@@ -152,15 +161,29 @@ def main():
                            device)
     print(f"arch={args.arch} params={T.param_count(params)/1e6:.1f}M "
           f"prefix-index={args.index} device={device}")
-    index_config = IndexConfig(
-        kind=args.index, levels=2, compiled_node_width=3,
-        mutable=not args.wholesale,
-        queue_capacity=args.queue_capacity,
-        queue_deadline_s=args.queue_deadline_us * 1e-6,
-        queue_adapt=not args.no_queue_adapt,
-        queue_max_share=args.queue_max_share,
-        queue_adaptive_deadline=not args.no_adaptive_deadline,
-        journal_fsync=args.fsync)
+    if args.tune:
+        from ..tune import autotune
+        prof, ppath = autotune(smoke=True, device=device)
+        print(f"autotuned: {prof.knobs} -> {ppath}")
+        if args.tuned_profile is None:
+            args.tuned_profile = prof.platform
+    index_kwargs = dict(kind=args.index, levels=2, compiled_node_width=3,
+                        mutable=not args.wholesale,
+                        queue_capacity=args.queue_capacity,
+                        queue_deadline_s=args.queue_deadline_us * 1e-6,
+                        queue_adapt=not args.no_queue_adapt,
+                        queue_max_share=args.queue_max_share,
+                        queue_adaptive_deadline=not args.no_adaptive_deadline,
+                        journal_fsync=args.fsync)
+    if args.tuned_profile is not None:
+        platform = None if args.tuned_profile == "auto" else \
+            args.tuned_profile
+        index_config = IndexConfig.from_tuned(platform, **index_kwargs)
+        print(f"tuned profile: tile={index_config.tile} "
+              f"leaf_width={index_config.leaf_width} "
+              f"specialize={index_config.specialize}")
+    else:
+        index_config = IndexConfig(**index_kwargs)
     eng = ServeEngine(
         cfg, params, max_len=args.max_len, page_size=args.page_size,
         index_config=index_config,

@@ -925,3 +925,126 @@ def test_decode_queue_flush_makes_no_sync_and_equals_the_kernel(cuda):
     want = S.sample(logits, scfg,
                     generator=torch.Generator(cuda).manual_seed(9))
     assert torch.equal(toks, want)
+
+
+# ------------------------------------------- specialization (CUDA graphs)
+def spec_pair(cuda, mutable: bool, **cfg):
+    """The same index specialized (graph replays) and not, on the card:
+    40,000 int32 keys at leaf_width 128, a k-ary top."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(41)
+    keys = np.unique(rng.integers(0, 10**8, 40_000).astype(np.int32))
+    vals = rng.integers(-10**6, 10**6, keys.size).astype(np.int32)
+    out = [build_index(keys, vals, IndexConfig(
+        kind="tiered", mutable=mutable, specialize=s, leaf_width=128, **cfg),
+        device=cuda) for s in (True, False)]
+    q = np.concatenate([keys[::9], rng.integers(0, 10**8, 3000)]
+                       ).astype(np.int32)
+    return out, keys, torch.from_numpy(q).to(cuda)
+
+
+def assert_fields_equal(a, b, what):
+    for f in vars(b):
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), (what, f)
+        if y is not None:
+            assert torch.equal(x, y), (what, f)
+
+
+@pytest.mark.cuda
+def test_graph_replays_equal_the_args_posture(cuda):
+    """Frozen lookups, searches and every scan kind, and the store's
+    lookups, replayed from CUDA graphs equal the args posture bit for bit;
+    the kernels launched inside the replays are counted."""
+    (spec, args), keys, q = spec_pair(cuda, mutable=False)
+    assert spec.impl.top_kind == "kary"
+    lo = q[:2048]
+    hi = lo + 50_000
+    ranges = torch.stack([lo.view(512, 4), hi.view(512, 4)], -1)
+    for rep in range(3):                      # capture, then replays
+        pk.page_search_bucketed.launches = kk.kary_search_levels.launches = 0
+        got = spec.lookup(q)
+        # the first call runs the warm-up and the first replay
+        assert pk.page_search_bucketed.launches == (2 if rep == 0 else 1)
+        assert kk.kary_search_levels.launches == (2 if rep == 0 else 1)
+        assert_fields_equal(got, args.lookup(q), "lookup")
+        assert torch.equal(spec.search(q), args.search(q))
+        for name, call in (
+                ("scan", lambda ix: ix.scan_range(lo, hi)),
+                ("mat", lambda ix: ix.scan_range(lo, hi, materialize=8)),
+                ("groups", lambda ix: ix.scan_groups(lo, hi, 8)),
+                ("topk", lambda ix: ix.scan_groups(lo, hi, 8, top_k=2)),
+                ("multi", lambda ix: ix.scan_multi(ranges, op="union"))):
+            assert_fields_equal(call(spec), call(args), name)
+    assert spec.impl.captures.n == 7          # one graph a dispatch shape
+    (sspec, sargs), _, _ = spec_pair(cuda, mutable=True, delta_capacity=256)
+    for s in (sspec, sargs):
+        s.insert(np.arange(5, 5000, 7, dtype=np.int32),
+                 np.arange(714, dtype=np.int32))
+        s.delete(keys[::50])
+    for _ in range(2):
+        assert_fields_equal(sspec.lookup(q), sargs.lookup(q), "store")
+    assert sspec.captures.n == 1
+
+
+@pytest.mark.cuda
+def test_replay_results_are_fresh_and_sync_free(cuda):
+    """A later replay never changes an earlier result (outputs are cloned
+    out of the graph), and warm replays, the tier copy-in and the feedback
+    drain make no host sync."""
+    (spec, _), keys, q = spec_pair(cuda, mutable=False)
+    (store, _), _, _ = spec_pair(cuda, mutable=True)
+    q2 = q.flip(0).contiguous()
+    q3 = torch.tensor([3, 5], device=cuda, dtype=torch.int32)
+    for ix in (spec, store):                  # capture every shape first
+        ix.lookup(q)
+    store.lookup(q3)
+    spec.scan_range(q[:512], q[:512])
+    store.insert(np.asarray([3, 5], np.int32), np.asarray([30, 50], np.int32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = spec.lookup(q)
+        b = store.lookup(q)
+        s1 = spec.scan_range(q[:512], q[:512] + 1000)
+        spec.lookup(q2)
+        store.lookup(q2)
+        spec.scan_range(q[:512] + 7, q[:512] + 9)
+        c = store.lookup(q3)            # the written tiers copied in
+        fb = store.pop_plan_feedback()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert 0 < fb() <= 1
+    assert c.values.tolist() == [30, 50]
+    want_a, want_b = spec.lookup(q), store.lookup(q)
+    assert_fields_equal(a, want_a, "frozen")
+    assert_fields_equal(b, want_b, "store")
+    assert_fields_equal(s1, spec.scan_range(q[:512], q[:512] + 1000), "scan")
+
+
+@pytest.mark.cuda
+def test_store_captures_after_a_fold_and_a_repack(cuda):
+    """The store's graph survives a page-local fold (rows are written in
+    place) with answers equal to the args store, and is captured again
+    only after a repack re-derives the base."""
+    (spec, args), keys, q = spec_pair(cuda, mutable=True, delta_capacity=64)
+    spec.lookup(q)
+    assert spec.captures.n == 1
+    rng = np.random.default_rng(43)
+    new = rng.integers(0, 10**8, 64).astype(np.int32)
+    for s in (spec, args):
+        s.insert(new, new % 1000)
+        s.flush()                             # page-local fold
+    assert spec.stats["merges"] == 1 and spec.stats["splits"] == 0
+    assert_fields_equal(spec.lookup(q), args.lookup(q), "after the fold")
+    assert spec.captures.n == 1
+    b = spec.base
+    p = b.num_pages // 2
+    crowd = np.arange(b.seps[p - 1] + 1, b.seps[p] + 1)[:300]
+    for s in (spec, args):
+        s.insert(crowd.astype(np.int32), np.arange(crowd.size))
+        s.flush()
+    assert spec.stats["splits"] >= 1
+    assert_fields_equal(spec.lookup(q), args.lookup(q), "after the repack")
+    assert spec.captures.n == 2

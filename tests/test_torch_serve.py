@@ -38,6 +38,7 @@ from repro.serve import sampler as ref_sampler
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core import IndexConfig
+from repro_torch.engine import schedule as pt_schedule
 from repro_torch.engine.queue import MicroBatchQueue, tenant_summary
 from repro_torch.kernels import cdf_search as pt_cdf
 from repro_torch.kernels import ops as pt_ops
@@ -46,6 +47,7 @@ from repro_torch.models import transformer as pt_T
 from repro_torch.serve import SamplerConfig, ServeEngine
 from repro_torch.serve import kv_cache as pt_kv
 from repro_torch.serve import sampler as pt_sampler
+from repro_torch.tune import profile as pt_profile
 
 torch.set_num_threads(1)
 
@@ -526,9 +528,36 @@ def test_launcher_saves_and_restores_with_the_reference_lines(
     (("--wholesale", "--no-decode-queue", "--tuned-profile", "auto"),
      "item 11"),
     (("--wholesale", "--no-decode-queue", "--tune"), "item 11")])
-def test_launcher_unported_flags_exit(monkeypatch, argv, item):
-    with pytest.raises(SystemExit, match=item):
-        run_launcher(monkeypatch, "--reduced", "--device", "cpu", *argv)
+def test_launcher_unported_flags_exit(monkeypatch, tmp_path, argv, item):
+    """--index other than tiered exits naming item 12. The item-11 flags
+    (once unported) serve, with the profile directory in tmp_path:
+    --tuned-profile raises FileNotFoundError naming the autotuner where no
+    profile was persisted, and --tune runs the autotuner's smoke sweep,
+    persists its profile and serves with it, printing the reference
+    launcher's lines."""
+    if item != "item 11":
+        with pytest.raises(SystemExit, match=item):
+            run_launcher(monkeypatch, "--reduced", "--device", "cpu", *argv)
+        return
+    monkeypatch.setattr(pt_profile, "default_profile_dir",
+                        lambda: str(tmp_path))
+    prev = pt_schedule.set_plan_thresholds()
+    try:
+        if "--tune" not in argv:
+            with pytest.raises(FileNotFoundError, match="autotune"):
+                run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                             *argv)
+            return
+        out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                           "--rounds", "2", "--steps", "2", *argv)
+    finally:
+        pt_schedule.set_plan_thresholds(**prev)
+    assert f"-> {tmp_path}/tuned_cpu.json" in out
+    assert re.search(r"tuned profile: tile=(128|256) leaf_width=None "
+                     r"specialize=True", out)
+    assert "prefill computed/reused: 288/480" in out
+    assert ("prefix store: {'lookups': 23, 'hits': 15, 'rebuilds': 9, "
+            "'verify_rejects': 0}") in out
 
 
 # What the reference launcher prints (and its registry holds) for
@@ -558,6 +587,7 @@ LAUNCHER_CASES = {
     "metrics": (("--metrics-port", "0", "--metrics-selftest"), 1, 4, 0,
                 ONE_TENANT),
     "trace": (("--trace-out", "TRACE"), 1, 4, 0, ONE_TENANT),
+    "tuned_profile": (("--tuned-profile", "testplat"), 1, 4, 0, ONE_TENANT),
 }
 TENANT_ROW = re.compile(r"tenant\[(\w+):(\w+)\]: (\d+) queries / (\d+) "
                         r"flushes, admitted (\d+), deferred (\d+), drops 0")
@@ -573,11 +603,29 @@ def test_launcher_queue_and_telemetry_flags_print_the_reference_lines(
     flags, probe, decode, rebuilds, rows = LAUNCHER_CASES[case]
     trace = str(tmp_path / "trace.json")
     flags = tuple(trace if f == "TRACE" else f for f in flags)
-    with obs.use_registry() as reg:
-        out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
-                           "--rounds", "2", "--steps", "2", *flags)
-        submits = {(r.path, r.tenant): r.submits
-                   for r in tenant_summary(reg)}
+    if case == "tuned_profile":
+        # a persisted profile with the default queue knobs, so the counts
+        # are the default case's; the store is specialized
+        monkeypatch.setattr(pt_profile, "default_profile_dir",
+                            lambda: str(tmp_path))
+        pt_profile.save_profile(pt_profile.TunedProfile(
+            platform="testplat", backend="cpu", device_kind="cpu",
+            knobs={"tile": 256, "leaf_width": 512,
+                   "histogram_max_pages": 16, "queue_min_flush": 64,
+                   "queue_deadline_s": 0.002, "specialize": True},
+            objective={}))
+    prev = pt_schedule.set_plan_thresholds()
+    try:
+        with obs.use_registry() as reg:
+            out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                               "--rounds", "2", "--steps", "2", *flags)
+            submits = {(r.path, r.tenant): r.submits
+                       for r in tenant_summary(reg)}
+    finally:
+        pt_schedule.set_plan_thresholds(**prev)
+    if case == "tuned_profile":
+        assert "tuned profile: tile=256 leaf_width=512 specialize=True" \
+            in out
     assert "prefill computed/reused: 288/480" in out
     assert (f"prefix store: {{'lookups': 23, 'hits': 15, 'rebuilds': "
             f"{rebuilds}, 'verify_rejects': 0}}") in out

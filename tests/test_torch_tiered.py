@@ -224,16 +224,27 @@ def test_defaults_match_reference():
 @pytest.mark.parametrize("what", ["mutable", "kind", "specialize",
                                   "from_tuned"])
 def test_unported_surface_raises(what):
+    """The other kinds raise naming their ROADMAP item. specialize and
+    from_tuned (once unported) serve: the bound index answers, and
+    from_tuned reads a persisted profile, raising FileNotFoundError where
+    there is none (the port commits no tuned profile)."""
     keys = np.arange(300, dtype=np.int32)
     cfg = {"mutable": dict(kind="css", mutable=True),
-           "kind": dict(kind="css"),
-           "specialize": dict(kind="tiered", specialize=True)}.get(what)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        if cfg is not None:
+           "kind": dict(kind="css")}.get(what)
+    if what == "specialize":
+        idx = pt_core.build_index(keys, config=pt_core.IndexConfig(
+            kind="tiered", specialize=True), device="cpu")
+        assert idx.impl.search_spec is not None
+        np.testing.assert_array_equal(idx.search(keys[::7]).numpy(),
+                                      np.arange(0, 300, 7))
+    elif what == "from_tuned":
+        with pytest.raises(FileNotFoundError, match="autotune"):
+            pt_core.IndexConfig.from_tuned("no_such_platform")
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item"):
             pt_core.build_index(keys, config=pt_core.IndexConfig(**cfg),
                                 device="cpu")
-        else:
-            pt_core.IndexConfig.from_tuned("cpu")
 
 
 def test_build_index_needs_a_card_by_default():
