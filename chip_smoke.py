@@ -186,14 +186,44 @@ Phases, in order; any failure exits non-zero with its traceback:
      e. autotune(smoke=True) at 2^24 keys and 2^16 queries into a
         temporary directory, then verify_profile (checked ok), each leg
         measured 32 times (the tuner's default is 8);
- 15. one line {"kernels": [...]} with each kernel's launches, times
+ 15. the paper's index kinds (Queue 1 item 12A), each built on the card
+     over phase 4's 2^24 keys and values, one at a time: binary (linear
+     cutoff 1 and 8), css (node_width 128 and 16), kary (127), fast (15,
+     page_depth 2), nitrogen (3 levels of 3 separators; bottoms binary and
+     css 16); build s, device bytes, tree_bytes, one lookup of 2^20
+     queries (half hits) and one search_range of 2^18 ranges (phase 7's
+     generator) under set_sync_debug_mode("error"), rank, found, values and
+     counts against numpy; lookup / search_range ms, the lookup's launches,
+     torch.searchsorted beside them; ops.kary_search refused on the 2^24-key
+     tree by the reference's VMEM guard. Then CSBTree over 2^20 of the keys
+     (w = 8), 4,096 inserts, a 2^20-query search against np.isin; a float32
+     pass over 2^20 keys for every kind (and the vector bottom at 4,096
+     keys a block) against numpy.
+     b. ops.fast_page_search on the fast index with the 2^20 queries (one
+        page-kernel launch, == the plain version on its operands and
+        numpy; descent, host plan, operands and kernel ms apart) and
+        ops.kary_search at the largest trees the guard admits (node_width
+        127 over 16,383 keys; 7 over 262,143 with lane 8, tile_rows 2):
+        one k-ary launch on 2^20 queries, == plain and numpy;
+     c. Fig. 5.1 (binary c8, css w16, NitroGen over each, at 16,384,
+        262,144, 2,097,152 and 2^24 keys, uniform and Zipf(1.3) queries,
+        Q = 4,096 and 2^20) and Fig. 5.3 (binary, kary w127, fast w127 pd2,
+        the two-phase ops.fast_page_search at 1,048,576 keys): each run's
+        CUDA-event ms, the host's launch calls, the device's kernel ms
+        (profiler), the ms of one CUDA-graph replay of the same call and
+        the thesis' speedups from each, torch.searchsorted beside them;
+        every run checked against numpy. Eager PyTorch compositions, not
+        the thesis' generated code. The phase prints its wall time;
+ 16. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
      the scan kernels the store's launches, times and bound (phase 11),
      for the CDF kernel its launches on the decode-queue runs, and for
-     kernels 1-4 their launches inside phase 14's replays; the last
-     line {"ok": true, "device": {...}}.
+     kernels 1-4 their launches inside phase 14's replays, for kernels 1
+     and 2 their launches and times under ops.fast_page_search /
+     ops.kary_search (phase 15b); the last line {"ok": true, "device":
+     {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -3491,6 +3521,434 @@ def spec_autotune_path(dev) -> dict:
             "verify": v}
 
 
+# --------------------------------------------------------------- phase 15
+KIND_CONFIGS = (
+    ("binary_c1", dict(kind="binary", linear_cutoff=1)),
+    ("binary_c8", dict(kind="binary", linear_cutoff=8)),
+    ("css_w128", dict(kind="css")),
+    ("css_w16", dict(kind="css", node_width=16)),
+    ("kary_w127", dict(kind="kary", node_width=127)),
+    ("fast_w15_pd2", dict(kind="fast", node_width=15, page_depth=2)),
+    ("ng_l3_binary", dict(kind="nitrogen", levels=3, compiled_node_width=3,
+                          bottom="binary")),
+    ("ng_l3_css16", dict(kind="nitrogen", levels=3, compiled_node_width=3,
+                         bottom="css", node_width=16)),
+)
+# the vector bottom compares a query with its whole block, so it runs only
+# where a block holds 4,096 keys: 256 blocks over the float pass's 2^20
+FLOAT_KIND_CONFIGS = KIND_CONFIGS + (
+    ("ng_l4_vector", dict(kind="nitrogen", levels=4, compiled_node_width=3,
+                          bottom="vector")),)
+N_KIND_RANGES = 1 << 18
+N_FLOAT_KEYS = 1 << 20
+N_CSB_KEYS, CSB_INSERTS = 1 << 20, 4096
+# the largest trees the reference's VMEM guard admits: (name, node_width,
+# lane, tile_rows, keys)
+KARY_GUARD_CASES = (("w127_n16383", 127, 128, 8, 16_383),
+                    ("w7_n262143", 7, 8, 2, 262_143))
+FIG51_SIZES = (16_384, 262_144, 2_097_152, 1 << 24)
+FIG_BATCHES = (4096, 1 << 20)
+FIG51_VARIANTS = (
+    ("binary", dict(kind="binary", linear_cutoff=8)),
+    ("css", dict(kind="css", node_width=16)),
+    ("ng-binary", dict(kind="nitrogen", levels=3, compiled_node_width=3,
+                       bottom="binary")),
+    ("ng-css", dict(kind="nitrogen", levels=3, compiled_node_width=3,
+                    bottom="css", node_width=16)))
+FIG53_KEYS = 1_048_576
+FIG53_LADDER = (
+    ("scalar-binary", dict(kind="binary")),
+    ("+vector-nodes", dict(kind="kary", node_width=127)),
+    ("+page-blocking", dict(kind="fast", node_width=127, page_depth=2)))
+
+
+def no_sync(fn):
+    """fn() under set_sync_debug_mode("error"): a host sync inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def mixed_queries(rng, ks: np.ndarray, n: int) -> np.ndarray:
+    """Half hits drawn from the keys, half uniform over the key domain."""
+    return rng.permutation(np.concatenate([
+        ks[rng.integers(0, ks.size, n // 2)],
+        rng.integers(I32.min + 1, I32.max - 1, n - n // 2
+                     ).astype(ks.dtype)]))
+
+
+def check_ranges(got, ks, lo, hi, what: str) -> None:
+    r_lo = np.searchsorted(ks, lo, "left")
+    r_hi = np.where(lo > hi, r_lo, np.searchsorted(ks, hi, "right"))
+    for t, want, part in zip(got, (r_lo, r_hi, r_hi - r_lo),
+                             ("r_lo", "r_hi_excl", "count")):
+        check(np.array_equal(t.cpu().numpy(), want), f"{what}: {part}")
+
+
+def kind_run(dev, name, cfg, keys_sorted, values_sorted, q_dev, want,
+             lo_d, hi_d, lo, hi, timed: bool = True) -> tuple:
+    """Build one kind on the card, then one lookup and one search_range
+    under sync-debug "error", both against numpy; with ``timed``, their
+    CUDA-event times and the lookup's launches. Returns (row, index)."""
+    from repro_torch import IndexConfig, build_index
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    idx = build_index(keys_sorted, values_sorted, IndexConfig(**cfg))
+    torch.cuda.synchronize()
+    row = {"build_s": time.perf_counter() - t0,
+           "device_bytes": torch.cuda.memory_allocated() - base,
+           "tree_bytes": idx.tree_bytes}
+    check_lookup(no_sync(lambda: idx.lookup(q_dev)), want, f"{name} lookup")
+    check_ranges(no_sync(lambda: idx.search_range(lo_d, hi_d)),
+                 keys_sorted, lo, hi, f"{name} search_range")
+    if timed:
+        row["lookup_ms"] = cuda_ms(lambda: idx.lookup(q_dev), reps=5,
+                                   warmup=1)
+        row["search_range_ms"] = cuda_ms(
+            lambda: idx.search_range(lo_d, hi_d), reps=5, warmup=1)
+        prof = launch_profile(lambda: idx.lookup(q_dev))
+        row["lookup_host_launches"] = prof["host_launches"]
+        row["lookup_device_kernels"] = prof["device_kernels"]
+        row["lookup_device_ms"] = prof["kernels_ms"]
+    return row, idx
+
+
+def fast_wrapper_path(dev, fidx, q_dev, ks: np.ndarray, q: np.ndarray):
+    """ops.fast_page_search on a FAST index at full size: one page-kernel
+    launch, its output against the plain version on the same operands and
+    numpy's ranks; the descent, the host plan, the operands and the kernel
+    timed apart."""
+    from repro_torch.core.fast_tree import leaf_page_of
+    from repro_torch.engine.schedule import bucket_plan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import page_search as pk
+    t0 = time.perf_counter()
+    pages = ops.fast_leaf_pages(fidx)
+    torch.cuda.synchronize()
+    layout_ms = (time.perf_counter() - t0) * 1e3
+    pk.page_search_bucketed.launches = 0
+    got = ops.fast_page_search(fidx, q_dev)
+    launches = pk.page_search_bucketed.launches
+    check(launches == 1, f"fast_page_search launched the page kernel "
+          f"{launches} times")
+    check(np.array_equal(got.cpu().numpy(), np.searchsorted(ks, q)),
+          "fast_page_search != np.searchsorted")
+    page_of = leaf_page_of(fidx, q_dev).cpu().numpy()
+    plan = bucket_plan(page_of, 128)
+    qb, _, _ = ops.fast_page_operands(fidx, q_dev, plan)
+    step_pages = torch.from_numpy(plan.step_pages).to(dev)
+    lw = fidx.leaf_width
+    k_args = (qb, step_pages, pages)
+    k_got = pk.page_search_bucketed(*k_args, stride=lw)
+    k_plain = pk.page_search_plain(*k_args, stride=lw)
+    err = max_abs_err(k_got, k_plain)
+    check(err == 0, "page kernel != plain on fast_page_search's operands")
+    used, tile, lw_pad = plan.steps_used, qb.shape[1], pages.shape[1]
+    touched = int(np.unique(plan.step_pages[:used]).size)
+    lanes = used * tile
+    b = bound(lanes * 4 * 2 + used * 4 + touched * lw_pad * 4,
+              lanes * sorted_count_compares(lw_pad))
+    return {
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: pk.page_search_bucketed(*k_args, stride=lw)),
+        "plain_ms": cuda_ms(lambda: pk.page_search_plain(*k_args,
+                                                         stride=lw),
+                            reps=3, warmup=1),
+        "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": cuda_ms(lambda: torch.searchsorted(fidx.keys, q_dev)),
+        "device_ms": device_ms(lambda: pk.page_search_bucketed(
+            *k_args, stride=lw), reps=5),
+        "wrapper_ms": cuda_ms(lambda: ops.fast_page_search(fidx, q_dev),
+                              reps=5, warmup=1),
+        "descent_ms": cuda_ms(lambda: leaf_page_of(fidx, q_dev)),
+        "host_plan_ms": host_ms(lambda: bucket_plan(page_of, 128)),
+        "operands_ms": cuda_ms(lambda: ops.fast_page_operands(
+            fidx, q_dev, plan), reps=5, warmup=1),
+        "leaf_page_layout_ms": layout_ms,
+        "queries": int(q.size), "leaf_width": lw, "lw_pad": lw_pad,
+        "grid": plan.grid, "steps_used": used, "pages_touched": touched}
+
+
+def kary_wrapper_path(dev, rng, keys_sorted) -> dict:
+    """ops.kary_search at the largest trees the reference's guard admits:
+    one k-ary kernel launch on 2^20 queries, equal to the plain version on
+    the same operand and to numpy."""
+    from repro_torch.core import kary as kary_core
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import ops
+    out = {}
+    for name, w, lane, tile_rows, n in KARY_GUARD_CASES:
+        keys = keys_sorted[:: keys_sorted.size // n][:n]
+        idx = kary_core.build(keys, node_width=w, device=dev)
+        q = mixed_queries(rng, keys, N_QUERIES)
+        q_dev = torch.from_numpy(q).to(dev)
+        kw = dict(lane=lane, tile_rows=tile_rows)
+        kk.kary_search_levels.launches = 0
+        got = ops.kary_search(idx, q_dev, **kw)
+        launches = kk.kary_search_levels.launches
+        check(launches == 1, f"kary_search {name}: {launches} launches")
+        flat, offsets, wpad = idx.kernel_operands[("kary_levels", lane)]
+        k_kw = dict(fanout=w + 1, wpad=wpad)
+        plain = kk.kary_search_plain(q_dev, flat, offsets, **k_kw)
+        err = max_abs_err(got, plain.clamp_max(n))
+        check(err == 0, f"kary_search {name} != plain")
+        check(np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q)),
+              f"kary_search {name} != np.searchsorted")
+        b = bound(2 * N_QUERIES * 4 + flat.numel() * 4,
+                  N_QUERIES * len(offsets) * sorted_count_compares(wpad))
+        out[name] = {
+            "launches": launches, "max_abs_err": err, "depth": idx.depth,
+            "wpad": wpad,
+            "ms": cuda_ms(lambda: kk.kary_search_levels(q_dev, flat, offsets,
+                                                        **k_kw)),
+            "wrapper_ms": cuda_ms(lambda: ops.kary_search(idx, q_dev, **kw)),
+            "plain_ms": cuda_ms(lambda: kk.kary_search_plain(
+                q_dev, flat, offsets, **k_kw), reps=5),
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": cuda_ms(lambda: torch.searchsorted(idx.keys,
+                                                             q_dev)),
+            "device_ms": device_ms(lambda: kk.kary_search_levels(
+                q_dev, flat, offsets, **k_kw), reps=5)}
+    return out
+
+
+def csb_path(dev, rng, keys_sorted) -> dict:
+    """CSBTree.build over 2^20 of phase 4's keys (w = 8), 4,096 inserts of
+    new keys, then a search of 2^20 queries under sync-debug "error"
+    against np.isin."""
+    from repro_torch.core import CSBTree
+    sub = np.sort(rng.choice(keys_sorted, N_CSB_KEYS, replace=False))
+    t0 = time.perf_counter()
+    tree = CSBTree.build(sub, w=8)
+    build_s = time.perf_counter() - t0
+    new = rng.integers(I32.min + 1, I32.max - 1, 2 * CSB_INSERTS
+                       ).astype(np.int32)
+    new = np.unique(new[~np.isin(new, sub)])[:CSB_INSERTS]
+    t0 = time.perf_counter()
+    for k in rng.permutation(new):
+        check(tree.insert(k), "a new key read as present")
+    insert_us = (time.perf_counter() - t0) * 1e6 / new.size
+    t0 = time.perf_counter()
+    tree.snapshot()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    allk = np.union1d(sub, new)
+    q = rng.permutation(np.concatenate([
+        mixed_queries(rng, sub, N_QUERIES - new.size), new]))
+    q_dev = torch.from_numpy(q).to(dev)
+    found = no_sync(lambda: tree.search(q_dev))
+    check(np.array_equal(found.cpu().numpy(), np.isin(q, allk)),
+          "CSBTree.search != np.isin")
+    return {"keys": N_CSB_KEYS, "inserts": int(new.size),
+            "height": tree.height, "nodes": tree._n_nodes,
+            "build_s": build_s, "insert_us": insert_us,
+            "snapshot_upload_ms": upload_ms,
+            "search_ms": cuda_ms(lambda: tree.search(q_dev), reps=5),
+            "hits": int(found.sum())}
+
+
+def float_kinds_path(dev, rng) -> dict:
+    """Every kind over 2^20 float32 keys (magnitudes 1e-20 to 1e20, signed
+    zeros, subnormals, +-3.4e38) against numpy: lookups and ranges."""
+    n = N_FLOAT_KEYS
+    keys = np.concatenate([rng.normal(size=n - 7) * 10.0 **
+                           rng.integers(-20, 20, n - 7),
+                           [0.0, -0.0, 1e-45, -1e-45, 3e-45, -3.4e38,
+                            3.4e38]]).astype(np.float32)
+    values = np.arange(n, dtype=np.int32)
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], values[order]
+    q = np.concatenate([keys[rng.integers(0, n, 1 << 16)],
+                        rng.normal(size=1 << 16) * 1e10,
+                        [0.0, -0.0, np.inf, -np.inf, 1e-45, 2e-45]]
+                       ).astype(np.float32)
+    want = oracle(ks, vs, q)
+    lo = q.copy()
+    hi = (q + np.abs(rng.normal(size=q.size)) * 1e9).astype(np.float32)
+    hi[::16] = lo[::16] - 1                       # lo > hi
+    q_dev, lo_d, hi_d = (torch.from_numpy(x).to(dev) for x in (q, lo, hi))
+    out = {}
+    for name, cfg in FLOAT_KIND_CONFIGS:
+        row, idx = kind_run(dev, name, cfg, ks, vs, q_dev, want, lo_d, hi_d,
+                            lo, hi, timed=False)
+        out[name] = {"build_s": row["build_s"],
+                     "lookup_ms": cuda_ms(lambda: idx.lookup(q_dev), reps=3,
+                                          warmup=1)}
+        del idx
+    return out
+
+
+def zipf_queries(keys: np.ndarray, n: int, a: float = 1.3,
+                 seed: int = 0) -> np.ndarray:
+    """Zipf-distributed references to existing keys (a copy of
+    benchmarks/_timing.py's generator)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(a, size=n) - 1
+    return keys[np.minimum(ranks, keys.size - 1)]
+
+
+def uniform_queries(lo: int, hi: int, n: int, seed: int = 0) -> np.ndarray:
+    """Uniform int32 queries (a copy of benchmarks/_timing.py's)."""
+    return np.random.default_rng(seed).integers(lo, hi, n).astype(np.int32)
+
+
+def fig_run(fn, qd: torch.Tensor, graph: bool = True) -> dict:
+    """CUDA-event ms of fn(qd), the host's launch calls and device
+    kernels of one call and the device's summed kernel ms a call over five
+    (profiler; None if it saw no device event), and with ``graph`` the event
+    ms of the same call replayed from one CUDA graph
+    (engine/capture.Specialized: the queries copied in, the result out)."""
+    from repro_torch.engine.capture import Captures, Specialized
+    q_n = qd.shape[0]
+    ms = cuda_ms(lambda: fn(qd), reps=10, warmup=2)
+    prof = launch_profile(lambda: fn(qd))
+    out = {"ms": ms, "ns_per_query": ms * 1e6 / q_n,
+           "host_launch_calls": prof["host_launches"],
+           "device_kernels": prof["device_kernels"],
+           "device_ms": device_ms(lambda: fn(qd), reps=5)}
+    if graph:
+        spec = Specialized(fn, device=qd.device, captures=Captures())
+        out["graph_ms"] = cuda_ms(lambda: spec(qd), reps=10, warmup=2)
+        del spec
+    return out
+
+
+def ratios(cell: dict, fast: str, base: str, what: str) -> None:
+    """The thesis' speedup of ``fast`` over ``base`` from event, device
+    and graph-replay time, written into cell[fast]."""
+    for k in ("ms", "device_ms", "graph_ms"):
+        a, b = cell[base].get(k), cell[fast].get(k)
+        cell[fast][f"speedup_vs_{what}_{k}"] = a / b if a and b else None
+
+
+def fig51_path(dev) -> dict:
+    """Fig. 5.1 on the card: binary (cutoff 8), css (w 16) and NitroGen
+    over each (3 levels of 3 separators) at the bench's sizes and 2^24
+    keys, uniform and Zipf(1.3) queries, at the bench's Q = 4,096 and at
+    2^20; torch.searchsorted on the same sorted keys beside them."""
+    from repro_torch import IndexConfig, build_index
+    rng = np.random.default_rng(7)
+    out = {}
+    for n in FIG51_SIZES:
+        keys = np.unique(rng.integers(0, 2**31 - 2, int(n * 1.1))
+                         .astype(np.int32))[:n]
+        ks_dev = torch.from_numpy(keys).to(dev)
+        qsets = {}
+        for dist in ("uniform", "zipf"):
+            for q_n in FIG_BATCHES:
+                qs = (uniform_queries(0, 2**31 - 2, q_n) if dist == "uniform"
+                      else zipf_queries(keys, q_n))
+                qsets[f"{dist}/Q={q_n}"] = (torch.from_numpy(qs).to(dev), qs)
+        cells = {k: {"searchsorted": fig_run(
+            lambda x: torch.searchsorted(ks_dev, x), qd, graph=False)}
+            for k, (qd, _) in qsets.items()}
+        for name, cfg in FIG51_VARIANTS:
+            idx = build_index(keys, config=IndexConfig(**cfg))
+            for k, (qd, qs) in qsets.items():
+                check(np.array_equal(idx.search(qd).cpu().numpy(),
+                                     np.searchsorted(keys, qs)),
+                      f"fig 5.1 n={n} {k} {name} != np.searchsorted")
+                r = fig_run(idx.search, qd)
+                if name.startswith("ng-"):
+                    r["network_ms"] = cuda_ms(
+                        lambda qd=qd: idx.impl.network(qd), reps=10)
+                cells[k][name] = r
+            del idx
+            torch.cuda.empty_cache()
+        for cell in cells.values():
+            ratios(cell, "ng-binary", "binary", "binary")
+            ratios(cell, "ng-css", "css", "css")
+        out[f"n={n}"] = cells
+        print(f"phase 15c: fig 5.1 n={n} " + json.dumps(cells), flush=True)
+    return out
+
+
+def fig53_path(dev) -> dict:
+    """Fig. 5.3 on the card: the FAST ladder (binary, k-ary w 127, FAST
+    w 127 pd 2) and the two-phase ops.fast_page_search at 1,048,576 keys,
+    uniform queries at Q = 4,096 and 2^20."""
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.core import fast_tree
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(13)
+    keys = np.unique(rng.integers(0, 2**31 - 2, int(FIG53_KEYS * 1.1))
+                     .astype(np.int32))[:FIG53_KEYS]
+    ks_dev = torch.from_numpy(keys).to(dev)
+    qsets = {}
+    for q_n in FIG_BATCHES:
+        qs = uniform_queries(0, 2**31 - 2, q_n, seed=5)
+        qsets[f"Q={q_n}"] = (torch.from_numpy(qs).to(dev), qs)
+    cells = {k: {"searchsorted": fig_run(
+        lambda x: torch.searchsorted(ks_dev, x), qd, graph=False)}
+        for k, (qd, _) in qsets.items()}
+    searchers = [(name, build_index(keys, config=IndexConfig(**cfg)).search,
+                  True) for name, cfg in FIG53_LADDER]
+    fidx = fast_tree.build(keys, node_width=127, page_depth=2)
+    searchers.append(("two-phase", lambda q: ops.fast_page_search(fidx, q),
+                      False))               # its host plan waits for the card
+    for name, fn, graph in searchers:
+        for k, (qd, qs) in qsets.items():
+            check(np.array_equal(fn(qd).cpu().numpy(),
+                                 np.searchsorted(keys, qs)),
+                  f"fig 5.3 {k} {name} != np.searchsorted")
+            cells[k][name] = fig_run(fn, qd, graph)
+    for cell in cells.values():
+        for name, _, _ in searchers[1:]:
+            ratios(cell, name, "scalar-binary", "binary")
+    return cells
+
+
+def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
+    """Phase 15: the paper's index kinds at full size, the two kernel
+    wrappers, the CSB+-tree, a float32 pass and Figs. 5.1 / 5.3."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    q = mixed_queries(rng, keys_sorted, N_QUERIES)
+    want = oracle(keys_sorted, values_sorted, q)
+    lo, hi = scan_ranges(rng, keys_sorted, N_KIND_RANGES)
+    q_dev, lo_d, hi_d = (torch.from_numpy(x).to(dev) for x in (q, lo, hi))
+    ks_dev = torch.from_numpy(keys_sorted).to(dev)
+    out = {"keys": N_KEYS, "queries": N_QUERIES, "ranges": N_KIND_RANGES,
+           "searchsorted_ms": cuda_ms(lambda: torch.searchsorted(ks_dev,
+                                                                 q_dev)),
+           "searchsorted_range_ms": cuda_ms(lambda: (
+               torch.searchsorted(ks_dev, lo_d),
+               torch.searchsorted(ks_dev, hi_d, right=True)))}
+    fast_row = None
+    for name, cfg in KIND_CONFIGS:
+        row, idx = kind_run(dev, name, cfg, keys_sorted, values_sorted,
+                            q_dev, want, lo_d, hi_d, lo, hi)
+        if name == "fast_w15_pd2":
+            fast_row = fast_wrapper_path(dev, idx.impl, q_dev, keys_sorted, q)
+        if name == "kary_w127":       # the guard refuses it, as the reference's
+            try:
+                ops.kary_search(idx.impl, q_dev[:8])
+            except ValueError as e:
+                row["kary_search_guard"] = str(e)
+            check("kary_search_guard" in row,
+                  "ops.kary_search took the 2^24-key tree")
+        del idx
+        torch.cuda.empty_cache()
+        out[name] = row
+        print(f"phase 15a: {name} " + json.dumps(row), flush=True)
+    out["csb"] = csb_path(dev, rng, keys_sorted)
+    out["float32"] = float_kinds_path(dev, rng)
+    kary_rows = kary_wrapper_path(dev, rng, keys_sorted)
+    print("phase 15b: ops.fast_page_search " + json.dumps(fast_row)
+          + " ops.kary_search " + json.dumps(kary_rows), flush=True)
+    figs = {"fig5_1": fig51_path(dev), "fig5_3": fig53_path(dev)}
+    print("phase 15c: fig 5.3 " + json.dumps(figs["fig5_3"]), flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, fast_row, kary_rows
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -3591,6 +4049,11 @@ def main() -> int:
     del spec_store
     print("phase 14e: autotune " + json.dumps(spec_autotune_path(dev)),
           flush=True)
+    kinds15, fast_row, kary_rows = kinds_path(dev, keys_sorted,
+                                              values_sorted)
+    print("phase 15: index kinds " + json.dumps(kinds15), flush=True)
+    rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
+    rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
         checks = store_main["kernel_checks"]
         row["store_launches_per_lookup"] = store_main["launches"][row["name"]]

@@ -1,22 +1,28 @@
 """Public facade over the index-search core — PyTorch port of
-``repro/core/api.py`` for ``kind="tiered"``.
+``repro/core/api.py``.
 
-    idx = build_index(keys, values, IndexConfig(kind="tiered"))  # on cuda
+    idx = build_index(keys, values)  # the default kind, css, on cuda
     hit = idx.lookup(queries)        # -> LookupResult(rank, found, values)
+    r_lo, r_hi_excl, count = idx.search_range(lo, hi)
+    idx = build_index(keys, values, IndexConfig(kind="tiered"))
     r = idx.scan_range(lo, hi)       # -> engine.scan.ScanResult
     store = build_index(keys, values, IndexConfig(kind="tiered",
                                                   mutable=True))
     store.insert(new_keys, new_values); store.delete(old_keys)
     store.save(ckpt_dir); store = restore_index(ckpt_dir)
 
-``build_index`` places the index on the CUDA card unless the caller passes
-``device``; without a card it raises unless ``device="cpu"``. With
-``IndexConfig(specialize=True)`` the built index is bound into its
-dispatches (DESIGN.md §10): CUDA graphs on the card, one per batch shape
-(``engine/capture.py``). ``IndexConfig.from_tuned`` reads a profile the
-autotuner persisted (``repro_torch.tune``). Kinds, options and methods
-that are not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that brings them; none falls back to something else.
+Every kind of the reference builds: ``binary``, ``css``, ``kary``,
+``fast``, ``nitrogen`` (the paper's structures, ``core/``) and ``tiered``
+(the batch engine, ``engine/tiered.py``). ``build_index`` places the index
+on the CUDA card unless the caller passes ``device``; without a card it
+raises unless ``device="cpu"``. With ``IndexConfig(specialize=True)`` a
+tiered index is bound into its dispatches (DESIGN.md §10): CUDA graphs on
+the card, one per batch shape (``engine/capture.py``).
+``IndexConfig.from_tuned`` reads a profile the autotuner persisted
+(``repro_torch.tune``). What is not ported yet (the scans, the mutable
+store and specialization over the kinds other than tiered) raises
+``NotImplementedError`` naming the ROADMAP item that brings it; none
+falls back to something else.
 """
 from __future__ import annotations
 
@@ -29,10 +35,12 @@ import torch
 from ..engine import scan, tiered
 from ..engine.capture import Specialized
 from ..obs import timed_op
+from . import css_tree, fast_tree, kary, nitrogen, sorted_array
 from .util import as_queries, not_ported, resolve_device
 
 KINDS = ("binary", "css", "kary", "fast", "nitrogen", "tiered")
-PORTED_KINDS = ("tiered",)
+PORTED_KINDS = KINDS
+ITEM_12B = "item 12B (the other kinds under the rest of the API)"
 
 
 @dataclass(frozen=True)
@@ -151,11 +159,11 @@ class Index:
     n: int
 
     def search(self, queries) -> torch.Tensor:
-        return tiered.search(self.impl, queries)
+        return _MODULES[self.config.kind].search(self.impl, queries)
 
     def lookup(self, queries) -> LookupResult:
         q = as_queries(queries, self.keys_sorted)
-        if self.impl.search_spec is None:
+        if self.config.kind != "tiered" or self.impl.search_spec is None:
             rank = self.search(q)
             return LookupResult(rank, *self._resolve(q, rank))
         # specialized: the search and the found / values gathers bound
@@ -191,10 +199,26 @@ class Index:
         """Range query: for each pair, the half-open rank interval
         [r_lo, r_hi_excl) of keys with lo <= key <= hi, plus the match
         count. Exact under duplicate keys at either endpoint; ``lo > hi``
-        normalizes to the empty interval at r_lo. Runs through the
-        range-scan subsystem (``engine/scan.py``): both endpoints descend
-        the top tier in one pass, with no host sync."""
-        return tiered.search_range(self.impl, lo, hi)
+        normalizes to the empty interval at r_lo. ``kind='tiered'`` runs
+        through the range-scan subsystem (``engine/scan.py``): both
+        endpoints descend the top tier in one pass. The other kinds make
+        two searches, as the reference does. No host sync."""
+        if self.config.kind == "tiered":
+            return tiered.search_range(self.impl, lo, hi)
+        lo = as_queries(lo, self.keys_sorted)
+        hi = as_queries(hi, self.keys_sorted)
+        r_lo = self.search(lo)
+        if hi.dtype.is_floating_point:
+            # searchsorted-right(hi) == searchsorted-left(nextafter(hi)):
+            # duplicate float keys equal to hi all count, exactly
+            up = torch.nextafter(hi, torch.full_like(hi, float("inf")))
+        else:
+            # searchsorted-right(hi) == searchsorted-left(hi + 1); hi below
+            # the sentinel by the key-domain contract (at INT32_MAX it wraps,
+            # as in the reference)
+            up = hi + 1
+        r_hi_excl = torch.where(lo > hi, r_lo, self.search(up))
+        return r_lo, r_hi_excl, (r_hi_excl - r_lo).clamp_min(0)
 
     def scan_range(self, lo, hi, *, aggs=None,
                    materialize: Optional[int] = None):
@@ -231,6 +255,9 @@ class Index:
         return self._scanner().scan_multi(ranges, op=op, aggs=aggs)
 
     def _scanner(self):
+        if self.config.kind != "tiered":
+            raise not_ported(f"scans on kind={self.config.kind!r} "
+                             "(FlatAggregator)", ITEM_12B)
         return scan.scanner_for(self.impl, self.values_sorted)
 
     def delete(self, keys):
@@ -248,13 +275,57 @@ class Index:
             "this index is immutable; build with "
             "IndexConfig(mutable=True) for save/restore support")
 
+    @property
+    def tree_bytes(self) -> int:
+        return int(getattr(self.impl, "tree_bytes", 0))
+
+
+_MODULES = {                     # the searcher module of each kind
+    "binary": sorted_array,
+    "css": css_tree,
+    "kary": kary,
+    "fast": fast_tree,
+    "nitrogen": nitrogen,
+    "tiered": tiered,
+}
+
 
 def check_ported(config: IndexConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when
-    ``config`` asks for a kind or option the port does not have yet."""
-    if config.kind not in PORTED_KINDS:
-        raise not_ported(f"kind={config.kind!r}",
-                         "item 12 (the other index kinds)")
+    ``config`` asks for an option the port does not have yet: the mutable
+    store or specialization over a kind other than tiered."""
+    if config.kind == "tiered":
+        return
+    if config.mutable:
+        raise not_ported(f"mutable=True over kind={config.kind!r}", ITEM_12B)
+    if config.specialize:
+        raise not_ported(f"specialize=True with kind={config.kind!r}",
+                         ITEM_12B)
+
+
+def _build_impl(srt: np.ndarray, c: IndexConfig, device):
+    """The kind's structure over sorted keys, with the reference's
+    arguments."""
+    if c.kind == "binary":
+        return sorted_array.build(srt, linear_cutoff=c.linear_cutoff,
+                                  device=device)
+    if c.kind == "css":
+        return css_tree.build(srt, node_width=c.node_width,
+                              leaf_width=c.leaf_width, intra=c.intra,
+                              device=device)
+    if c.kind == "kary":
+        return kary.build(srt, node_width=c.node_width, device=device)
+    if c.kind == "fast":
+        return fast_tree.build(srt, node_width=c.node_width,
+                               leaf_width=c.leaf_width,
+                               page_depth=c.page_depth, device=device)
+    if c.kind == "nitrogen":
+        return nitrogen.build(srt, levels=c.levels,
+                              node_width=c.compiled_node_width,
+                              bottom=c.bottom, css_node_width=c.node_width,
+                              device=device)
+    return tiered.build(srt, leaf_width=c.leaf_width, tile=c.tile, top=c.top,
+                        plan=c.plan, device=device, specialize=c.specialize)
 
 
 def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
@@ -277,11 +348,9 @@ def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
         if values.shape[0] != keys.shape[0]:
             raise ValueError("values must align with keys")
         vals = torch.from_numpy(values[order]).to(device)
-    c = config
-    impl = tiered.build(srt, leaf_width=c.leaf_width, tile=c.tile, top=c.top,
-                        plan=c.plan, device=device, specialize=c.specialize)
-    return Index(config=c, impl=impl, keys_sorted=torch.from_numpy(srt)
-                 .to(device), values_sorted=vals, n=int(srt.size))
+    return Index(config=config, impl=_build_impl(srt, config, device),
+                 keys_sorted=torch.from_numpy(srt).to(device),
+                 values_sorted=vals, n=int(srt.size))
 
 
 def restore_index(ckpt_dir: str, config: IndexConfig = IndexConfig(
@@ -304,10 +373,9 @@ def from_reference_arrays(state: dict, config: IndexConfig = IndexConfig(
     """The port's Index from the numpy form of a reference tiered Index:
     the arrays ``tiered.from_reference_arrays`` takes, plus
     ``keys_sorted`` and optionally ``values_sorted``."""
-    check_ported(config)
-    if config.mutable:
-        raise ValueError("from_reference_arrays builds the immutable index; "
-                         "pass a config with mutable=False")
+    if config.kind != "tiered" or config.mutable:
+        raise ValueError("from_reference_arrays builds the immutable tiered "
+                         "index; pass kind='tiered' with mutable=False")
     device = resolve_device(device)
     srt = np.array(state["keys_sorted"])
     vals = state.get("values_sorted")

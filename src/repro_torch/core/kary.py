@@ -4,19 +4,21 @@ of ``repro/core/kary.py``.
 The linearized tree is a *permutation* of the sorted keys: every key
 appears exactly once, placed so each node's k-1 keys are contiguous. The
 rank accumulates digit by digit (rank = rank*f + c), so no back-pointers or
-final permutation inversion are needed. ``search`` here is the plain
-version; the tiered engine's top tier descends the same tree with the CUDA
-kernel in ``kernels/kary_search.py``.
+final permutation inversion are needed. ``search`` here is a PyTorch
+composition (a ``[Q, w]`` row gather a level, over slices of the batch); the
+tiered engine's top tier and ``kernels/ops.py::kary_search`` descend the
+same tree with the CUDA kernel in ``kernels/kary_search.py``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from .util import as_sorted_numpy, next_pow, pad_to, resolve_device, take
+from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
+                   resolve_device, take_rows)
 
 
 @dataclass(frozen=True)
@@ -27,10 +29,18 @@ class KaryTreeIndex:
     n: int
     node_width: int            # w = k - 1 keys per node
     depth: int
+    # operands that kernels/ops.py lays out once per index (flat levels)
+    kernel_operands: dict = field(default_factory=dict, compare=False,
+                                  repr=False)
 
     @property
     def fanout(self) -> int:
         return self.node_width + 1
+
+    @property
+    def tree_bytes(self) -> int:
+        # the tree replaces the sorted array; extra storage is only padding
+        return (self.tree.numel() - self.n) * self.tree.element_size()
 
 
 def perm_ranks(depth: int, w: int) -> np.ndarray:
@@ -67,16 +77,20 @@ def build(keys, node_width: int = 128, *, device=None) -> KaryTreeIndex:
     )
 
 
-def search(index: KaryTreeIndex, queries: torch.Tensor) -> torch.Tensor:
-    q = queries
+def _search(index: KaryTreeIndex, q: torch.Tensor) -> torch.Tensor:
     w, f = index.node_width, index.fanout
-    lanes = torch.arange(w, dtype=torch.int32, device=q.device)
     # the node index IS the accumulated rank: j_{l+1} = j_l * f + c_l, and
     # after the last level  j == sum_l c_l * f**(depth-1-l) == searchsorted rank
     j = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     for l in range(index.depth):
-        base = index.level_offsets[l] + j * w
-        node = take(index.tree, base[..., None] + lanes)
-        c = (node < q[..., None]).sum(-1, dtype=torch.int32)
+        node = take_rows(index.tree, w, index.level_offsets[l] // w + j)
+        c = (node < q[:, None]).sum(-1, dtype=torch.int32)
         j = j * f + c
-    return j.clamp_max(index.n)
+    return j
+
+
+def search(index: KaryTreeIndex, queries) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
+    q = as_queries(queries, index.keys)
+    return by_chunks(index.node_width, lambda qq: _search(index, qq), q) \
+        .clamp_max(index.n)

@@ -85,6 +85,34 @@ def take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return arr[idx.clamp(0, arr.shape[0] - 1).long()]
 
 
+# queries a searcher handles at once: a [chunk, width] gathered block (the
+# keys and the compare mask) keeps near 2^25 elements
+GATHER_ELEMS = 1 << 25
+
+
+def by_chunks(width: int, fn, *cols: torch.Tensor) -> torch.Tensor:
+    """``fn(*cols)`` over slices of the query axis, ``GATHER_ELEMS //
+    width`` queries a slice, so that the ``[chunk, width]`` blocks a
+    searcher gathers stay bounded (a [2^20, 129] block of int32 keys is
+    over 500 MB). One slice when the batch fits."""
+    q_n = cols[0].shape[0]
+    chunk = max(1, GATHER_ELEMS // max(int(width), 1))
+    if q_n <= chunk:
+        return fn(*cols)
+    return torch.cat([fn(*(c[s:s + chunk] for c in cols))
+                      for s in range(0, q_n, chunk)])
+
+
+def take_rows(flat: torch.Tensor, width: int, rows: torch.Tensor
+              ) -> torch.Tensor:
+    """Rows of ``flat`` viewed as ``[-1, width]``, one row index a query:
+    the ``[Q, width]`` nodes a searcher reads. The reference takes
+    ``row * width + arange(width)`` from the flat buffer; every node and
+    leaf block starts at a multiple of its width, so one row gather reads
+    the same keys without a ``[Q, width]`` address tensor."""
+    return take(flat.view(-1, width), rows)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; raise when there is none, so that no
     entry point falls back to the CPU without being asked."""

@@ -37,7 +37,7 @@ ranges while the tracer is enabled. On an index built with
 pages and the ``ScanAux`` arrays bound in, the ranges its only arguments
 (a CUDA graph replay per shape on the card, ``engine/capture.py``); the
 store's scans keep their data as arguments, as the reference's do. Left
-out: the non-tiered kinds' ``FlatAggregator`` (item 12).
+out: the non-tiered kinds' ``FlatAggregator`` (item 12B).
 """
 from __future__ import annotations
 
@@ -572,10 +572,11 @@ def materialize_interval(r_lo: torch.Tensor, count: torch.Tensor,
 # ------------------------------------------------------- not ported yet
 class FlatAggregator:
     """Rank-interval aggregates for the non-tiered kinds (ROADMAP Queue 1
-    item 12)."""
+    item 12B)."""
 
     def __init__(self, values):
-        raise not_ported("FlatAggregator", "item 12 (the other index kinds)")
+        raise not_ported("FlatAggregator", "item 12B (the other kinds under "
+                         "the rest of the API)")
 
 
 

@@ -46,7 +46,7 @@ reference, a page-local fold or a value-row sync keeps it armed: the port
 rewrites base rows in place, so the bound pages stay the live ones.
 
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: a non-tiered base and its "flat" snapshot (item 12).
+item: a non-tiered base and its "flat" snapshot (item 12B).
 """
 from __future__ import annotations
 
@@ -935,7 +935,8 @@ class MutableIndex:
                         if k.startswith(prefix + "/")}
             if "flat/keys" in raw:
                 raise not_ported("restoring a non-tiered base's snapshot",
-                                 "item 12 (the other index kinds)")
+                                 "item 12B (the other kinds under the "
+                                 "rest of the API)")
             self.delta = _delta.DeltaBuffer.from_state(sub("active"),
                                                        device=self.device)
             self.sealed = _delta.DeltaBuffer.from_state(sub("sealed"),

@@ -93,6 +93,14 @@ class TieredIndex:
     #                              (None unless built with specialize=True)
     captures: Captures = field(default_factory=Captures)  # graphs / arms
 
+    @property
+    def tree_bytes(self) -> int:
+        # the leaf pages replace the sorted array; the resident top tier is
+        # the seps structure (a NitroGen top lives in the program: 0 bytes)
+        if self.top_kind == "kary":
+            return self.top.tree.numel() * self.top.tree.element_size()
+        return 0
+
 
 def _make_page_of_raw(top_kind: str, top, num_pages: int) -> Callable:
     """Top-tier descent: query batch -> int32 page id."""

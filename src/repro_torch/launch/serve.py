@@ -46,7 +46,7 @@ def _unported(args) -> list:
     """(is set, what, ROADMAP item) for every unported flag or default."""
     return [
         (args.index != "tiered", f"--index {args.index}",
-         "item 12 (the other index kinds)"),
+         "item 12B (the other kinds under the rest of the API)"),
     ]
 
 

@@ -1048,3 +1048,128 @@ def test_store_captures_after_a_fold_and_a_repack(cuda):
     assert spec.stats["splits"] >= 1
     assert_fields_equal(spec.lookup(q), args.lookup(q), "after the repack")
     assert spec.captures.n == 2
+
+
+KIND_CONFIGS = [
+    dict(kind="binary"), dict(kind="binary", linear_cutoff=8),
+    dict(kind="css"), dict(kind="css", node_width=16, intra="binary"),
+    dict(kind="kary", node_width=127), dict(kind="fast", node_width=15),
+    dict(kind="nitrogen"), dict(kind="nitrogen", levels=4, bottom="vector"),
+    dict(kind="nitrogen", bottom="css", node_width=16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("cfg", KIND_CONFIGS,
+                         ids=lambda c: "-".join(map(str, c.values())))
+def test_every_kind_on_the_card_matches_numpy_with_no_sync(cuda, cfg, dtype):
+    """Each of the paper's kinds built on the card: lookup and search_range
+    make no host sync and equal numpy (and the CPU build) bit for bit, over
+    more queries than one gather slice takes."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(len(cfg))
+    if dtype == np.int32:
+        keys = rng.integers(I32.min + 1, I32.max - 1, 200_000)
+        q = rng.integers(I32.min, I32.max - 2000, 300_000)   # q + 1000 fits
+    else:
+        keys = rng.normal(size=200_000) * 1e6
+        keys[:4] = [0.0, -0.0, 1e-45, -1e-45]
+        q = rng.normal(size=300_000) * 1e6
+    keys = keys.astype(dtype)
+    q = np.concatenate([q.astype(dtype), keys[:50_000]])
+    vals = np.arange(keys.size, dtype=np.int32)
+    idx = build_index(keys, vals, IndexConfig(**cfg))
+    qd = torch.from_numpy(q).to(cuda)
+    hi = qd + (1000 if dtype == np.int32 else 10.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = idx.lookup(qd)
+        r_lo, r_hi, cnt = idx.search_range(qd, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    srt = np.sort(keys, kind="stable")
+    rank = np.searchsorted(srt, q)
+    assert np.array_equal(res.rank.cpu().numpy(), rank)
+    found = (rank < srt.size) & (srt[np.minimum(rank, srt.size - 1)] == q)
+    assert np.array_equal(res.found.cpu().numpy(), found)
+    want_hi = np.searchsorted(srt, hi.cpu().numpy(), "right")
+    assert np.array_equal(r_lo.cpu().numpy(), rank)
+    assert np.array_equal(r_hi.cpu().numpy(), want_hi)
+    assert np.array_equal(cnt.cpu().numpy(), want_hi - rank)
+    cpu = build_index(keys, vals, IndexConfig(**cfg), device="cpu")
+    assert torch.equal(cpu.lookup(q[:4096]).values,
+                       res.values[:4096].cpu())
+
+
+@pytest.mark.cuda
+def test_csb_tree_search_on_the_card_makes_no_sync(cuda):
+    from repro_torch.core import CSBTree
+    rng = np.random.default_rng(9)
+    keys = np.unique(rng.integers(0, 10**7, 100_000).astype(np.int32))
+    t = CSBTree.build(keys, w=8)
+    extra = rng.integers(0, 10**7, 500).astype(np.int32)
+    for k in extra:
+        t.insert(k)
+    t.snapshot()
+    q = rng.integers(0, 10**7, 200_000).astype(np.int32)
+    qd = torch.from_numpy(q).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found = t.search(qd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(found.cpu().numpy(),
+                          np.isin(q, np.union1d(keys, extra)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n_keys,w,lane,rows", [
+    (16_383, 127, 128, 8), (262_143, 7, 8, 2), (4000, 3, 8, 2),
+    (1000, 5, 3, 2)])
+def test_ops_kary_search_launches_the_kernel_once(cuda, dtype, n_keys, w,
+                                                  lane, rows):
+    """ops.kary_search at the largest trees its guard admits (and a lane
+    that is no multiple of 4): one kernel launch, equal to the plain
+    version on the same operand and to numpy; the guard raises past it."""
+    rng = np.random.default_rng(n_keys)
+    keys = np.sort(rng.normal(size=n_keys) * 1e6).astype(dtype)
+    q = np.concatenate([rng.normal(size=70_000) * 1e6, keys]).astype(dtype)
+    idx = kary_core.build(keys, node_width=w, device=cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    kk.kary_search_levels.launches = 0
+    got = ops.kary_search(idx, qd, lane=lane, tile_rows=rows)
+    assert kk.kary_search_levels.launches == 1
+    (flat, offsets, wpad), = idx.kernel_operands.values()
+    want = kk.kary_search_plain(qd, flat, offsets, fanout=w + 1, wpad=wpad)
+    torch.cuda.synchronize()
+    assert wpad % 4 == 0
+    assert torch.equal(got, want.clamp_max(n_keys))
+    assert np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q))
+    if (n_keys, w) in ((16_383, 127), (262_143, 7)):
+        big = kary_core.build(np.arange(n_keys + 1, dtype=dtype),
+                              node_width=w, device=cuda)
+        with pytest.raises(ValueError, match="too large"):
+            ops.kary_search(big, qd, lane=lane, tile_rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,w,pd,tile", [
+    (100, 3, 2, 8), (300_000, 15, 2, 128), (100_000, 127, 2, 64)])
+def test_ops_fast_page_search_launches_the_page_kernel_once(cuda, n_keys, w,
+                                                            pd, tile):
+    from repro_torch.core import fast_tree
+    rng = np.random.default_rng(n_keys)
+    keys = np.unique(rng.integers(0, 10**9, n_keys).astype(np.int32))
+    q = np.concatenate([rng.integers(-5, 10**9 + 5, 50_000), keys[:20_000],
+                        np.full(3000, keys[7])]).astype(np.int32)
+    idx = fast_tree.build(keys, node_width=w, page_depth=pd, device=cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    pk.page_search_bucketed.launches = 0
+    got = ops.fast_page_search(idx, qd, tile=tile)
+    assert pk.page_search_bucketed.launches == 1
+    assert np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q))
+    empty = ops.fast_page_search(idx, qd[:0], tile=tile)
+    assert empty.shape == (0,) and pk.page_search_bucketed.launches == 2

@@ -224,14 +224,20 @@ def test_defaults_match_reference():
 @pytest.mark.parametrize("what", ["mutable", "kind", "specialize",
                                   "from_tuned"])
 def test_unported_surface_raises(what):
-    """The other kinds raise naming their ROADMAP item. specialize and
-    from_tuned (once unported) serve: the bound index answers, and
+    """A mutable store over another kind raises naming its ROADMAP item.
+    The other kinds, specialize and from_tuned (once unported) serve:
+    kind="css" builds and answers like numpy, the bound index answers, and
     from_tuned reads a persisted profile, raising FileNotFoundError where
     there is none (the port commits no tuned profile)."""
     keys = np.arange(300, dtype=np.int32)
-    cfg = {"mutable": dict(kind="css", mutable=True),
-           "kind": dict(kind="css")}.get(what)
-    if what == "specialize":
+    cfg = {"mutable": dict(kind="css", mutable=True)}.get(what)
+    if what == "kind":
+        idx = pt_core.build_index(keys[::-1], config=pt_core.IndexConfig(
+            kind="css"), device="cpu")
+        q = np.array([-1, 0, 7, 150, 299, 300], np.int32)
+        np.testing.assert_array_equal(idx.search(q).numpy(),
+                                      np.searchsorted(keys, q))
+    elif what == "specialize":
         idx = pt_core.build_index(keys, config=pt_core.IndexConfig(
             kind="tiered", specialize=True), device="cpu")
         assert idx.impl.search_spec is not None
