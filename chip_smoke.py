@@ -185,7 +185,7 @@ Phases, in order; any failure exits non-zero with its traceback:
         submit that fills and flushes 2^16 queries;
      e. autotune(smoke=True) at 2^24 keys and 2^16 queries into a
         temporary directory, then verify_profile (checked ok), each leg
-        measured 32 times (the tuner's default is 8);
+        measured 128 times (the tuner's default is 8);
  15. the paper's index kinds (Queue 1 item 12A), each built on the card
      over phase 4's 2^24 keys and values, one at a time: binary (linear
      cutoff 1 and 8), css (node_width 128 and 16), kary (127), fast (15,
@@ -214,12 +214,34 @@ Phases, in order; any failure exits non-zero with its traceback:
         the thesis' speedups from each, torch.searchsorted beside them;
         every run checked against numpy. Eager PyTorch compositions, not
         the thesis' generated code. The phase prints its wall time;
- 16. one line {"kernels": [...]} with each kernel's launches, times
+ 16. the flat kinds under the rest of the API, over phase 4's keys and
+     values, one kind of phase 15 at a time, under
+     set_sync_debug_mode("error") against numpy:
+     a. phase 7's entry points at phase 7's shapes through the kinds'
+        rank intervals and FlatAggregator (its build s and device bytes),
+        every result held to numpy as phase 7's; each entry's CUDA-event
+        ms, device ms and launches beside phase 7's tiered ms;
+     b. each kind built with specialize=True: 2^20 and 4,096 lookups, the
+        first call capturing a graph, bit for bit with the args index; ms
+        in turns, host launch calls, capture ms, memory reserved; the
+        NitroGen / base ratios of Fig. 5.1 through the API;
+     c. the mutable store over the default css base (delta capacity
+        1,024): two rounds of phase 10's mix (wholesale folds), 2^20
+        lookups against numpy; µs a write, fold ms, base rebuilds; the
+        host-path scans at phase 7's shapes (the last 64 ranges at hi =
+        INT32_MAX, exact) against numpy; save, restore_index and the
+        restored store's lookups equal to the saved store's;
+     d. qwen3-0.6b at full width over a NitroGen prefix index (mutable and
+        wholesale) beside the tiered store: two rounds of 8 sampled steps
+        through the decode queue; reuse and store counts as phase 9's,
+        tokens equal the tiered store's, one CDF launch a step;
+ 17. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
      the scan kernels the store's launches, times and bound (phase 11),
-     for the CDF kernel its launches on the decode-queue runs, and for
+     for the CDF kernel its launches on the decode-queue runs and on
+     phase 16d's runs, and for
      kernels 1-4 their launches inside phase 14's replays, for kernels 1
      and 2 their launches and times under ops.fast_page_search /
      ops.kary_search (phase 15b); the last line {"ok": true, "device":
@@ -1197,6 +1219,96 @@ def kernel_row(name, mode, launches, args, kw, plain, n_items, real,
     }
 
 
+def scan_oracles(ks, vs, lo, hi, ranges) -> dict:
+    """Numpy's answers to phase 7's entry points (scan_calls) over the
+    sorted keys ks and their int32 values vs: every query's counts, ranks
+    and wrapped sums, min / max on the first N_SUBSET."""
+    n = ks.size
+    cs = np.zeros(n + 1, np.int64)
+    cs[1:] = np.cumsum(vs.astype(np.int64))
+    sub = np.arange(N_SUBSET)
+    r_lo, r_hi, cnt, vsum = range_oracle(ks, cs, lo, hi)
+    mr = r_lo[:N_MAT, None] + np.arange(MAT_K)[None, :]
+    mvalid = np.arange(MAT_K)[None, :] < cnt[:N_MAT, None]
+    e, r_edge, gcnt, gsum = group_oracle(ks, cs, lo[:N_GROUP_RANGES],
+                                         hi[:N_GROUP_RANGES], N_GROUPS)
+    multi = {}
+    for op in ("union", "intersect"):
+        mc, msum, mlo, mhi, pieces = multi_oracle(ks, cs, ranges, op)
+        multi[op] = (mc, msum, mlo, mhi, *pieces_minmax(vs, pieces, sub))
+    return {
+        "range": (r_lo, r_hi, cnt, vsum),
+        "range_minmax": seg_minmax(vs, r_lo[sub], r_hi[sub]),
+        "materialize": (np.where(mvalid, mr, -1),
+                        np.where(mvalid, vs[np.minimum(mr, n - 1)], 0),
+                        cnt[:N_MAT] > MAT_K, cnt[:N_MAT]),
+        "groups": (e, r_edge, gcnt, gsum),
+        "groups_minmax": bucket_minmax(vs, r_edge[:N_SUBSET]),
+        "top_k": topk_oracle(vs, r_edge[:N_TOPK_RANGES], TOP_K,
+                             max(2 * TOP_K, 32)),
+        "multi": multi}
+
+
+def check_scans(res, want: dict, what: str) -> dict:
+    """Each entry point's result (scan_calls' names) against scan_oracles,
+    field for field; ``what`` prefixes the messages. Returns the empty
+    and matching counts of the composite queries."""
+    r_lo, r_hi, cnt, vsum = want["range"]
+    for key in ("scan_range", "scan_range_sum"):
+        r = res[key]
+        same(r.count, cnt, f"{what}{key} count")
+        same(r.r_lo, r_lo, f"{what}{key} r_lo")
+        same(r.r_hi_excl, r_hi, f"{what}{key} r_hi_excl")
+        same(r.vsum, vsum, f"{what}{key} vsum")
+    check(res["scan_range_sum"].vmin is None, "sum depth returned a min")
+    for got, w, f in zip(res["search_range"], (r_lo, r_hi, cnt),
+                         ("r_lo", "r_hi_excl", "count")):
+        same(got, w, f"{what}search_range {f}")
+    mn, mx = want["range_minmax"]
+    same(res["scan_range"].vmin[:N_SUBSET], mn, f"{what}scan_range vmin")
+    same(res["scan_range"].vmax[:N_SUBSET], mx, f"{what}scan_range vmax")
+
+    m = res["scan_range_materialize"]
+    for got, w, f in zip((m.ranks, m.values, m.overflow, m.count),
+                         want["materialize"], ("ranks", "values", "overflow",
+                                               "count")):
+        same(got, w, f"{what}materialize {f}")
+
+    e, r_edge, gcnt, gsum = want["groups"]
+    for key in ("scan_groups_count", "scan_groups_sum", "scan_groups_full"):
+        g = res[key]
+        same(g.edges, e, f"{what}{key} edges")
+        same(g.r_edge, r_edge, f"{what}{key} r_edge")
+        same(g.count, gcnt, f"{what}{key} count")
+        if key != "scan_groups_count":
+            same(g.vsum, gsum, f"{what}{key} vsum")
+    check(res["scan_groups_count"].vsum is None, "count depth gave sums")
+    gmn, gmx = want["groups_minmax"]
+    same(res["scan_groups_full"].vmin[:N_SUBSET], gmn,
+         f"{what}scan_groups vmin")
+    same(res["scan_groups_full"].vmax[:N_SUBSET], gmx,
+         f"{what}scan_groups vmax")
+    t = res["scan_groups_top_k"]
+    topv, topr, over = want["top_k"]
+    same(t.topk_values.reshape(-1, TOP_K), topv, f"{what}top-K values")
+    same(t.topk_ranks.reshape(-1, TOP_K), topr, f"{what}top-K ranks")
+    same(t.overflow.reshape(-1), over, f"{what}top-K overflow")
+    same(t.count, gcnt[:N_TOPK_RANGES], f"{what}top-K bucket counts")
+
+    multi = {}
+    for op in ("union", "intersect"):
+        mc, msum, mlo, mhi, pmn, pmx = want["multi"][op]
+        r = res[f"scan_multi_{op}"]
+        same(r.count, mc, f"{what}scan_multi {op} count")
+        same(r.vsum, msum, f"{what}scan_multi {op} vsum")
+        same(r.r_lo, mlo, f"{what}scan_multi {op} r_lo")
+        same(r.r_hi_excl, mhi, f"{what}scan_multi {op} r_hi_excl")
+        same(r.vmin[:N_SUBSET], pmn, f"{what}scan_multi {op} vmin")
+        same(r.vmax[:N_SUBSET], pmx, f"{what}scan_multi {op} vmax")
+        multi[op] = {"empty": int((mc == 0).sum()), "matches": int(mc.sum())}
+    return multi
+
+
 def scan_calls(index, lo_d, hi_d, r_d) -> dict:
     """Phase 7's entry points at phase 7's shapes, on the immutable index
     (phase 7) or the mutable store (phase 11)."""
@@ -1229,9 +1341,7 @@ def scan_path(dev, rng, idx, ks, vs):
     from repro_torch.kernels import page_scan as ps
     from repro_torch.kernels import page_search as pk
     impl = idx.impl
-    n, tile, P = ks.size, impl.tile, impl.num_pages
-    cs = np.zeros(n + 1, np.int64)
-    cs[1:] = np.cumsum(vs.astype(np.int64))
+    tile, P = impl.tile, impl.num_pages
     lo, hi = scan_ranges(rng, ks, N_RANGES)
     ranges = multi_ranges(rng, ks, N_MULTI, MULTI_R)
     lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in (lo, hi))
@@ -1267,64 +1377,9 @@ def scan_path(dev, rng, idx, ks, vs):
           "through the k-ary kernel")
 
     # ---- every query: counts, ranks, wrapped int32 sums
-    r_lo, r_hi, cnt, vsum = range_oracle(ks, cs, lo, hi)
-    for key in ("scan_range", "scan_range_sum"):
-        r = res[key]
-        same(r.count, cnt, f"{key} count")
-        same(r.r_lo, r_lo, f"{key} r_lo")
-        same(r.r_hi_excl, r_hi, f"{key} r_hi_excl")
-        same(r.vsum, vsum, f"{key} vsum")
-    check(res["scan_range_sum"].vmin is None, "sum depth returned a min")
-    for got, want, f in zip(res["search_range"], (r_lo, r_hi, cnt),
-                            ("r_lo", "r_hi_excl", "count")):
-        same(got, want, f"search_range {f}")
-    sub = np.arange(N_SUBSET)
-    mn, mx = seg_minmax(vs, r_lo[sub], r_hi[sub])
-    same(res["scan_range"].vmin[:N_SUBSET], mn, "scan_range vmin")
-    same(res["scan_range"].vmax[:N_SUBSET], mx, "scan_range vmax")
-
-    m = res["scan_range_materialize"]
-    mr = r_lo[:N_MAT, None] + np.arange(MAT_K)[None, :]
-    mvalid = np.arange(MAT_K)[None, :] < cnt[:N_MAT, None]
-    same(m.ranks, np.where(mvalid, mr, -1), "materialized ranks")
-    same(m.values, np.where(mvalid, vs[np.minimum(mr, n - 1)], 0),
-         "materialized values")
-    same(m.overflow, cnt[:N_MAT] > MAT_K, "materialize overflow")
-    same(m.count, cnt[:N_MAT], "materialize count")
-
-    e, r_edge, gcnt, gsum = group_oracle(ks, cs, lo[:N_GROUP_RANGES],
-                                         hi[:N_GROUP_RANGES], G)
-    for key in ("scan_groups_count", "scan_groups_sum", "scan_groups_full"):
-        g = res[key]
-        same(g.edges, e, f"{key} edges")
-        same(g.r_edge, r_edge, f"{key} r_edge")
-        same(g.count, gcnt, f"{key} count")
-        if key != "scan_groups_count":
-            same(g.vsum, gsum, f"{key} vsum")
-    check(res["scan_groups_count"].vsum is None, "count depth gave sums")
-    gmn, gmx = bucket_minmax(vs, r_edge[:N_SUBSET])
-    same(res["scan_groups_full"].vmin[:N_SUBSET], gmn, "scan_groups vmin")
-    same(res["scan_groups_full"].vmax[:N_SUBSET], gmx, "scan_groups vmax")
-    t = res["scan_groups_top_k"]
-    C = max(2 * TOP_K, 32)
-    topv, topr, over = topk_oracle(vs, r_edge[:N_TOPK_RANGES], TOP_K, C)
-    same(t.topk_values.reshape(-1, TOP_K), topv, "top-K values")
-    same(t.topk_ranks.reshape(-1, TOP_K), topr, "top-K ranks")
-    same(t.overflow.reshape(-1), over, "top-K overflow")
-    same(t.count, gcnt[:N_TOPK_RANGES], "top-K bucket counts")
-
-    multi = {}
-    for op in ("union", "intersect"):
-        mc, msum, mlo, mhi, pieces = multi_oracle(ks, cs, ranges, op)
-        r = res[f"scan_multi_{op}"]
-        same(r.count, mc, f"scan_multi {op} count")
-        same(r.vsum, msum, f"scan_multi {op} vsum")
-        same(r.r_lo, mlo, f"scan_multi {op} r_lo")
-        same(r.r_hi_excl, mhi, f"scan_multi {op} r_hi_excl")
-        pmn, pmx = pieces_minmax(vs, pieces, sub)
-        same(r.vmin[:N_SUBSET], pmn, f"scan_multi {op} vmin")
-        same(r.vmax[:N_SUBSET], pmx, f"scan_multi {op} vmax")
-        multi[op] = {"empty": int((mc == 0).sum()), "matches": int(mc.sum())}
+    want = scan_oracles(ks, vs, lo, hi, ranges)
+    multi = check_scans(res, want, "")
+    cnt = want["range"][2]
 
     # ---- times: each entry point, its stages, each kernel and mode
     sc = scan.scanner_for(impl, idx.values_sorted)
@@ -3008,11 +3063,12 @@ GATE_LEAF_WIDTHS = (None, 4096)          # None: the planner's 2048
 SPEC_TIMED_REPS = 15
 # Reps of each measured leg of the autotuner (its default is 8). The
 # lookup p50s of a sweep's trials span about three sqrt-2 buckets on the
-# card (host dispatch jitter, experiments/tune_verify_spread.py), and the
-# median of 8 once moved two buckets between a sweep and its verify, so
-# here the sweep and verify_profile take the median of 32 (the rule, 10%
-# or one bucket, is unchanged).
-TUNE_REPS = 32
+# card (host dispatch jitter), and a median moves two buckets between a
+# sweep and its verify_profile in 2 of 4 sweeps at 32 reps, 1 of 4 at 64
+# and none of 4 at 128 (experiments/tune_verify_spread.py --reps 32 64
+# 128 --runs 4 on an H100), so here both take the median of 128 (the
+# rule, 10% or one bucket, is unchanged).
+TUNE_REPS = 128
 
 
 class ReplayRecorder:
@@ -3949,6 +4005,296 @@ def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
     return out, fast_row, kary_rows
 
 
+# --------------------------------------------------------------- phase 16
+# The flat kinds (phase 15's configurations) under the rest of the API:
+# their scans through FlatAggregator, their specialized form, the mutable
+# store over a css base with its host-path scans and "flat" snapshot, and
+# serving over a NitroGen prefix index.
+FLAT_SPEC_BATCHES = (N_QUERIES, 4096)
+FLAT_STORE_ROUNDS = 2
+FLAT_SERVE_STEPS = 8
+FLAT_RATIOS = (("ng_l3_binary", "binary_c8"), ("ng_l3_css16", "css_w16"))
+
+
+def flat_scan_run(dev, name, idx, calls, want, tiered_ms) -> dict:
+    """16a on one kind: the FlatAggregator's build, phase 7's entry points
+    warmed, then run under sync-debug "error" and held to numpy; each
+    entry's CUDA-event ms, device ms and launches beside the tiered
+    index's (phase 7)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fa = idx._flat_agg()
+    torch.cuda.synchronize()
+    row = {"flat_agg_build_s": time.perf_counter() - t0,
+           "flat_agg_device_bytes": fa.device_bytes,
+           "flat_agg_allocated_bytes": torch.cuda.memory_allocated() - base}
+    for fn in calls.values():
+        fn()
+    res = no_sync(lambda: {k: fn() for k, fn in calls.items()})
+    check_scans(res, want, f"{name} ")
+    entries = {}
+    for k, fn in calls.items():
+        prof = launch_profile(fn)
+        entries[k] = {"ms": cuda_ms(fn, reps=5, warmup=1),
+                      "device_ms": prof["kernels_ms"],
+                      "device_kernels": prof["device_kernels"],
+                      "host_launches": prof["host_launches"],
+                      "tiered_ms": tiered_ms.get(f"{k}_ms")}
+    row["entries"] = entries
+    return row
+
+
+def flat_spec_run(dev, name, cfg, args, keys_sorted, values_sorted,
+                  q_dev) -> dict:
+    """16b on one kind: built with specialize=True; for each batch size
+    the first call (the capture) and the replays under sync-debug "error",
+    bit for bit with the args index; ms in turns, host launch calls a
+    call, capture ms and the memory reserved before and after."""
+    from repro_torch import IndexConfig, build_index
+    spec = build_index(keys_sorted, values_sorted,
+                       IndexConfig(**cfg, specialize=True))
+    row = {}
+    for b in FLAT_SPEC_BATCHES:
+        q = q_dev[:b].contiguous()
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.max_memory_reserved()
+        t0 = time.perf_counter()
+        first = no_sync(lambda: spec.lookup(q))
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        reserved1 = torch.cuda.max_memory_reserved()
+        again = no_sync(lambda: spec.lookup(q))
+        want = args.lookup(q)
+        same_fields(first, want, f"{name} specialized lookup (capture)")
+        same_fields(again, want, f"{name} specialized lookup (replay)")
+        times = in_turns({"args": lambda: args.lookup(q),
+                          "spec": lambda: spec.lookup(q)}, reps=7)
+        prof = {k: launch_profile(fn) for k, fn in (
+            ("args", lambda: args.lookup(q)),
+            ("spec", lambda: spec.lookup(q)))}
+        row[str(b)] = {
+            "lookup_ms": times, "capture_ms": capture_ms,
+            "max_memory_reserved_before_after": [reserved0, reserved1],
+            "host_launches": {k: p["host_launches"] for k, p in prof.items()},
+            "device_ms": {k: p["kernels_ms"] for k, p in prof.items()}}
+    check(spec.captures.n == len(FLAT_SPEC_BATCHES),
+          f"{name}: {spec.captures.n} graphs for {len(FLAT_SPEC_BATCHES)} "
+          "batch shapes")
+    row["captures"] = spec.captures.n
+    return row
+
+
+def flat_kinds_path(dev, keys_sorted, values_sorted, tiered_ms) -> dict:
+    """16a and 16b: each kind of phase 15 built over phase 4's keys, one at
+    a time, freed before the next."""
+    from repro_torch import IndexConfig, build_index
+    rng = np.random.default_rng(16)
+    lo, hi = scan_ranges(rng, keys_sorted, N_RANGES)
+    ranges = multi_ranges(rng, keys_sorted, N_MULTI, MULTI_R)
+    want = scan_oracles(keys_sorted, values_sorted, lo, hi, ranges)
+    lo_d, hi_d, r_d = (torch.from_numpy(x).to(dev) for x in (lo, hi, ranges))
+    q = mixed_queries(rng, keys_sorted, N_QUERIES)
+    check_lookup_want = oracle(keys_sorted, values_sorted, q)
+    q_dev = torch.from_numpy(q).to(dev)
+    out = {}
+    for name, cfg in KIND_CONFIGS:
+        t0 = time.perf_counter()
+        idx = build_index(keys_sorted, values_sorted, IndexConfig(**cfg))
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t0}
+        check_lookup(no_sync(lambda: idx.lookup(q_dev)), check_lookup_want,
+                     f"{name} lookup")
+        row.update(flat_scan_run(dev, name, idx,
+                                 scan_calls(idx, lo_d, hi_d, r_d), want,
+                                 tiered_ms))
+        row["specialized"] = flat_spec_run(dev, name, cfg, idx, keys_sorted,
+                                           values_sorted, q_dev)
+        del idx
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out[name] = row
+        print(f"phase 16a/b: {name} " + json.dumps(row), flush=True)
+    for a, b in FLAT_RATIOS:
+        out[f"{a}/{b}"] = {
+            str(n): [min(out[a]["specialized"][str(n)]["lookup_ms"][k])
+                     / min(out[b]["specialized"][str(n)]["lookup_ms"][k])
+                     for k in ("args", "spec")]
+            for n in FLAT_SPEC_BATCHES}
+    return out
+
+
+def flat_store_path(dev, rng, keys_sorted, values_sorted) -> dict:
+    """16c: the mutable store over the default css base at phase 4's size:
+    two rounds of phase 10's mix (every fold a wholesale rebuild), 2^20
+    lookups under sync-debug "error" against numpy, the host-path scans
+    at phase 7's shapes (64 ranges at hi = INT32_MAX) against numpy, then
+    save, restore_index and the restored store's lookups equal to the
+    saved one's."""
+    import tempfile
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.core import restore_index
+    cfg = IndexConfig(mutable=True, delta_capacity=1024)
+    t0 = time.perf_counter()
+    store = build_index(keys_sorted, values_sorted, cfg)
+    torch.cuda.synchronize()
+    out = {"kind": cfg.kind, "build_s": time.perf_counter() - t0,
+           "rounds": []}
+    check(store.stats["base_rebuilds"] == 1 and store._host_scans,
+          "the css store's base")
+    ok, ov = keys_sorted, values_sorted
+    for r in range(FLAT_STORE_ROUNDS):
+        new_k = fresh_keys(rng, ok, I32.min + 1, I32.max - 1, STORE_NEW)
+        pick = rng.choice(ok.size, STORE_UPSERTS + STORE_DELETES,
+                          replace=False)
+        up_k, del_k = ok[pick[:STORE_UPSERTS]], ok[pick[STORE_UPSERTS:]]
+        ins_k = rng.permutation(np.concatenate([new_k, up_k]))
+        ins_v = rng.integers(I32.min + 1, I32.max, ins_k.size,
+                             dtype=np.int64).astype(np.int32)
+        rebuilds0 = store.stats["base_rebuilds"]
+        t0 = time.perf_counter()
+        store.insert(ins_k, ins_v)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        store.delete(del_k)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        folded = store.maintain()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ok, ov = store_oracle_write(ok, ov, ins_k, ins_v, del_k)
+        half = N_QUERIES // 2
+        written = np.concatenate([ins_k, del_k])
+        q = rng.permutation(np.concatenate([
+            ok[rng.integers(0, ok.size, half)],
+            written[rng.integers(0, written.size, half // 2)],
+            rng.integers(I32.min + 1, I32.max - 1, half // 2,
+                         dtype=np.int64).astype(np.int32)]))
+        q_dev = torch.from_numpy(q).to(dev)
+        res = no_sync(lambda: store.lookup(q_dev))
+        pos = np.minimum(np.searchsorted(ok, q), ok.size - 1)
+        want_found = ok[pos] == q
+        found = res.found.cpu().numpy()
+        check(np.array_equal(found, want_found), f"flat store round {r}: "
+              "found")
+        check(np.array_equal(res.values.cpu().numpy()[found],
+                             ov[pos][found]), f"flat store round {r}: values")
+        check(store.n == ok.size, f"flat store round {r}: n")
+        check(store.pop_plan_feedback() is None, "a flat base gave plan "
+              "feedback")
+        out["rounds"].append({
+            "insert_us_per_op": (t1 - t0) * 1e6 / ins_k.size,
+            "delete_us_per_op": (t2 - t1) * 1e6 / del_k.size,
+            "fold_ms": (t3 - t2) * 1e3 if folded else None,
+            "base_rebuilds": store.stats["base_rebuilds"] - rebuilds0,
+            "n": int(ok.size)})
+    out["stats"] = dict(store.stats)
+    out["lookup_ms"] = cuda_ms(lambda: store.lookup(q_dev), reps=7)
+    prof = launch_profile(lambda: store.lookup(q_dev))
+    out["lookup_device_ms"] = prof["kernels_ms"]
+    out["lookup_device_kernels"] = prof["device_kernels"]
+    for k in ("insert_us_per_op", "delete_us_per_op", "fold_ms"):
+        out[k] = float(np.median([x[k] for x in out["rounds"]
+                                  if x[k] is not None]))
+
+    # ---- host-path scans over the live merged view
+    lo, hi = scan_ranges(rng, ok, N_RANGES)
+    hi[-N_SENTINEL_RANGES:] = I32.max        # exact on the host path
+    ranges = multi_ranges(rng, ok, N_MULTI, MULTI_R)
+    want = scan_oracles(ok, ov, lo, hi, ranges)
+    lo_d, hi_d, r_d = (torch.from_numpy(x).to(dev) for x in (lo, hi, ranges))
+    calls = scan_calls(store, lo_d, hi_d, r_d)
+    t0 = time.perf_counter()
+    res = no_sync(lambda: {k: fn() for k, fn in calls.items()})
+    out["first_scans_s"] = time.perf_counter() - t0   # the snapshot build
+    check_scans(res, want, "flat store ")
+    out["sentinel_rows_count"] = int(
+        res["scan_range"].count[-N_SENTINEL_RANGES:].sum())
+    out["scan_ms"] = {k: cuda_ms(fn, reps=5, warmup=1)
+                      for k, fn in calls.items()}
+
+    # ---- durability
+    d = tempfile.mkdtemp(prefix="chip_smoke_flat_")
+    try:
+        q_dev = torch.from_numpy(mixed_queries(rng, ok, N_QUERIES)).to(dev)
+        before = store.lookup(q_dev)
+        t0 = time.perf_counter()
+        store.save(d)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = restore_index(d, cfg)
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        out["save_bytes"] = sum(os.path.getsize(os.path.join(dp, f))
+                                for dp, _, fs in os.walk(d) for f in fs)
+        same_fields(no_sync(lambda: back.lookup(q_dev)), before,
+                    "restored flat store lookup")
+        check(back.n == store.n, "restored flat store n")
+        back.close()
+        store.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def flat_serve_path(dev, seed: int) -> tuple:
+    """16d: qwen3-0.6b at full width served over a NitroGen prefix index
+    (the launcher's --index nitrogen: 2 levels of 3 separators), mutable
+    and wholesale, beside the tiered store: phase 9's prompts, two rounds
+    of FLAT_SERVE_STEPS sampled steps through the decode queue, the CDF
+    kernel's launches counted from 0; reuse and store counts as phase 9's
+    (the reference launcher's), tokens equal the tiered store's."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import IndexConfig
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    cfg = get_config(SERVE_ARCH)
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    prompts = make_prompts(cfg.vocab)
+    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
+    steps = FLAT_SERVE_STEPS * SERVE_ROUNDS
+    out, toks = {}, {}
+    for name, kw, want_store in (
+            ("tiered", dict(kind="tiered", mutable=True), WANT_STORE_MUTABLE),
+            ("nitrogen_mutable", dict(kind="nitrogen", levels=2,
+                                      compiled_node_width=3, mutable=True),
+             WANT_STORE_MUTABLE),
+            ("nitrogen_wholesale", dict(kind="nitrogen", levels=2,
+                                        compiled_node_width=3),
+             WANT_STORE)):
+        with obs.use_registry():
+            eng = ServeEngine(cfg, params, max_len=256, page_size=16,
+                              index_config=IndexConfig(**kw), sampler=scfg)
+            gen = torch.Generator(dev).manual_seed(seed)
+            cs.cdf_search.launches = 0
+            toks[name] = torch.cat([eng.generate(prompts, FLAT_SERVE_STEPS,
+                                                 generator=gen)
+                                    for _ in range(SERVE_ROUNDS)], dim=1)
+            torch.cuda.synchronize()
+            launches = cs.cdf_search.launches
+            st = eng.stats
+            probe_batches = st.probe_batches
+        reuse = (st.prefill_tokens, st.reused_tokens)
+        check(reuse == WANT_REUSE, f"16d {name}: prefill computed/reused "
+              f"{reuse}")
+        check(dict(eng.store.stats) == want_store,
+              f"16d {name}: store stats {eng.store.stats}")
+        check(launches == steps, f"16d {name}: {launches} cdf_search "
+              f"launches in {steps} steps")
+        out[name] = {"prefill_computed_reused": list(reuse),
+                     "prefix_store": dict(eng.store.stats),
+                     "cdf_launches": launches,
+                     "prefill_ms": st.prefill_s * 1e3,
+                     "decode_ms_per_step": st.decode_s / steps * 1e3,
+                     "probe_batches": probe_batches}
+    for name in ("nitrogen_mutable", "nitrogen_wholesale"):
+        check(torch.equal(toks[name], toks["tiered"]), f"16d {name}: tokens "
+              "differ from the tiered store's")
+    return out, {k: out[k]["cdf_launches"] for k in out}
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -4052,6 +4398,17 @@ def main() -> int:
     kinds15, fast_row, kary_rows = kinds_path(dev, keys_sorted,
                                               values_sorted)
     print("phase 15: index kinds " + json.dumps(kinds15), flush=True)
+    t16 = time.perf_counter()
+    flat16 = flat_kinds_path(dev, keys_sorted, values_sorted, scan_main)
+    print("phase 16b: specialized / base lookup_ms " + json.dumps(
+        {k: v for k, v in flat16.items() if "/" in k}), flush=True)
+    print("phase 16c: flat store " + json.dumps(flat_store_path(
+        dev, np.random.default_rng(args.seed + 16), keys_sorted,
+        values_sorted)), flush=True)
+    serve16, cdf16 = flat_serve_path(dev, args.seed)
+    print("phase 16d: serving over nitrogen " + json.dumps(serve16),
+          flush=True)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -4089,6 +4446,7 @@ def main() -> int:
     cdf_row["decode_queue_launches"] = {
         k: {"launches": v["cdf_launches"], "flushes": v["decode_flushes"]}
         for k, v in decode13["runs"].items() if k != "inline"}
+    cdf_row["flat_index_serve_launches"] = cdf16      # phase 16d
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

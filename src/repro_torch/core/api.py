@@ -4,43 +4,42 @@
     idx = build_index(keys, values)  # the default kind, css, on cuda
     hit = idx.lookup(queries)        # -> LookupResult(rank, found, values)
     r_lo, r_hi_excl, count = idx.search_range(lo, hi)
-    idx = build_index(keys, values, IndexConfig(kind="tiered"))
     r = idx.scan_range(lo, hi)       # -> engine.scan.ScanResult
-    store = build_index(keys, values, IndexConfig(kind="tiered",
-                                                  mutable=True))
+    store = build_index(keys, values, IndexConfig(mutable=True))
     store.insert(new_keys, new_values); store.delete(old_keys)
     store.save(ckpt_dir); store = restore_index(ckpt_dir)
 
 Every kind of the reference builds: ``binary``, ``css``, ``kary``,
 ``fast``, ``nitrogen`` (the paper's structures, ``core/``) and ``tiered``
-(the batch engine, ``engine/tiered.py``). ``build_index`` places the index
-on the CUDA card unless the caller passes ``device``; without a card it
-raises unless ``device="cpu"``. With ``IndexConfig(specialize=True)`` a
-tiered index is bound into its dispatches (DESIGN.md §10): CUDA graphs on
-the card, one per batch shape (``engine/capture.py``).
-``IndexConfig.from_tuned`` reads a profile the autotuner persisted
-(``repro_torch.tune``). What is not ported yet (the scans, the mutable
-store and specialization over the kinds other than tiered) raises
-``NotImplementedError`` naming the ROADMAP item that brings it; none
-falls back to something else.
+(the batch engine, ``engine/tiered.py``), each under the whole API: the
+range scans (the tiered kind's fused span scan; the other kinds' rank
+intervals aggregated by ``engine.scan.FlatAggregator``), the mutable
+store over it (``engine/store.py``) and specialization.
+``build_index`` places the index on the CUDA card unless the caller
+passes ``device``; without a card it raises unless ``device="cpu"``. With
+``IndexConfig(specialize=True)`` an index is bound into its dispatches
+(DESIGN.md §10): CUDA graphs on the card, one per batch shape
+(``engine/capture.py``); a tiered index binds its pipeline, the other
+kinds their searcher. ``IndexConfig.from_tuned`` reads a profile the
+autotuner persisted (``repro_torch.tune``).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..engine import scan, tiered
-from ..engine.capture import Specialized
+from ..engine import groupby, scan, tiered
+from ..engine.capture import Captures, Specialized
 from ..obs import timed_op
 from . import css_tree, fast_tree, kary, nitrogen, sorted_array
-from .util import as_queries, not_ported, resolve_device
+from .util import as_queries, numpy_dtype, resolve_device, upload_async
 
 KINDS = ("binary", "css", "kary", "fast", "nitrogen", "tiered")
 PORTED_KINDS = KINDS
-ITEM_12B = "item 12B (the other kinds under the rest of the API)"
 
 
 @dataclass(frozen=True)
@@ -157,9 +156,22 @@ class Index:
     keys_sorted: torch.Tensor
     values_sorted: Optional[torch.Tensor]
     n: int
+    # specialize=True over a kind other than tiered: its searcher bound to
+    # the built arrays (the tiered kind binds its pipeline on the impl)
+    spec_search: Optional[Specialized] = None
 
     def search(self, queries) -> torch.Tensor:
+        if self.spec_search is not None:
+            return self.spec_search(as_queries(queries, self.keys_sorted))
         return _MODULES[self.config.kind].search(self.impl, queries)
+
+    @property
+    def captures(self) -> Optional[Captures]:
+        """The specialized index's count of graphs captured on the card
+        (closures armed on the CPU); None when it is not specialized."""
+        if self.spec_search is not None:
+            return self.spec_search.captures
+        return self.impl.captures if self.config.specialize else None
 
     def lookup(self, queries) -> LookupResult:
         q = as_queries(queries, self.keys_sorted)
@@ -226,12 +238,40 @@ class Index:
         match count, rank interval and, when the index carries
         int32/float32 values, their sum / min / max, without materializing
         matches. ``aggs`` (e.g. ``("count", "sum")``) caps the pushdown
-        depth: the kernel then reads and computes strictly less.
+        depth: the tiered kernel then reads and computes strictly less.
         ``materialize=K`` also returns the first K matching ranks (and
-        values) per query with an overflow flag. Returns
-        ``engine.scan.ScanResult``."""
-        return self._scanner().scan_range(lo, hi, aggs=aggs,
-                                          materialize=materialize)
+        values) per query with an overflow flag. ``kind='tiered'`` runs the
+        fused span scan; the other kinds aggregate the rank intervals of
+        :meth:`search_range` (prefix and sparse-table lookups, O(1) a
+        query). Returns ``engine.scan.ScanResult``."""
+        if self.config.kind == "tiered":
+            return self._scanner().scan_range(lo, hi, aggs=aggs,
+                                              materialize=materialize)
+        mode = scan.mode_for_aggs(aggs)       # validates the names, caps
+        r_lo, r_hi_excl, cnt = (x.int() for x in self.search_range(lo, hi))
+        vsum = vmin = vmax = None
+        if mode != "count" and self.values_sorted is not None:
+            fa = self._flat_agg()
+            if fa.ok:
+                vsum, vmin, vmax = scan.at_depth(mode, *fa(r_lo, r_hi_excl))
+        res = scan.ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi_excl,
+                              vsum=vsum, vmin=vmin, vmax=vmax)
+        if materialize is None:
+            return res
+        ranks, vals, over = scan.materialize_interval(
+            r_lo, cnt, self.values_sorted, K=int(materialize))
+        return dataclasses.replace(res, ranks=ranks, values=vals,
+                                   overflow=over)
+
+    def _flat_agg(self) -> scan.FlatAggregator:
+        """The kind's FlatAggregator over ``values_sorted``, built on first
+        use and kept on the index (at 2^24 keys its sparse tables hold
+        about 3.3 GB, paid once an index)."""
+        fa = getattr(self, "_flat_aggregator", None)
+        if fa is None:
+            fa = scan.FlatAggregator(self.values_sorted)
+            object.__setattr__(self, "_flat_aggregator", fa)
+        return fa
 
     def scan_groups(self, lo, hi, num_groups, *, aggs=None,
                     top_k: Optional[int] = None,
@@ -240,24 +280,97 @@ class Index:
         ``num_groups`` equal-width key buckets with per-bucket count / sum /
         min / max (``aggs`` caps the depth) and optional per-bucket
         ``top_k`` values (``candidates`` bounds the window read per
-        bucket). Count/sum ride a (G+1)-edge prefix pipeline that never
-        scans interior pages. Returns ``engine.groupby.GroupScanResult``."""
-        return self._scanner().scan_groups(lo, hi, num_groups, aggs=aggs,
-                                           top_k=top_k,
-                                           candidates=candidates)
+        bucket). On the tiered kind count/sum ride a (G+1)-edge prefix
+        pipeline that never scans interior pages; the other kinds search
+        the G+1 edges and aggregate adjacent rank intervals. Returns
+        ``engine.groupby.GroupScanResult``."""
+        if self.config.kind == "tiered":
+            return self._scanner().scan_groups(lo, hi, num_groups, aggs=aggs,
+                                               top_k=top_k,
+                                               candidates=candidates)
+        mode = scan.mode_for_aggs(aggs)
+        kd = numpy_dtype(self.keys_sorted.dtype)
+        lo = as_queries(lo, self.keys_sorted)
+        hi = as_queries(hi, self.keys_sorted)
+        G = int(num_groups)
+        if not 1 <= G <= groupby.MAX_GROUPS:
+            raise ValueError(f"num_groups must be in [1, {groupby.MAX_GROUPS}]"
+                             f", got {num_groups}")
+        K = C = None
+        if top_k is not None:
+            K = int(top_k)
+            if K < 1:
+                raise ValueError(f"top_k must be positive, got {top_k}")
+            if self.values_sorted is None:
+                raise ValueError("top_k needs an index built with values")
+            C = max(int(candidates) if candidates is not None
+                    else max(2 * K, 32), K)
+        # the bucket edges are searchsorted-left probes by construction
+        # (bucket g = [e_g, e_{g+1})), so G+1 point searches give every
+        # r_edge; counts and aggregates are adjacent-edge differences
+        edges = groupby.group_edges(lo, hi, G, kd)
+        r_edge = self.search(edges.reshape(-1)).int().reshape(-1, G + 1)
+        cnt = torch.diff(r_edge, dim=1)
+        vsum = vmin = vmax = None
+        if mode != "count" and self.values_sorted is not None:
+            fa = self._flat_agg()
+            if fa.ok:
+                vs, mn, mx = fa(r_edge[:, :-1].reshape(-1),
+                                r_edge[:, 1:].reshape(-1))
+                vsum = vs.reshape(-1, G)
+                if mode == "full":
+                    vmin, vmax = mn.reshape(-1, G), mx.reshape(-1, G)
+        res = groupby.GroupScanResult(count=cnt, edges=edges, r_edge=r_edge,
+                                      vsum=vsum, vmin=vmin, vmax=vmax)
+        if K is None:
+            return res
+        ranks, vals, over = scan.materialize_interval(
+            r_edge[:, :-1].reshape(-1), cnt.reshape(-1), self.values_sorted,
+            K=C)
+        topv, topr = groupby.masked_topk(vals, ranks, cnt.reshape(-1), K)
+        return dataclasses.replace(
+            res, topk_values=topv.reshape(-1, G, K),
+            topk_ranks=topr.reshape(-1, G, K), overflow=over.reshape(-1, G))
 
     def scan_multi(self, ranges, *, op: str = "union", aggs=None):
         """Composite multi-range predicates: ``ranges`` is [Q, R, 2]
         inclusive (lo, hi) pairs per query, combined as a union (IN-list of
-        ranges) or an intersection (conjunctive predicate). Returns
-        ``engine.scan.ScanResult`` whose r_lo/r_hi_excl are the rank hull
-        of the matching set."""
-        return self._scanner().scan_multi(ranges, op=op, aggs=aggs)
+        ranges) or an intersection (conjunctive predicate). The
+        coverage-count decomposition turns each predicate into at most R
+        disjoint ranges, aggregated by the tiered kind's fused scan or by
+        the other kinds' rank intervals. Returns ``engine.scan.ScanResult``
+        whose r_lo/r_hi_excl are the rank hull of the matching set."""
+        if self.config.kind == "tiered":
+            return self._scanner().scan_multi(ranges, op=op, aggs=aggs)
+        if op not in groupby.MULTI_OPS:
+            raise ValueError(f"unknown multi-range op {op!r}; "
+                             f"want one of {groupby.MULTI_OPS}")
+        kd = numpy_dtype(self.keys_sorted.dtype)
+        r = as_queries(ranges, self.keys_sorted)
+        if r.dim() != 3 or r.shape[-1] != 2:
+            raise ValueError(f"ranges must be [Q, R, 2], got "
+                             f"{tuple(r.shape)}")
+        R = int(r.shape[1])
+        if R < 1:
+            raise ValueError("ranges needs at least one range per query")
+        mode = scan.mode_for_aggs(aggs)
+        slo, shi = groupby.coverage_ranges(r[..., 0], r[..., 1], op=op,
+                                           key_dtype=kd)
+        r_lo, r_hi, cnt = (x.int() for x in self.search_range(
+            slo.reshape(-1), shi.reshape(-1)))
+        vs = mn = mx = None
+        mode_eff = "count"
+        if mode != "count" and self.values_sorted is not None:
+            fa = self._flat_agg()
+            if fa.ok:
+                vs, mn, mx = fa(r_lo, r_hi)
+                mode_eff = mode
+        count, vsum, vmin, vmax, hlo, hhi = groupby._multi_reduce(
+            R, mode_eff, cnt, vs, mn, mx, r_lo, r_hi)
+        return scan.ScanResult(count=count, r_lo=hlo, r_hi_excl=hhi,
+                               vsum=vsum, vmin=vmin, vmax=vmax)
 
     def _scanner(self):
-        if self.config.kind != "tiered":
-            raise not_ported(f"scans on kind={self.config.kind!r} "
-                             "(FlatAggregator)", ITEM_12B)
         return scan.scanner_for(self.impl, self.values_sorted)
 
     def delete(self, keys):
@@ -288,19 +401,6 @@ _MODULES = {                     # the searcher module of each kind
     "nitrogen": nitrogen,
     "tiered": tiered,
 }
-
-
-def check_ported(config: IndexConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item when
-    ``config`` asks for an option the port does not have yet: the mutable
-    store or specialization over a kind other than tiered."""
-    if config.kind == "tiered":
-        return
-    if config.mutable:
-        raise not_ported(f"mutable=True over kind={config.kind!r}", ITEM_12B)
-    if config.specialize:
-        raise not_ported(f"specialize=True with kind={config.kind!r}",
-                         ITEM_12B)
 
 
 def _build_impl(srt: np.ndarray, c: IndexConfig, device):
@@ -334,7 +434,6 @@ def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
     ``config.mutable`` it returns the delta-merge store,
     ``engine.store.MutableIndex`` (lookup, insert, delete, maintain),
     which also accepts an empty initial key set."""
-    check_ported(config)
     device = resolve_device(device)
     if config.mutable:
         from ..engine.store import MutableIndex
@@ -347,10 +446,18 @@ def build_index(keys, values=None, config: IndexConfig = IndexConfig(),
         values = np.asarray(values)
         if values.shape[0] != keys.shape[0]:
             raise ValueError("values must align with keys")
-        vals = torch.from_numpy(values[order]).to(device)
-    return Index(config=config, impl=_build_impl(srt, config, device),
-                 keys_sorted=torch.from_numpy(srt).to(device),
-                 values_sorted=vals, n=int(srt.size))
+        vals = upload_async(values[order], device)
+    impl = _build_impl(srt, config, device)
+    spec = None
+    if config.specialize and config.kind != "tiered":
+        # the reference jits one closure over the built arrays; here the
+        # searcher is bound to them (a graph per query shape on the card)
+        mod = _MODULES[config.kind]
+        spec = Specialized(lambda q: mod.search(impl, q), device=device,
+                           captures=Captures())
+    return Index(config=config, impl=impl,
+                 keys_sorted=upload_async(srt, device),
+                 values_sorted=vals, n=int(srt.size), spec_search=spec)
 
 
 def restore_index(ckpt_dir: str, config: IndexConfig = IndexConfig(
@@ -362,7 +469,6 @@ def restore_index(ckpt_dir: str, config: IndexConfig = IndexConfig(
     (DESIGN.md §6.5). Reads directories the reference wrote."""
     if not config.mutable:
         raise ValueError("restore_index requires IndexConfig(mutable=True)")
-    check_ported(config)
     from ..engine.store import MutableIndex
     return MutableIndex.restore(ckpt_dir, config,
                                 device=resolve_device(device))

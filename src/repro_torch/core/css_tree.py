@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
-                   resolve_device, sentinel_for, take_rows)
+                   resolve_device, sentinel_for, take_rows, upload_async)
 
 INTRAS = ("vector", "binary")
 
@@ -87,9 +87,9 @@ def build(keys, node_width: int = 128, leaf_width: int | None = None,
     num_leaves = (node_width + 1) ** depth
     leaf_pad = pad_to(srt, num_leaves * leaf_width)
     return CSSTreeIndex(
-        keys=torch.from_numpy(srt).to(device),
-        leaf_pad=torch.from_numpy(leaf_pad).to(device),
-        dir_keys=torch.from_numpy(dir_keys).to(device),
+        keys=upload_async(srt, device),
+        leaf_pad=upload_async(leaf_pad, device),
+        dir_keys=upload_async(dir_keys, device),
         level_offsets=offsets, n=int(srt.size), node_width=int(node_width),
         leaf_width=int(leaf_width), depth=int(depth), intra=intra,
     )

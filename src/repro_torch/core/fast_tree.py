@@ -22,7 +22,7 @@ import torch
 
 from .css_tree import _directory, leaf_rank
 from .util import (as_queries, as_sorted_numpy, by_chunks, pad_to,
-                   resolve_device, take_rows)
+                   resolve_device, take_rows, upload_async)
 
 
 @dataclass(frozen=True)
@@ -96,9 +96,9 @@ def build(keys, node_width: int = 128, leaf_width: int | None = None,
     pages = np.concatenate(chunks) if chunks else np.empty(0, dtype=srt.dtype)
     leaf_pad = pad_to(srt, f**depth * leaf_width)
     return FastTreeIndex(
-        keys=torch.from_numpy(srt).to(device),
-        leaf_pad=torch.from_numpy(leaf_pad).to(device),
-        pages=torch.from_numpy(pages).to(device),
+        keys=upload_async(srt, device),
+        leaf_pad=upload_async(leaf_pad, device),
+        pages=upload_async(pages, device),
         group_offsets=tuple(group_offsets), group_depths=tuple(group_depths),
         n=int(srt.size), node_width=int(node_width),
         leaf_width=int(leaf_width), depth=int(depth),

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
-                   resolve_device, take_rows)
+                   resolve_device, take_rows, upload_async)
 
 
 @dataclass(frozen=True)
@@ -70,8 +70,8 @@ def build(keys, node_width: int = 128, *, device=None) -> KaryTreeIndex:
         offsets.append(off)
         off += node_width * f**l
     return KaryTreeIndex(
-        keys=torch.from_numpy(srt).to(device),
-        tree=torch.from_numpy(tree).to(device),
+        keys=upload_async(srt, device),
+        tree=upload_async(tree, device),
         level_offsets=tuple(offsets), n=int(srt.size),
         node_width=int(node_width), depth=int(depth),
     )

@@ -27,7 +27,7 @@ import torch
 
 from . import css_tree
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
-                   resolve_device, take, take_rows)
+                   resolve_device, take, take_rows, upload_async)
 
 BOTTOMS = ("binary", "vector", "css")
 
@@ -127,7 +127,7 @@ def build(keys, levels: int = 3, node_width: int = 3, bottom: str = "binary",
             num_leaves = (w + 1) ** depth
             dirs.append(d)
             leaves.append(pad_to(blk, num_leaves * (w + 1)))
-        css = dict(css_dirs=torch.from_numpy(np.concatenate(dirs)).to(device),
+        css = dict(css_dirs=upload_async(np.concatenate(dirs), device),
                    css_offsets=offs, css_depth=depth, css_w=w,
                    css_leaf_width=w + 1, css_dir_len=int(dirs[0].size),
                    css_leaf_len=int(leaves[0].size))
@@ -141,8 +141,8 @@ def build(keys, levels: int = 3, node_width: int = 3, bottom: str = "binary",
             for b in range(num_blocks)
         ]).reshape(-1)
     return NitroGenIndex(
-        keys=torch.from_numpy(srt).to(device),
-        block_pad=torch.from_numpy(block_pad).to(device),
+        keys=upload_async(srt, device),
+        block_pad=upload_async(block_pad, device),
         n=int(srt.size), levels=int(levels), node_width=int(node_width),
         num_blocks=int(num_blocks), block_width=int(block_width),
         block_pad_width=int(bw_pad), bottom=bottom,

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
-                   resolve_device, take)
+                   resolve_device, take, upload_async)
 
 
 @dataclass(frozen=True)
@@ -39,8 +39,8 @@ def build(keys, linear_cutoff: int = 1, *, device=None) -> SortedArrayIndex:
     levels = next_pow(2, srt.size + 1)
     n_pad = max(1 << levels, max(linear_cutoff, 1))
     return SortedArrayIndex(
-        keys=torch.from_numpy(srt).to(device),
-        keys_pad=torch.from_numpy(pad_to(srt, n_pad)).to(device),
+        keys=upload_async(srt, device),
+        keys_pad=upload_async(pad_to(srt, n_pad), device),
         n=int(srt.size), n_pad=int(n_pad),
         linear_cutoff=int(max(linear_cutoff, 1)),
     )

@@ -264,13 +264,20 @@ def masked_topk(vals: torch.Tensor, ranks: torch.Tensor,
     past each row's ``min(count, C, K)``. Invalid lanes score the dtype's
     minimum. Ties go to the lower index, as ``lax.top_k`` breaks them: a
     stable descending sort, then the first K (``torch.topk`` promises no
-    tie order), so a valid minimum-valued candidate beats the padding."""
+    tie order), so a valid minimum-valued candidate beats the padding.
+    Floats rank in ``lax.top_k``'s total order, +0.0 above -0.0: the sort
+    runs on their bits mapped to an int32 of that order."""
     C = vals.shape[1]
     low = agg_identities(numpy_dtype(vals.dtype))[1].item()
     ar = torch.arange(max(C, K), dtype=torch.int32, device=vals.device)
     score = torch.where(ar[None, :C] < count[:, None], vals, low)
-    topv, tidx = torch.sort(score, dim=1, descending=True, stable=True)
-    topv, tidx = topv[:, :K], tidx[:, :K]
+    key = score
+    if score.dtype == torch.float32:
+        b = score.view(torch.int32)
+        key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    _, tidx = torch.sort(key, dim=1, descending=True, stable=True)
+    tidx = tidx[:, :K]
+    topv = torch.gather(score, 1, tidx)
     topr = torch.gather(ranks, 1, tidx)
     kvalid = ar[None, :K] < count.clamp_max(C)[:, None]
     return torch.where(kvalid, topv, 0), torch.where(kvalid, topr, -1)

@@ -36,8 +36,11 @@ ranges while the tracer is enabled. On an index built with
 ``specialize=True`` each entry point's pipeline has the key / value
 pages and the ``ScanAux`` arrays bound in, the ranges its only arguments
 (a CUDA graph replay per shape on the card, ``engine/capture.py``); the
-store's scans keep their data as arguments, as the reference's do. Left
-out: the non-tiered kinds' ``FlatAggregator`` (item 12B).
+store's scans keep their data as arguments, as the reference's do.
+
+The non-tiered kinds have no pages to push into: their scans aggregate
+rank intervals through :class:`FlatAggregator` (``core/api.py``), and so
+do the mutable store's scans over such a base (``engine/store.py``).
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.util import (as_queries, not_ported, numpy_dtype,
-                         resolve_device, sentinel_for, take, upload_async)
+from ..core.util import (as_queries, numpy_dtype, resolve_device,
+                         sentinel_for, take, upload_async)
 from ..kernels import page_scan as _pscan
 from ..kernels.page_scan import MODES, agg_identities
 from ..obs import annotate, timed_op
@@ -107,6 +110,14 @@ def mode_for_aggs(aggs, has_values: bool = True) -> str:
     if want & {"min", "max"}:
         return "full"
     return "sum" if "sum" in want else "count"
+
+
+def at_depth(mode: str, vsum, vmin, vmax) -> tuple:
+    """(vsum, vmin, vmax) cut to a pushdown ``mode``: none in count mode,
+    the sum alone in sum mode."""
+    if mode == "count":
+        return None, None, None
+    return (vsum, None, None) if mode == "sum" else (vsum, vmin, vmax)
 
 
 # ------------------------------------------------------- domain constants
@@ -569,14 +580,61 @@ def materialize_interval(r_lo: torch.Tensor, count: torch.Tensor,
     return torch.where(valid, ranks, -1), vals, count > K
 
 
-# ------------------------------------------------------- not ported yet
+# ----------------------------------------------- flat fallback aggregates
 class FlatAggregator:
-    """Rank-interval aggregates for the non-tiered kinds (ROADMAP Queue 1
-    item 12B)."""
+    """Rank-interval aggregates over a flat sorted value array: a prefix
+    sum for sum, power-of-two sparse tables for min / max, O(1) a query
+    after an O(n log n)-memory build. The fallback behind the scans of the
+    non-tiered kinds (``core.api.Index``; their searchers have no page
+    structure to push into) and behind the mutable store's scans over a
+    non-tiered base.
 
-    def __init__(self, values):
-        raise not_ported("FlatAggregator", "item 12B (the other kinds under "
-                         "the rest of the API)")
+    The prefix and both tables are built on the host with numpy, as the
+    reference builds them, and uploaded once: float32 sums are then the
+    reference's bits too (``torch.cumsum`` adds in another order, and
+    promotes int32 to int64). A query is two prefix gathers and two table
+    reduces on the values' device, with no host sync; min / max combine
+    with the reference's signed zeros. ``ok`` is False for value dtypes
+    other than int32 / float32 (no aggregates then)."""
+
+    def __init__(self, values, device=None):
+        if isinstance(values, torch.Tensor):
+            device = values.device if device is None else device
+            values = values.cpu().numpy()
+        v = np.asarray(values)
+        self.ok = v.dtype in VALUE_DTYPES
+        if not self.ok:
+            return
+        device = resolve_device(device)
+        vd = v.dtype
+        self.n = int(v.size)
+        id_min, id_max = agg_identities(vd)
+        self.id_min, self.id_max = id_min.item(), id_max.item()
+        cum = np.zeros(self.n + 1, vd)
+        cum[1:] = np.cumsum(v, dtype=vd)
+        self.cum, self.st_min, self.st_max = (
+            upload_async(a, device) for a in (
+                cum, sparse_table(v, np.minimum, id_min),
+                sparse_table(v, np.maximum, id_max)))
+
+    @property
+    def device_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cum, self.st_min, self.st_max))
+
+    def __call__(self, r_lo, r_hi):
+        """(vsum, vmin, vmax) over each rank interval [r_lo, r_hi): 0 and
+        the identities where it is empty."""
+        a = torch.as_tensor(r_lo, device=self.cum.device).int()
+        b = torch.as_tensor(r_hi, device=self.cum.device).int()
+        if self.n == 0:                  # no rank to gather: every interval
+            zero = torch.zeros_like(a, dtype=self.cum.dtype)   # is empty
+            return (zero, torch.full_like(zero, self.id_min),
+                    torch.full_like(zero, self.id_max))
+        vsum = take(self.cum, b) - take(self.cum, a)
+        vmin = _table_range(self.st_min, a, b, _pscan.minimum, self.id_min)
+        vmax = _table_range(self.st_max, a, b, _pscan.maximum, self.id_max)
+        return vsum, vmin, vmax
 
 
 
@@ -913,16 +971,11 @@ def make_delta_scan_fns(key_dtype):
             vmax = torch.maximum(vmax, d["vmax"])
         return count, vsum, vmin, vmax, below
 
-    def _depth(mode, vsum, vmin, vmax):
-        if mode == "count":
-            return None, None, None
-        return (vsum, None, None) if mode == "sum" else (vsum, vmin, vmax)
-
     def make_agg(mode: str):
         def agg(lo, hi, sealed, active):
             count, vsum, vmin, vmax, below = _terms(lo, hi,
                                                     (sealed, active))
-            return (count, *_depth(mode, vsum, vmin, vmax), below,
+            return (count, *at_depth(mode, vsum, vmin, vmax), below,
                     below + count)
         return agg
 
@@ -947,7 +1000,7 @@ def make_delta_scan_fns(key_dtype):
                 vv = torch.nn.functional.pad(vv, (0, K - Kc))
             valid = torch.arange(K, dtype=torch.int32,
                                  device=lo.device)[None, :] < count[:, None]
-            return (count, *_depth(mode, vsum, vmin, vmax), below,
+            return (count, *at_depth(mode, vsum, vmin, vmax), below,
                     below + count, torch.where(valid, rk, -1),
                     torch.where(valid, vv, 0), count > K)
         return mat

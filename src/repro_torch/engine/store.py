@@ -1,4 +1,4 @@
-"""MutableIndex — the delta-merge write path over the tiered engine
+"""MutableIndex — the delta-merge write path over a read-optimized base
 (DESIGN.md §6), PyTorch port of ``repro/engine/store.py``.
 
 * **writes** land in a small gapped delta buffer (``engine/delta.py``,
@@ -45,8 +45,15 @@ delta tiers copied into the graph's buffers when they change. Unlike the
 reference, a page-local fold or a value-row sync keeps it armed: the port
 rewrites base rows in place, so the bound pages stay the live ones.
 
-Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: a non-tiered base and its "flat" snapshot (item 12B).
+**A non-tiered base** (``kind`` binary, css, kary, fast or nitrogen) is
+the frozen ``core.api.Index`` of that kind, rebuilt wholesale at every
+fold from the host copy of its sorted keys and values (``_flat``): the
+lookup is the base's lookup plus the same delta overlay, with no plan
+feedback; writes test membership against the host keys; the scans take
+the reference's host path over the merged live snapshot (``_merged_host``)
+— answered here with searchsorted and a ``scan.FlatAggregator`` over that
+snapshot instead of a loop a query, the same bits — and a snapshot stores
+the base as ``flat/keys`` and ``flat/vals``.
 """
 from __future__ import annotations
 
@@ -60,8 +67,8 @@ import torch
 
 from ..ckpt import checkpoint as _ckpt
 from ..ckpt import journal as _jr
-from ..core.util import (as_queries, ceil_to, not_ported, resolve_device,
-                         sentinel_for, take, upload_async)
+from ..core.util import (as_queries, ceil_to, resolve_device, sentinel_for,
+                         take, upload_async)
 from ..kernels import ops
 from ..obs import get_registry, span, timed_op
 from . import delta as _delta
@@ -310,18 +317,17 @@ class _PagedBase:
 class MutableIndex:
     """Mutable point-lookup store: delta buffer over a read-optimized base.
 
-    Built through ``core.api.build_index(..., IndexConfig(kind="tiered",
-    mutable=True))``, on ``device`` (default: the CUDA card). ``lookup``
-    returns the facade's LookupResult; ``rank`` is a flat *slot address*
-    into the gapped leaf storage (pages carry gap slots, so dense
-    searchsorted ranks do not exist here) — the found/values contract is
-    unchanged. Keys are unique (inserting an existing key overwrites its
-    value — recency wins).
+    Built through ``core.api.build_index(..., IndexConfig(mutable=True))``,
+    on ``device`` (default: the CUDA card). ``lookup`` returns the
+    facade's LookupResult; under a tiered base, ``rank`` is a flat *slot
+    address* into the gapped leaf storage (pages carry gap slots, so dense
+    searchsorted ranks do not exist here); under another kind's base it
+    is the base's rank. The found/values contract is unchanged. Keys are
+    unique (inserting an existing key overwrites its value — recency
+    wins).
     """
 
     def __init__(self, config, keys=None, values=None, *, device=None):
-        from ..core.api import check_ported
-        check_ported(config)
         self.config = config
         if config.kind == "tiered" and config.plan != "device":
             # the fused base+delta lookup exists only in device-plan form;
@@ -361,6 +367,7 @@ class MutableIndex:
         self._dirty_rows = set()      # pages with host-synced shadow values
         self._scan_fns = None         # scan fns per base structure
         self._scan_state = None       # (rev, ScanAux, tier views)
+        self._host_state = None       # (rev, keys, values, FlatAggregator)
         self.captures = Captures()    # specialized lookups armed / captured
         self._spec_fused = None
         if keys.size:
@@ -383,9 +390,20 @@ class MutableIndex:
     # ---------------------------------------------------------------- build
     def _build_base(self, ks: np.ndarray, vs: np.ndarray):
         c = self.config
-        self.base = _PagedBase(ks, vs, leaf_width=c.leaf_width, tile=c.tile,
-                               top=c.top, device=self.device)
-        self.stats["top_derives"] = self.base.derives
+        if c.kind == "tiered":
+            self.base = _PagedBase(ks, vs, leaf_width=c.leaf_width,
+                                   tile=c.tile, top=c.top, device=self.device)
+            self.stats["top_derives"] = self.base.derives
+            return
+        from ..core.api import build_index
+        self.base = build_index(ks, vs, dataclasses.replace(c, mutable=False),
+                                device=self.device)
+        self._flat = (ks, vs)
+        self.stats["base_rebuilds"] += 1
+
+    @property
+    def _paged(self) -> bool:
+        return isinstance(self.base, _PagedBase)
 
     def _upload_tiers(self):
         """Refresh the cached device mirrors of both delta tiers. A write
@@ -434,6 +452,15 @@ class MutableIndex:
                     [(ak, av, atb, asp), (sk, sv, stb, ssp)])
                 return torch.zeros(q.shape, dtype=torch.int32,
                                    device=q.device), found, val, None
+            return fused
+        if not self._paged:
+            base = self.base                # another kind's frozen Index
+
+            def fused(q, ak, av, atb, asp, sk, sv, stb, ssp):
+                res = base.lookup(q)
+                found, val = overlay(q, res.found, res.values,
+                                     [(ak, av, atb, asp), (sk, sv, stb, ssp)])
+                return res.rank, found, val, None
             return fused
         pipeline = self.base.pipeline_stats
 
@@ -511,7 +538,13 @@ class MutableIndex:
                     self.sealed.sync(sslot, int(v), delete)
                 sb = False
                 base = self.base
-                if base is not None:
+                if base is not None and not self._paged:
+                    # a non-tiered base is rebuilt at the fold: membership
+                    # of its host keys decides the shadow bit, no sync
+                    bk = self._flat[0]
+                    pos = int(np.searchsorted(bk, k, side="left"))
+                    sb = (not ss) and pos < bk.size and bool(bk[pos] == k)
+                elif base is not None:
                     slot = base.find_slot(k)
                     if slot is not None:
                         sb = not ss
@@ -574,6 +607,9 @@ class MutableIndex:
                 self._dirty_rows.clear()
                 self._fused = self._make_lookup()
             return
+        if not self._paged:
+            self._fold_wholesale(dk, dv, dt)
+            return
         info = self.base.merge(dk, dv, dt)
         self.stats["pages_touched"] += info["touched"]
         self.stats["rows_rewritten"] += info["rows_rewritten"]
@@ -586,6 +622,33 @@ class MutableIndex:
         # a page-local merge keeps the pipeline and the specialized twin:
         # its rows were copied into the bound device pages in place (the
         # reference disarms the twin here; its scatter donates them)
+
+    def _fold_wholesale(self, dk, dv, dt):
+        """A non-tiered base's fold: upserts, removals and inserts applied
+        to the host arrays, then a rebuild (or no base when everything was
+        deleted)."""
+        live = ~dt
+        bk, bv = self._flat
+        pos = np.searchsorted(bk, dk, side="left")
+        if bk.size:
+            isdup = (pos < bk.size) & \
+                (bk[np.minimum(pos, bk.size - 1)] == dk)
+        else:
+            isdup = np.zeros(dk.shape, bool)
+        bv = bv.copy()
+        upd = isdup & live
+        bv[pos[upd]] = dv[upd]
+        keep = np.ones(bk.size, bool)
+        keep[pos[isdup & dt]] = False
+        ins = ~isdup & live
+        mk = np.concatenate([bk[keep], dk[ins]])
+        mv = np.concatenate([bv[keep], dv[ins]])
+        if mk.size:
+            order = np.argsort(mk, kind="stable")
+            self._build_base(mk[order], mv[order])
+        else:
+            self.base = None                     # everything deleted
+        self._fused = self._make_lookup()
 
     def flush(self):
         """Force-fold everything (sealed, then active) into the base —
@@ -646,7 +709,7 @@ class MutableIndex:
             tiers = (ak, av, atb, asp, sk, sv, stb, ssp)
             q = as_queries(queries, ak)
             with timed_op("store.lookup", "lookup", n=int(q.shape[0])):
-                if self.base is None:
+                if not self._paged:
                     rank, found, vals, _ = self._fused(q, *tiers)
                     self._last_plan = None
                 else:
@@ -662,7 +725,7 @@ class MutableIndex:
 
     def pop_plan_feedback(self):
         """Executed-plan occupancy of the most recent lookup, as a lazy
-        thunk (or None when there is no base / nothing ran), with no host
+        thunk (or None when the base is not paged / nothing ran), with no host
         sync here or in the thunk's normal case. On the card the step
         count is copied now, behind the lookup's kernels, into page-locked
         host memory without blocking, and a CUDA event is recorded after
@@ -757,9 +820,13 @@ class MutableIndex:
         mode never reads the value pages). ``materialize=K`` also returns
         the first K matches' slot addresses (base region, then the delta
         region at ``P*lw_pad + slot``) and values in key order, with an
-        overflow flag. Returns ``engine.scan.ScanResult``."""
+        overflow flag. Returns ``engine.scan.ScanResult``. A non-tiered
+        base takes the host path (:meth:`_scan_host`)."""
         mode = _scan.mode_for_aggs(aggs)
         with self._lock:                 # across the dispatch, as lookup
+            if self._host_scans:
+                return self._scan_host(*self._host_queries(lo, hi), mode,
+                                       materialize)
             fns, args = self._scan_args(lo, hi)
             if materialize is None:
                 with timed_op("store.scan", "scan", mode=mode):
@@ -793,7 +860,8 @@ class MutableIndex:
         max through the per-bucket span expansion, optional per-bucket
         ``top_k`` by value over a ``candidates``-bounded merged window.
         Returns ``engine.groupby.GroupScanResult`` (topk_ranks are slot
-        addresses, as materialize gives)."""
+        addresses, as materialize gives). A non-tiered base takes the host
+        path (:meth:`_scan_groups_host`)."""
         mode = _scan.mode_for_aggs(aggs)
         G = int(num_groups)
         if not 1 <= G <= _gb.MAX_GROUPS:
@@ -807,6 +875,9 @@ class MutableIndex:
             C = max(int(candidates) if candidates is not None
                     else max(2 * K, 32), K)
         with self._lock:                 # across the dispatch, as lookup
+            if self._host_scans:
+                return self._scan_groups_host(*self._host_queries(lo, hi),
+                                              G, mode, K, C)
             fns, args = self._scan_args(lo, hi)
             mk_gagg, mk_gtopk, _ = fns["gmk"]
             with timed_op("store.scan", "scan_groups", mode=mode, groups=G):
@@ -821,13 +892,18 @@ class MutableIndex:
         pairs; union = IN-list, intersect = conjunction) through the
         coverage-count decomposition. Returns ``engine.scan.ScanResult``
         whose r_lo / r_hi_excl are the merged-rank hull of the matching
-        set ((0, 0) when empty)."""
+        set ((0, 0) when empty). A non-tiered base takes the host path
+        (:meth:`_scan_multi_host`)."""
         if op not in _gb.MULTI_OPS:
             raise ValueError(f"unknown multi-range op {op!r}; "
                              f"want one of {_gb.MULTI_OPS}")
         mode = _scan.mode_for_aggs(aggs)
         with self._lock:                 # across the dispatch, as lookup
-            fns, args = self._scan_args(ranges)
+            host = self._host_scans
+            if host:
+                fns, args = None, self._host_queries(ranges)
+            else:
+                fns, args = self._scan_args(ranges)
             r = args[0]
             if r.dim() != 3 or r.shape[-1] != 2:
                 raise ValueError(f"ranges must be [Q, R, 2], got "
@@ -836,12 +912,160 @@ class MutableIndex:
             if R < 1:
                 raise ValueError("ranges needs at least one range per "
                                  "query")
+            if host:
+                return self._scan_multi_host(r, op, mode)
             _, _, mk_magg = fns["gmk"]
             with timed_op("store.scan", "scan_multi", mode=mode, op=op):
                 count, vsum, vmin, vmax, r_lo, r_hi = mk_magg(R, op, mode)(
                     r[..., 0], r[..., 1], *args[1:])
         return _scan.ScanResult(count=count, r_lo=r_lo, r_hi_excl=r_hi,
                                 vsum=vsum, vmin=vmin, vmax=vmax)
+
+    # ------------------------------------------------ host path (flat base)
+    @property
+    def _host_scans(self) -> bool:
+        """The scans of a non-tiered base take the host path (the fused
+        span machinery is the paged store's)."""
+        return self.base is not None and not self._paged
+
+    def _host_queries(self, *queries):
+        like = self.delta.device_state()[0]
+        return tuple(as_queries(x, like).contiguous() for x in queries)
+
+    def _merged_host(self):
+        """Numpy snapshot of the LIVE sorted (keys, values) view: base +
+        delta tiers overlaid newest-last (active wins over sealed wins over
+        base; a tombstone anywhere above the base deletes the key)."""
+        if self.base is not None:
+            bk, bv = self._flat
+        else:
+            bk = np.empty(0, self._key_dtype)
+            bv = np.empty(0, np.int32)
+        ov = {}
+        for buf in (self.sealed, self.delta):
+            k, v, _, _, tb = buf.entries()
+            for i in range(k.size):
+                ov[k[i].item()] = (int(v[i]), bool(tb[i]))
+        if not ov:
+            return bk, bv
+        okeys = np.asarray(sorted(ov), self._key_dtype)
+        # the base keys are unique and sorted: overlaid ones are found by
+        # binary search (the reference's np.isin), and the live overlay
+        # keys merge in by position (its stable argsort of the union)
+        pos = np.searchsorted(bk, okeys)
+        hit = pos < bk.size
+        hit[hit] = bk[pos[hit]] == okeys[hit]
+        keep = np.ones(bk.size, bool)
+        keep[pos[hit]] = False
+        lk = [k for k in sorted(ov) if not ov[k][1]]
+        lk, lv = (np.asarray(lk, self._key_dtype),
+                  np.asarray([ov[k][0] for k in lk], np.int32))
+        kk = bk[keep]
+        at = np.searchsorted(kk, lk)
+        return np.insert(kk, at, lk), np.insert(bv[keep], at, lv)
+
+    def _host_view(self):
+        """(merged keys, merged values, their FlatAggregator) on the
+        device, rebuilt when the store changed since the last scan (keyed
+        on ``_rev``). Uploads do not wait for the stream."""
+        st = self._host_state
+        if st is None or st[0] != self._rev:
+            mk, mv = self._merged_host()
+            st = self._host_state = (
+                self._rev, upload_async(mk, self.device),
+                upload_async(mv, self.device),
+                _scan.FlatAggregator(mv, device=self.device))
+        return st[1:]
+
+    def _ranks(self, mk, lo, hi):
+        """Merged searchsorted ranks [r_lo, r_hi) of lo <= key <= hi, exact
+        at every bound (``hi`` at the sentinel included); lo > hi gives the
+        empty interval at r_lo."""
+        r_lo = torch.searchsorted(mk, lo).int()
+        r_hi = torch.searchsorted(mk, hi, right=True).int()
+        return r_lo, torch.where(lo > hi, r_lo, r_hi)
+
+    @staticmethod
+    def _window(r_lo, cnt, mv, K):
+        """materialize_interval over the merged values (an empty store has
+        none to gather: every lane is past its count)."""
+        if mv.numel() == 0:
+            mv = torch.zeros(1, dtype=mv.dtype, device=mv.device)
+        return _scan.materialize_interval(r_lo, cnt, mv, K=K)
+
+    def _scan_host(self, lo, hi, mode, materialize):
+        """Host-path scan for a non-tiered base: the reference's answers
+        over the merged snapshot (searchsorted ranks, then per-query
+        sums / min / max of the matching values), computed as two
+        searches and FlatAggregator lookups instead of a loop a query."""
+        mk, mv, fa = self._host_view()
+        r_lo, r_hi = self._ranks(mk, lo, hi)
+        cnt = r_hi - r_lo
+        vsum, vmin, vmax = _scan.at_depth(mode, *fa(r_lo, r_hi))
+        res = _scan.ScanResult(count=cnt, r_lo=r_lo, r_hi_excl=r_hi,
+                               vsum=vsum, vmin=vmin, vmax=vmax)
+        if materialize is None:
+            return res
+        ranks, vals, over = self._window(r_lo, cnt, mv, int(materialize))
+        return dataclasses.replace(res, ranks=ranks, values=vals,
+                                   overflow=over)
+
+    def _scan_groups_host(self, lo, hi, G, mode, K, C):
+        """Host-path grouped scan for a non-tiered base: searchsorted over
+        the bucket edges on the merged snapshot; top-K over each bucket's
+        first C values, ties to the lower rank."""
+        mk, mv, fa = self._host_view()
+        edges = _gb.group_edges(lo, hi, G, self._key_dtype)
+        r_edge = torch.searchsorted(mk, edges.reshape(-1)).int() \
+            .reshape(-1, G + 1)
+        cnt = torch.diff(r_edge, dim=1)
+        a, b = r_edge[:, :-1].reshape(-1), r_edge[:, 1:].reshape(-1)
+        vsum, vmin, vmax = _scan.at_depth(
+            mode, *(x.reshape(-1, G) for x in fa(a, b)))
+        res = _gb.GroupScanResult(count=cnt, edges=edges, r_edge=r_edge,
+                                  vsum=vsum, vmin=vmin, vmax=vmax)
+        if K is None:
+            return res
+        ranks, vals, over = self._window(a, cnt.reshape(-1), mv, C)
+        topv, topr = _gb.masked_topk(vals, ranks, cnt.reshape(-1), K)
+        return dataclasses.replace(res, topk_values=topv.reshape(-1, G, K),
+                                   topk_ranks=topr.reshape(-1, G, K),
+                                   overflow=over.reshape(-1, G))
+
+    def _scan_multi_host(self, r, op, mode):
+        """Host-path composite-range scan for a non-tiered base: the keys
+        one subrange (union) or every subrange (intersect) holds, in rank
+        space. Each subrange is a rank interval of the merged snapshot;
+        the union sorts them by start and trims each past its
+        predecessors' reach into disjoint pieces, the intersection is
+        [max start, min end). Pieces aggregate through FlatAggregator."""
+        mk, mv, fa = self._host_view()
+        a, b = self._ranks(mk, r[..., 0].contiguous(),
+                           r[..., 1].contiguous())            # [Q, R]
+        if op == "union":
+            order = torch.argsort(a, dim=1, stable=True)
+            a, b = torch.gather(a, 1, order), torch.gather(b, 1, order)
+            reach = torch.cummax(b, dim=1).values
+            prev = torch.cat([torch.full_like(a[:, :1], -1), reach[:, :-1]],
+                             dim=1)
+            start = torch.maximum(a, prev)
+        else:
+            start, b = a.amax(1, keepdim=True), b.amin(1, keepdim=True)
+        live = b > start
+        end = torch.where(live, b, start)
+        R = start.shape[1]
+        vs, mn, mx = (x.reshape(-1, R) for x in fa(start.reshape(-1),
+                                                     end.reshape(-1)))
+        count = (end - start).sum(1, dtype=torch.int32)
+        nz = count > 0
+        imax = np.iinfo(np.int32).max
+        r_lo = torch.where(nz, torch.where(live, start, imax).amin(1), 0)
+        r_hi = torch.where(nz, torch.where(live, end, -1).amax(1), 0)
+        vsum, vmin, vmax = _scan.at_depth(
+            mode, vs.sum(1, dtype=torch.int32), mn.amin(1), mx.amax(1))
+        return _scan.ScanResult(count=count, r_lo=r_lo.int(),
+                                r_hi_excl=r_hi.int(), vsum=vsum, vmin=vmin,
+                                vmax=vmax)
 
     # ----------------------------------------------------------- durability
     def _open_journal(self, ckpt_dir: str):
@@ -878,8 +1102,11 @@ class MutableIndex:
             step = (_ckpt.latest_step(d) or 0) + 1
             tree = {"active": self.delta.state(),
                     "sealed": self.sealed.state()}
-            if self.base is not None:
+            if self._paged:
                 tree["base"] = self.base.state()
+            elif self.base is not None:
+                bk, bv = self._flat
+                tree["flat"] = {"keys": bk.copy(), "vals": bv.copy()}
             path = _ckpt.save(d, step, tree, keep=self._ckpt_keep)
             self._rotate_journal(d, step)
             return path
@@ -933,10 +1160,6 @@ class MutableIndex:
             def sub(prefix):
                 return {k[len(prefix) + 1:]: v for k, v in raw.items()
                         if k.startswith(prefix + "/")}
-            if "flat/keys" in raw:
-                raise not_ported("restoring a non-tiered base's snapshot",
-                                 "item 12B (the other kinds under the "
-                                 "rest of the API)")
             self.delta = _delta.DeltaBuffer.from_state(sub("active"),
                                                        device=self.device)
             self.sealed = _delta.DeltaBuffer.from_state(sub("sealed"),
@@ -947,6 +1170,9 @@ class MutableIndex:
                                                   top=config.top,
                                                   device=self.device)
                 self.stats["top_derives"] = self.base.derives
+            elif "flat/keys" in raw:
+                self._build_base(np.asarray(raw["flat/keys"]),
+                                 np.asarray(raw["flat/vals"], np.int32))
             self._fused = self._make_lookup()
             self._upload_tiers()
             self._rev += 1
@@ -1007,7 +1233,11 @@ class MutableIndex:
         its corrections (every sb entry has exactly one physical base
         copy — live duplicate or tombstone-synced slot — and every live
         ss entry a synced sealed duplicate)."""
-        base_n = self.base.n if self.base is not None else 0
+        base_n = 0
+        if self._paged:
+            base_n = self.base.n
+        elif self.base is not None:
+            base_n = int(self._flat[0].size)
         for buf in (self.sealed, self.delta):
             _, _, sb, ss, tb = buf.entries()
             live = ~tb
@@ -1017,7 +1247,7 @@ class MutableIndex:
 
     @property
     def tree_bytes(self) -> int:
-        if self.base is not None and self.base.top_kind == "kary":
+        if self._paged and self.base.top_kind == "kary":
             tree = self.base.top.tree
             return int(tree.numel() * tree.element_size())
         return 0

@@ -8,7 +8,9 @@ CUDA card (PyTorch port of ``repro/launch/serve.py``).
         --device cpu --tenants 2 --queue-max-share 0.5 --rounds 2
 
 The prefix store is the mutable tiered store unless ``--wholesale`` asks
-for the immutable index rebuilt on the probe after an insert. Probes go
+for the immutable index rebuilt on the probe after an insert; ``--index``
+picks another kind under it (nitrogen at 2 compiled levels of 3
+separators, as in the reference). Probes go
 through the store's micro-batch queue and sampled decode steps through
 the decode queue unless ``--no-decode-queue``; ``--tenants N`` spreads
 the requests over N admission lanes. ``--metrics-port`` serves the
@@ -16,16 +18,14 @@ metrics registry as Prometheus text on 127.0.0.1 and ``--trace-out``
 writes the run's spans as Chrome trace JSON. ``--tune`` runs the
 autotuner's smoke sweep first (``repro_torch.tune``) and serves with the
 profile it persists; ``--tuned-profile PLATFORM`` serves with a persisted
-one (``auto``: the current backend), the queue flags still winning. The
-flags and defaults are the reference's, and so are the prompts
+one (``auto``: the current backend), the queue flags still winning; over
+another kind than tiered only its kind-agnostic knobs apply. The flags and
+defaults are the reference's, and so are the prompts
 (``np.random.default_rng(0)``); weights are random, from the seed 0.
-Flags whose subsystem is not ported yet exit with the message naming the
-ROADMAP Queue 1 item that brings it.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 
 import numpy as np
 
@@ -40,14 +40,6 @@ def make_prompts(vocab: int, requests: int = 8, prompt_len: int = 48,
     return [np.concatenate([
         shared, rng.integers(0, vocab, prompt_len - shared_prefix)])
         for _ in range(requests)]
-
-
-def _unported(args) -> list:
-    """(is set, what, ROADMAP item) for every unported flag or default."""
-    return [
-        (args.index != "tiered", f"--index {args.index}",
-         "item 12B (the other kinds under the rest of the API)"),
-    ]
 
 
 def main():
@@ -133,11 +125,6 @@ def main():
     if args.metrics_selftest and args.metrics_port is None:
         ap.error("--metrics-selftest requires --metrics-port")
 
-    from ..core.util import not_ported
-    for is_set, what, item in _unported(args):
-        if is_set:
-            sys.exit(str(not_ported(what, item)))
-
     import torch
     from ..configs import get_config
     from ..core import IndexConfig
@@ -178,7 +165,18 @@ def main():
     if args.tuned_profile is not None:
         platform = None if args.tuned_profile == "auto" else \
             args.tuned_profile
-        index_config = IndexConfig.from_tuned(platform, **index_kwargs)
+        if args.index == "tiered":
+            index_config = IndexConfig.from_tuned(platform, **index_kwargs)
+        else:
+            # another kind under the prefix index: only the kind-agnostic
+            # knobs of the (tiered) profile apply
+            from ..tune.profile import load_profile
+            prof = load_profile(platform)
+            kw = {k: v for k, v in prof.config_kwargs().items()
+                  if k in ("queue_min_flush", "queue_deadline_s",
+                           "specialize")}
+            prof.apply_thresholds()
+            index_config = IndexConfig(**dict(kw, **index_kwargs))
         print(f"tuned profile: tile={index_config.tile} "
               f"leaf_width={index_config.leaf_width} "
               f"specialize={index_config.specialize}")

@@ -3,8 +3,8 @@
 
 Prompt tokens split into pages of ``page_size`` tokens; each page's
 *chained* hash identifies the whole prefix up to and including that page.
-Cached (hash -> page payload) entries sit in the port's tiered index,
-probed on the card. Every hit is verified against the stored tokens
+Cached (hash -> page payload) entries sit in one of the port's indexes
+(``IndexConfig.kind``, any kind), probed on the card. Every hit is verified against the stored tokens
 before reuse, so a hash collision truncates the reuse and never corrupts
 it.
 
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ckpt import checkpoint as _ckpt
-from ..core import IndexConfig, build_index, check_ported
+from ..core import IndexConfig, build_index
 from ..core.util import resolve_device
 from ..engine.queue import DEFAULT_TENANT, MicroBatchQueue, index_probe_fn
 
@@ -104,7 +104,6 @@ class PrefixPageStore:
         "lookups": 0, "hits": 0, "rebuilds": 0, "verify_rejects": 0})
 
     def __post_init__(self):
-        check_ported(self.index_config)
         self.device = resolve_device(self.device)
 
     # ---------------------------------------------------------------- write

@@ -262,20 +262,33 @@ def test_search_range_float_duplicates(kind):
 
 
 def test_flat_kinds_raise_item_12b_for_the_rest_of_the_api():
+    """The rest of the API over the flat kinds (once unported, item 12B)
+    answers: the scans of a fast index, a specialized binary index and a
+    mutable k-ary store, against numpy (tests/test_torch_flat_api.py and
+    tests/test_torch_flat_store.py hold them to the reference)."""
     keys = np.arange(100, dtype=np.int32)
     idx = pt_core.build_index(keys, keys, pt_core.IndexConfig(kind="fast"),
                               device="cpu")
     lo, hi = np.array([1], np.int32), np.array([5], np.int32)
-    for call in (lambda: idx.scan_range(lo, hi),
-                 lambda: idx.scan_groups(lo, hi, 2),
-                 lambda: idx.scan_multi(np.zeros((1, 1, 2), np.int32))):
-        with pytest.raises(NotImplementedError, match="item 12B"):
-            call()
-    for cfg in (dict(kind="binary", specialize=True),
-                dict(kind="kary", mutable=True)):
-        with pytest.raises(NotImplementedError, match="item 12B"):
-            pt_core.build_index(keys, config=pt_core.IndexConfig(**cfg),
-                                device="cpu")
+    r = idx.scan_range(lo, hi)
+    assert (r.count.tolist(), r.vsum.tolist(), r.vmin.tolist(),
+            r.vmax.tolist()) == ([5], [15], [1], [5])
+    g = idx.scan_groups(lo, hi, 2)
+    assert g.count.tolist() == [[3, 2]] and g.vsum.tolist() == [[6, 9]]
+    m = idx.scan_multi(np.array([[[1, 5], [4, 9]]], np.int32))
+    assert m.count.tolist() == [9] and m.vsum.tolist() == [45]
+    spec = pt_core.build_index(keys, config=pt_core.IndexConfig(
+        kind="binary", specialize=True), device="cpu")
+    assert spec.captures.n == 1
+    assert spec.search(np.array([-1, 7, 100], np.int32)).tolist() == [0, 7,
+                                                                      100]
+    store = pt_core.build_index(keys, config=pt_core.IndexConfig(
+        kind="kary", mutable=True), device="cpu")
+    store.insert([200], [7])
+    store.delete([3])
+    res = store.lookup(np.array([3, 4, 200], np.int32))
+    assert res.found.tolist() == [False, True, True]
+    assert res.values[1:].tolist() == [4, 7] and store.n == 100
 
 
 # --------------------------------------------------------------- numpy only

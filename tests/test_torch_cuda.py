@@ -1173,3 +1173,117 @@ def test_ops_fast_page_search_launches_the_page_kernel_once(cuda, n_keys, w,
     assert np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q))
     empty = ops.fast_page_search(idx, qd[:0], tile=tile)
     assert empty.shape == (0,) and pk.page_search_bucketed.launches == 2
+
+
+FLAT_KIND_CONFIGS = [dict(kind="binary", linear_cutoff=8),
+                     dict(kind="css", node_width=16), dict(kind="kary"),
+                     dict(kind="fast", node_width=15), dict(kind="nitrogen"),
+                     dict(kind="nitrogen", bottom="css", node_width=16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", FLAT_KIND_CONFIGS,
+                         ids=lambda c: "-".join(map(str, c.values())))
+def test_specialized_flat_kind_replays_and_equals_args(cuda, cfg):
+    """A flat kind built with specialize=True captures its searcher into
+    one graph a query shape, with no host sync in the capture or the
+    replays, and answers searches, lookups and scans as the args posture
+    bit for bit."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(11)
+    keys = rng.choice(1 << 30, 300_000, replace=False).astype(np.int32)
+    vals = rng.integers(-1000, 1000, keys.size).astype(np.int32)
+    args = build_index(keys, vals, IndexConfig(**cfg))
+    spec = build_index(keys, vals, IndexConfig(**cfg, specialize=True))
+    q = torch.from_numpy(np.concatenate([
+        keys[:40_000], rng.integers(0, 1 << 30, 40_000).astype(np.int32)])
+        ).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [spec.lookup(q) for _ in range(3)]        # capture, replays
+        ranks = spec.search(q[:4096])                   # another shape
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert spec.captures.n == 2
+    want = args.lookup(q)
+    for g in got:
+        assert_fields_equal(g, want, "lookup")
+    assert torch.equal(ranks, args.search(q[:4096]))
+    lo, hi = q[:2048], q[:2048] + 100_000
+    assert_fields_equal(spec.scan_range(lo, hi, materialize=4),
+                        args.scan_range(lo, hi, materialize=4), "scan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_flat_aggregator_on_the_card_equals_the_cpu(cuda, dtype):
+    """The same values aggregated on the card and on the CPU: int32 sums
+    wrapping, float32 sums (prefix built on the host either way), min /
+    max with signed zeros, empty intervals; no host sync in a query."""
+    from repro_torch.engine.scan import FlatAggregator
+    rng = np.random.default_rng(3)
+    if dtype == np.int32:
+        v = rng.integers(I32.min + 1, I32.max, 100_000).astype(np.int32)
+    else:
+        v = (rng.normal(size=100_000) * 1e6).astype(np.float32)
+        v[::7] = 0.0
+        v[3::7] = -0.0
+    a = rng.integers(0, v.size + 1, 50_000)
+    b = np.minimum(a + rng.integers(0, 5000, a.size), v.size)
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    cpu = FlatAggregator(v, device="cpu")(a, b)
+    fa = FlatAggregator(v, device=cuda)
+    ad, bd = (torch.from_numpy(x).to(cuda) for x in (a, b))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fa(ad, bd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, cpu):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_flat_store_lookup_and_fold_make_no_sync(cuda):
+    """The mutable css store on the card: writes, a wholesale fold and
+    lookups make no host sync, and answer as the same store on the CPU;
+    its host-path scans equal the CPU store's."""
+    from repro_torch.core import IndexConfig, build_index
+    rng = np.random.default_rng(8)
+    keys = rng.choice(1 << 24, 200_000, replace=False).astype(np.int32)
+    cfg = IndexConfig(kind="css", mutable=True, delta_capacity=256)
+    stores = [build_index(keys, None, cfg, device=d) for d in (cuda, "cpu")]
+    new = rng.integers(0, 1 << 24, 300).astype(np.int32)
+    q = np.concatenate([keys[:5000], new, new + 1])
+    qd = torch.from_numpy(q).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        store = stores[0]
+        store.insert(new, np.arange(300, dtype=np.int32))
+        store.delete(keys[:100])
+        store.flush()                                   # wholesale folds
+        got = store.lookup(qd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu = stores[1]
+    cpu.insert(new, np.arange(300, dtype=np.int32))
+    cpu.delete(keys[:100])
+    cpu.flush()
+    assert store.stats == cpu.stats and store.stats["base_rebuilds"] >= 2
+    want = cpu.lookup(q)
+    for f in ("rank", "found", "values"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    lo = np.sort(q[:512])
+    hi = lo + 50_000
+    hi[-4:] = I32.max
+    for s in (store, cpu):
+        s.insert(new[:10], np.arange(10, dtype=np.int32) + 7)
+    a = store.scan_range(lo, hi, materialize=4)
+    b = cpu.scan_range(lo, hi, materialize=4)
+    for f in ("count", "r_lo", "r_hi_excl", "vsum", "vmin", "vmax", "ranks",
+              "values", "overflow"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f

@@ -473,8 +473,16 @@ def test_scan_rank_only_index():
 
 
 def test_mutable_and_flat_scan_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        pt_scan.FlatAggregator(np.arange(4, dtype=np.int32))
+    """The flat kinds' FlatAggregator (once unported, item 12B) aggregates
+    rank intervals as numpy does (tests/test_torch_flat_api.py holds it
+    to the reference's)."""
+    v = np.array([4, -1, 7, 2], np.int32)
+    fa = pt_scan.FlatAggregator(v, device="cpu")
+    vsum, vmin, vmax = fa(np.array([0, 1, 2], np.int32),
+                          np.array([4, 3, 2], np.int32))
+    assert vsum.tolist() == [12, 6, 0]
+    assert vmin.tolist() == [-1, -1, np.iinfo(np.int32).max]
+    assert vmax.tolist() == [7, 7, np.iinfo(np.int32).min]
     # the mutable store's scan parts are ported (item 5B), and held to the
     # reference in tests/test_torch_store_scan.py
     make_agg, make_mat = pt_scan.make_delta_scan_fns(np.int32)

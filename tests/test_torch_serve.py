@@ -529,15 +529,23 @@ def test_launcher_saves_and_restores_with_the_reference_lines(
      "item 11"),
     (("--wholesale", "--no-decode-queue", "--tune"), "item 11")])
 def test_launcher_unported_flags_exit(monkeypatch, tmp_path, argv, item):
-    """--index other than tiered exits naming item 12. The item-11 flags
-    (once unported) serve, with the profile directory in tmp_path:
-    --tuned-profile raises FileNotFoundError naming the autotuner where no
-    profile was persisted, and --tune runs the autotuner's smoke sweep,
-    persists its profile and serves with it, printing the reference
-    launcher's lines."""
+    """The flags once unported serve. --index other than tiered (item 12)
+    prints the reference launcher's lines for the same flags (a css index
+    rebuilt 9 times). The item-11 flags, with the profile directory in
+    tmp_path: --tuned-profile raises FileNotFoundError naming the
+    autotuner where no profile was persisted, and --tune runs the
+    autotuner's smoke sweep, persists its profile and serves with it,
+    printing the reference launcher's lines."""
     if item != "item 11":
-        with pytest.raises(SystemExit, match=item):
-            run_launcher(monkeypatch, "--reduced", "--device", "cpu", *argv)
+        with obs.use_registry():
+            out = run_launcher(monkeypatch, "--reduced", "--device", "cpu",
+                               "--rounds", "2", "--steps", "2", *argv)
+        assert "prefix-index=css" in out
+        assert "prefill computed/reused: 288/480" in out
+        assert ("prefix store: {'lookups': 23, 'hits': 15, 'rebuilds': 9, "
+                "'verify_rejects': 0}") in out
+        assert ("probe queue:  1 fused batches in " in out
+                and "mean executed-plan occupancy 0.000" in out)
         return
     monkeypatch.setattr(pt_profile, "default_profile_dir",
                         lambda: str(tmp_path))

@@ -398,18 +398,27 @@ def test_pages_stay_sorted_through_merges_splits_and_repacks():
      "item 11"),
     ("kind", dict(kind="nitrogen", mutable=True), "item 12")])
 def test_unported_store_options_raise(what, cfg, item):
-    """The other kinds raise naming their ROADMAP item; specialize (once
-    unported, item 11) builds the store with its specialized twin armed."""
+    """The options once unported build the store: specialize (item 11)
+    with its specialized twin armed, and the other kinds (item 12) over a
+    frozen base of their kind, rebuilt at each fold
+    (tests/test_torch_flat_store.py holds them to the reference)."""
+    idx = pt_core.build_index(np.arange(10, dtype=np.int32),
+                              config=pt_core.IndexConfig(**cfg),
+                              device="cpu")
     if what == "specialize":
-        idx = pt_core.build_index(np.arange(10, dtype=np.int32),
-                                  config=pt_core.IndexConfig(**cfg),
-                                  device="cpu")
         assert idx._spec_fused is not None and idx.captures.n == 1
         assert idx.lookup([3, 11]).found.tolist() == [True, False]
         return
-    with pytest.raises(NotImplementedError, match=item):
-        pt_core.build_index(np.arange(10, dtype=np.int32),
-                            config=pt_core.IndexConfig(**cfg), device="cpu")
+    assert isinstance(idx.base, pt_core.Index)
+    assert idx.base.config.kind == cfg["kind"] and not idx.base.config.mutable
+    idx.insert([11], [5])
+    idx.delete([3])
+    idx.flush()                                  # the wholesale rebuild
+    assert idx.stats["base_rebuilds"] == 2 and idx.n == 10
+    res = idx.lookup([3, 4, 11])
+    assert res.found.tolist() == [False, True, True]
+    assert res.values[1:].tolist() == [4, 5]
+    assert idx.pop_plan_feedback() is None
 
 
 def test_store_surface_and_validation():

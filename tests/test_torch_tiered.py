@@ -224,11 +224,11 @@ def test_defaults_match_reference():
 @pytest.mark.parametrize("what", ["mutable", "kind", "specialize",
                                   "from_tuned"])
 def test_unported_surface_raises(what):
-    """A mutable store over another kind raises naming its ROADMAP item.
-    The other kinds, specialize and from_tuned (once unported) serve:
-    kind="css" builds and answers like numpy, the bound index answers, and
-    from_tuned reads a persisted profile, raising FileNotFoundError where
-    there is none (the port commits no tuned profile)."""
+    """What once was unported serves: a mutable store over another kind
+    (item 12B) answers like numpy, kind="css" builds and answers like
+    numpy, the bound index answers, and from_tuned reads a persisted
+    profile, raising FileNotFoundError where there is none (the port
+    commits no tuned profile)."""
     keys = np.arange(300, dtype=np.int32)
     cfg = {"mutable": dict(kind="css", mutable=True)}.get(what)
     if what == "kind":
@@ -247,10 +247,14 @@ def test_unported_surface_raises(what):
         with pytest.raises(FileNotFoundError, match="autotune"):
             pt_core.IndexConfig.from_tuned("no_such_platform")
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item"):
-            pt_core.build_index(keys, config=pt_core.IndexConfig(**cfg),
-                                device="cpu")
+        store = pt_core.build_index(keys, config=pt_core.IndexConfig(**cfg),
+                                    device="cpu")
+        q = np.array([-1, 0, 7, 150, 299, 300], np.int32)
+        res = store.lookup(q)
+        np.testing.assert_array_equal(res.rank.numpy(),
+                                      np.searchsorted(keys, q))
+        assert res.found.tolist() == [False, True, True, True, True, False]
+        np.testing.assert_array_equal(res.values[1:5].numpy(), q[1:5])
 
 
 def test_build_index_needs_a_card_by_default():
