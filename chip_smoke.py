@@ -185,7 +185,8 @@ Phases, in order; any failure exits non-zero with its traceback:
         submit that fills and flushes 2^16 queries;
      e. autotune(smoke=True) at 2^24 keys and 2^16 queries into a
         temporary directory, then verify_profile (checked ok), each leg
-        measured 128 times (the tuner's default is 8);
+        measured 128 times (the tuner's default is 8), the lookup and
+        scan reps timed to the device's completion;
  15. the paper's index kinds (Queue 1 item 12A), each built on the card
      over phase 4's 2^24 keys and values, one at a time: binary (linear
      cutoff 1 and 8), css (node_width 128 and 16), kary (127), fast (15,
@@ -235,7 +236,28 @@ Phases, in order; any failure exits non-zero with its traceback:
         wholesale) beside the tiered store: two rounds of 8 sampled steps
         through the decode queue; reuse and store counts as phase 9's,
         tokens equal the tiered store's, one CDF launch a step;
- 17. one line {"kernels": [...]} with each kernel's launches, times
+ 17. the rest of the serving stack at full width, weights from the seed,
+     one model at a time (its memory freed before the next), depth cut
+     only where 80 GB forces it: mixtral-8x7b at 2 layers and
+     llama4-scout-17b-a16e at 1 (moe), jamba-v0.1-52b at 8 (one period:
+     Mamba, attention, MoE), mamba2-370m whole (ssm),
+     llama-3.2-vision-11b at 5 (vlm, a 1,601-row stub memory),
+     whisper-small whole (audio, 1,500 frames through the encoder). Each
+     serves phase 9's prompts, 16 sampled steps through the decode queue:
+     the MoE models two rounds on the mutable store (mixtral also on the
+     wholesale one), the others one round. Checks: (a) prefill computed /
+     reused 288/480 for MoE, reused 0 for the others; (b) greedy tokens
+     == the argmax of a full forward where the top-2 margin exceeds 2e-3
+     (MoE with a capacity factor of 2E, so that no token drops); (c)
+     every sampled token in its nucleus; (d) one cdf_search launch a
+     decode step, the kernel == plain on every captured (cdf, u), and on
+     mixtral's wholesale store the page kernel == plain on every probe;
+     (e) one decode step under sync-debug "error"; (f) finite logits.
+     Prints each model's parameters and bytes, max_memory_allocated,
+     prefill ms cold (and warm where pageable), decode ms a step with
+     its launches and idle share beside its byte bound, and the phase's
+     wall time;
+ 18. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
@@ -244,8 +266,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      phase 16d's runs, and for
      kernels 1-4 their launches inside phase 14's replays, for kernels 1
      and 2 their launches and times under ops.fast_page_search /
-     ops.kary_search (phase 15b); the last line {"ok": true, "device":
-     {...}}.
+     ops.kary_search (phase 15b), the CDF kernel's launches on phase 17
+     and the page kernel's on its wholesale store; the last line {"ok":
+     true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -1742,11 +1765,40 @@ def served_run(eng, prompts, gen):
     return seen
 
 
+def cdf_vs_plain(cdf_u, what: str) -> int:
+    """The CDF kernel == its plain version on every captured (cdf, u);
+    the largest error."""
+    from repro_torch.kernels import cdf_search as cs
+    err = 0
+    for cdf, u in cdf_u:
+        got, want = cs.cdf_search(cdf, u), cs.invert_cdf(cdf, u)
+        check(torch.equal(got, want), f"{what}: cdf kernel != plain on a "
+              "captured decode step")
+        err = max(err, max_abs_err(got, want))
+    return err
+
+
+def probes_vs_plain(probes, what: str) -> tuple:
+    """The page kernel == its plain version on every captured store probe,
+    at the store's own shapes; (the largest error, the shapes)."""
+    from repro_torch.kernels import page_search as pk
+    err, shapes = 0, set()
+    for qb, sp, pages, stride, used_t in probes:
+        got = pk.page_search_bucketed(qb, sp, pages, stride=stride,
+                                      steps_used=used_t)
+        want = pk.page_search_plain(qb, sp, pages, stride=stride)
+        u = sp.shape[0] if used_t is None else int(used_t)
+        check(torch.equal(got[:u], want[:u]), f"{what}: page kernel != "
+              f"plain on a store probe (grid {tuple(qb.shape)}, "
+              f"{pages.shape[0]} pages, {u} steps used)")
+        err = max(err, max_abs_err(got[:u], want[:u]))
+        shapes.add((*qb.shape, pages.shape[0], u))
+    return err, shapes
+
+
 def check_served(cfg, eng, seen, prompts, want_store, want_write_path,
                  what: str) -> dict:
     """Checks (a), (d) and (e) of one posture's counted run."""
-    from repro_torch.kernels import cdf_search as cs
-    from repro_torch.kernels import page_search as pk
     launches, out = seen["launches"], seen["out"]
     steps = SERVE_STEPS * SERVE_ROUNDS
     check(launches["cdf_search"] == steps, f"{what}: cdf_search launched "
@@ -1772,27 +1824,12 @@ def check_served(cfg, eng, seen, prompts, want_store, want_write_path,
               "was sampled")
         check(in_nucleus(lg.cpu().numpy(), tok), "a sampled token lies "
               "outside its top-p nucleus")
-    cdf_err = 0
-    for cdf, u in seen["cdf_u"]:
-        got, want = cs.cdf_search(cdf, u), cs.invert_cdf(cdf, u)
-        check(torch.equal(got, want), "cdf kernel != plain on a captured "
-              "decode step")
-        cdf_err = max(cdf_err, max_abs_err(got, want))
+    cdf_err = cdf_vs_plain(seen["cdf_u"], what)
     # the page kernel == plain on every probe the store made, at the store's
     # own shapes (a few pages, ~24 hashes a probe, few steps of the grid)
     check(len(seen["probes"]) == launches["page_search_bucketed"],
           "captured store probes")
-    probe_err, probe_shapes = 0, set()
-    for qb, sp, pages, stride, used_t in seen["probes"]:
-        got = pk.page_search_bucketed(qb, sp, pages, stride=stride,
-                                      steps_used=used_t)
-        want = pk.page_search_plain(qb, sp, pages, stride=stride)
-        u = sp.shape[0] if used_t is None else int(used_t)
-        check(torch.equal(got[:u], want[:u]), "page kernel != plain on a "
-              f"store probe (grid {tuple(qb.shape)}, {pages.shape[0]} "
-              f"pages, {u} steps used)")
-        probe_err = max(probe_err, max_abs_err(got[:u], want[:u]))
-        probe_shapes.add((*qb.shape, pages.shape[0], u))
+    probe_err, probe_shapes = probes_vs_plain(seen["probes"], what)
     return {"launches": launches, "prefill_computed_reused": list(reuse),
             "prefix_store": store_stats,
             "write_path": eng.store.index_stats,
@@ -1913,22 +1950,7 @@ def serve_path(dev, seed: int):
 
     # (c) greedy tokens are the argmax of a full forward, where the top-2
     # margin exceeds the tolerance
-    greedy = engine(SamplerConfig(temperature=0.0))
-    g_out = greedy.generate(prompts[:2], 4).cpu().numpy()
-    checked = 0
-    for b in range(2):
-        toks = np.concatenate([prompts[b], g_out[b]]).astype(np.int32)
-        h, _ = T.forward(cfg, params, torch.from_numpy(toks[None, :-1])
-                         .to(dev), compute_dtype=torch.float32)
-        lg = T.logits_of(cfg, params, h)[0, -4:]
-        top2 = torch.topk(lg, 2, dim=-1)
-        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-        arg = top2.indices[:, 0].cpu().numpy()
-        ok = margin > GREEDY_TOL
-        check(np.array_equal(arg[ok], g_out[b][ok]), "a greedy token is "
-              "not the argmax of the full forward")
-        checked += int(ok.sum())
-    check(checked > 0, "no greedy token had a top-2 margin above 2e-3")
+    checked = greedy_vs_forward(cfg, params, prompts, None, dev)
 
     # (f) no host sync inside one decode step: sample + decode_step on the
     # batch prefill of the same prompts
@@ -3061,13 +3083,13 @@ def telemetry_path(dev, rng, index, keys_sorted, registry) -> dict:
 GATE_TILES = (128, 256)
 GATE_LEAF_WIDTHS = (None, 4096)          # None: the planner's 2048
 SPEC_TIMED_REPS = 15
-# Reps of each measured leg of the autotuner (its default is 8). The
-# lookup p50s of a sweep's trials span about three sqrt-2 buckets on the
-# card (host dispatch jitter), and a median moves two buckets between a
-# sweep and its verify_profile in 2 of 4 sweeps at 32 reps, 1 of 4 at 64
-# and none of 4 at 128 (experiments/tune_verify_spread.py --reps 32 64
-# 128 --runs 4 on an H100), so here both take the median of 128 (the
-# rule, 10% or one bucket, is unchanged).
+# Reps of each measured leg of the autotuner (its default is 8). On the
+# card the tuner times its lookup and scan reps to the device's
+# completion: timed at the dispatch boundary, a specialized lookup's p50
+# moved by two sqrt-2 buckets between a sweep and its verify_profile in
+# 2 of 4 sweeps after phases 1-14d, at any rep count, as the host's
+# speed shifted from one tenth of a second to the next (the verify rule,
+# 10% or one bucket, is the reference's and unchanged).
 TUNE_REPS = 128
 
 
@@ -4295,6 +4317,341 @@ def flat_serve_path(dev, seed: int) -> tuple:
     return out, {k: out[k]["cdf_launches"] for k in out}
 
 
+# -------------------------------------------------------------- phase 17
+# The rest of the serving stack at full width: each new family's model
+# with weights from the seed, depth cut only where one card's 80 GB forces
+# it (the cut is printed). The MoE models serve two rounds on the mutable
+# prefix store (mixtral also on the wholesale one), the others one round.
+FAMILY_MODELS = (     # arch, layers (None: whole), rounds, wholesale, params
+    ("mixtral-8x7b", 2, 2, True, 3_166_785_536),
+    ("llama4-scout-17b-a16e", 1, 2, False, 4_273_044_480),
+    ("jamba-v0.1-52b", 8, 1, False, 13_267_598_848),
+    ("mamba2-370m", None, 1, False, 368_645_632),
+    ("llama-3.2-vision-11b", 5, 1, False, 2_185_281_536),
+    ("whisper-small", None, 1, False, 278_444_544),
+)
+FAMILY_STEPS = 16
+FLOPS_F32 = 67e12              # H100 SXM float32 peak, an FMA counted as 2
+
+
+def family_cfg(arch: str, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None and layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def family_served_run(eng, prompts, rounds: int, gen, memory) -> dict:
+    """``rounds`` of eng.generate with the kernel counters at 0 before and
+    read after; keeps each sampled step's logits and token, every
+    (cdf, u) the decode queue's flushes invert, and the operands of every
+    page-kernel call the prefix store makes."""
+    from repro_torch.engine import tiered
+    from repro_torch.kernels import cdf_search as cs
+    from repro_torch.kernels import page_search as pk
+    from repro_torch.serve import engine as E
+
+    seen = {"logits": [], "tokens": [], "cdf_u": [], "probes": []}
+    real_sq, real_cdf, real_page = E.sample_queued, cs.cdf_search, \
+        tiered._page
+
+    def rec_sample(logits, cfg_, queue, tenants=None, *, generator=None):
+        seen["logits"].append(logits.clone())
+        tok = real_sq(logits, cfg_, queue, tenants, generator=generator)
+        seen["tokens"].append(tok)
+        return tok
+
+    def rec_cdf(cdf, u):
+        seen["cdf_u"].append((cdf.clone(), u.clone()))
+        return real_cdf(cdf, u)
+
+    def rec_page(qb, step_pages, pages, *, stride, steps_used=None):
+        seen["probes"].append((qb.clone(), step_pages.clone(), pages.clone(),
+                               stride, None if steps_used is None
+                               else steps_used.clone()))
+        return real_page.page_search_bucketed(qb, step_pages, pages,
+                                              stride=stride,
+                                              steps_used=steps_used)
+
+    # the real cdf_search counts its launches on the module's name for it
+    rec_cdf.launches = 0
+    pk.page_search_bucketed.launches = 0
+    E.sample_queued, cs.cdf_search = rec_sample, rec_cdf
+    tiered._page = types.SimpleNamespace(
+        **{**vars(real_page), "page_search_bucketed": rec_page})
+    t0 = time.perf_counter()
+    try:
+        for _ in range(rounds):
+            out = eng.generate(prompts, FAMILY_STEPS, generator=gen,
+                               memory=memory)
+        torch.cuda.synchronize()
+    finally:
+        E.sample_queued, cs.cdf_search, tiered._page = real_sq, real_cdf, \
+            real_page
+    seen["generate_s"] = time.perf_counter() - t0
+    seen["launches"] = {"cdf_search": rec_cdf.launches,
+                        "page_search_bucketed":
+                            pk.page_search_bucketed.launches}
+    seen["out"] = out
+    return seen
+
+
+def check_family_run(cfg, eng, seen, prompts, rounds: int, what: str) -> dict:
+    """Checks (a), (c) and (d) of one counted run, and (f) on its logits."""
+    steps = FAMILY_STEPS * rounds
+    launches, st = seen["launches"], eng.stats
+    reuse = (st.prefill_tokens, st.reused_tokens)
+    if eng.pageable:           # (a) as the reference launcher counts them
+        check(rounds == 2 and reuse == WANT_REUSE,
+              f"{what}: prefill computed/reused {reuse}")
+    else:
+        check(reuse == (rounds * sum(p.size for p in prompts), 0)
+              and eng.store.stats["lookups"] == 0,
+              f"{what}: prefill computed/reused {reuse}, store "
+              f"{eng.store.stats}")
+    check(st.decode_tokens == steps * len(prompts)
+          and tuple(seen["out"].shape) == (len(prompts), FAMILY_STEPS),
+          f"{what}: decode tokens {st.decode_tokens}")
+    # (d) one CDF launch a decode step, the kernel == plain on every
+    # captured (cdf, u)
+    check(launches["cdf_search"] == steps and len(seen["cdf_u"]) == steps
+          and len(seen["logits"]) == steps,
+          f"{what}: {launches['cdf_search']} cdf_search launches, "
+          f"{len(seen['cdf_u'])} captured, in {steps} steps")
+    cdf_err = cdf_vs_plain(seen["cdf_u"], what)
+    # (c) every sampled token in its nucleus, (f) finite logits
+    for lg, tok in zip(seen["logits"], seen["tokens"]):
+        check(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
+              f"{what}: non-finite logits")
+        tok = tok.cpu().numpy()
+        check(bool((tok < cfg.vocab).all()) and in_nucleus(
+            lg.cpu().numpy(), tok), f"{what}: a sampled token lies outside "
+            "its top-p nucleus")
+    check(len(seen["probes"]) == launches["page_search_bucketed"],
+          f"{what}: captured store probes")
+    probe_err, _ = probes_vs_plain(seen["probes"], what)
+    return {"launches": launches, "prefill_computed_reused": list(reuse),
+            "prefix_store": dict(eng.store.stats),
+            "store_probes_checked": len(seen["probes"]),
+            "store_probe_max_abs_err": probe_err,
+            "cdf_steps_checked": len(seen["cdf_u"]),
+            "cdf_max_abs_err": cdf_err, "generate_s": seen["generate_s"],
+            "engine_decode_ms_per_step": st.decode_s / steps * 1e3,
+            "engine_prefill_ms": st.prefill_s * 1e3}
+
+
+def greedy_vs_forward(cfg, params, prompts, memory, dev) -> int:
+    """(b): greedy tokens of the engine equal the argmax of a full forward
+    wherever the top-2 margin exceeds GREEDY_TOL; the number checked."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=256, page_size=16,
+                      sampler=SamplerConfig(temperature=0.0))
+    g_out = eng.generate(prompts[:2], 4, memory=memory).cpu().numpy()
+    checked = 0
+    for b in range(2):
+        toks = np.concatenate([prompts[b], g_out[b]]).astype(np.int32)
+        h, _ = T.forward(cfg, params, torch.from_numpy(toks[None, :-1])
+                         .to(dev), memory, compute_dtype=torch.float32)
+        lg = T.logits_of(cfg, params, h)[0, -4:]
+        top2 = torch.topk(lg, 2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        arg = top2.indices[:, 0].cpu().numpy()
+        ok = margin > GREEDY_TOL
+        check(np.array_equal(arg[ok], g_out[b][ok]), f"{cfg.name}: a greedy "
+              "token is not the argmax of the full forward")
+        checked += int(ok.sum())
+    check(checked > 0, f"{cfg.name}: no greedy token had a top-2 margin "
+          "above 2e-3")
+    return checked
+
+
+def decode_step_bound(cfg, params, cache, B: int) -> dict:
+    """The least time of one decode step at B rows: every weight it reads
+    once (the untied embedding only at its B rows; MoE experts all, since
+    every expert runs on its C slots), the caches it reads (K/V up to the
+    valid length, the cross K/V, the mamba states read and written), over
+    the HBM rate; against its float32 operations over the float32 peak."""
+    from repro_torch.models import transformer as T
+    emb = params["embed"].numel()
+    # the encoder runs at prefill only
+    n = T.param_count({k: v for k, v in params.items() if k != "encoder"})
+    w_bytes = (n - (0 if cfg.tie_embeddings else emb - B * cfg.d_model)) * 4
+    L = int(cache["lengths"][0]) + 1
+    c_bytes = 0
+    for name in ("k", "v"):
+        if name in cache:
+            c_bytes += cache[name][:, :, :L].numel() * 4
+    for name in ("ck", "cv"):
+        if name in cache:
+            c_bytes += cache[name].numel() * 4
+    for name in ("conv", "ssm"):
+        if name in cache:
+            c_bytes += cache[name].numel() * 4 * 2
+    # operations: 2 a weight a row, the experts' at their E * C slots
+    ops = 0.0
+    for lp in params["layers"]:
+        for key, sub in lp.items():
+            cnt = T.param_count(sub) if isinstance(sub, dict) else sub.numel()
+            if key == "moe":
+                E = cfg.n_experts
+                C = max(int(B * cfg.topk / E * cfg.capacity_factor), 1)
+                per_expert = 3 * cfg.d_model * cfg.d_ff
+                ops += 2 * E * C * per_expert + 2 * B * (cnt - E * per_expert)
+            else:
+                ops += 2 * B * cnt
+    ops += 2 * B * cfg.d_model * cfg.padded_vocab          # the logits
+    t_bytes = (w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOPS_F32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "weight_bytes": w_bytes, "cache_bytes": c_bytes, "flops": ops}
+
+
+def family_path(dev, seed: int, arch: str, layers, rounds: int,
+                wholesale: bool, want_params: int) -> dict:
+    """One model of phase 17 at full width: init, the counted serving
+    runs, checks (a)-(f), prefill and decode times, one profiled step."""
+    import dataclasses
+    from repro_torch.core import IndexConfig
+    from repro_torch.launch.serve import make_prompts, stub_memory
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve import sampler as S
+    t_model = time.perf_counter()
+    cfg = family_cfg(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    check(n_params == want_params, f"{arch}: {n_params} parameters, the "
+          f"reference's config gives {want_params}")
+    memory = stub_memory(cfg, dev) if cfg.family in ("vlm", "audio") \
+        else None
+    prompts = make_prompts(cfg.vocab)
+    scfg = SamplerConfig(temperature=TEMPERATURE, top_p=TOP_P)
+
+    def engine(config=None):
+        return ServeEngine(cfg, params, max_len=256, page_size=16,
+                           index_config=config, sampler=scfg)
+
+    out = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "layers_full": family_cfg(arch, None).n_layers,
+           "params": n_params, "param_bytes": n_params * 4,
+           "init_s": init_s}
+    eng = engine()
+    check(eng.decode_batching and eng.store.index_config.mutable,
+          f"{arch}: the default engine")
+    seen = family_served_run(eng, prompts, rounds,
+                             torch.Generator(dev).manual_seed(seed), memory)
+    out["mutable"] = check_family_run(cfg, eng, seen, prompts, rounds,
+                                      f"{arch} mutable")
+    check(seen["launches"]["page_search_bucketed"] == 0,
+          f"{arch}: the mutable store launched the page kernel")
+    if wholesale:
+        whole = engine(IndexConfig(kind="tiered", plan="device",
+                                   mutable=False))
+        seen_w = family_served_run(whole, prompts, rounds,
+                                   torch.Generator(dev).manual_seed(seed),
+                                   memory)
+        out["wholesale"] = check_family_run(cfg, whole, seen_w, prompts,
+                                            rounds, f"{arch} wholesale")
+        check(dict(whole.store.stats) == WANT_STORE
+              and seen_w["launches"]["page_search_bucketed"] > 0,
+              f"{arch} wholesale: store {whole.store.stats}, launches "
+              f"{seen_w['launches']}")
+        del whole
+    # (b) greedy == argmax of a full forward; MoE models with ample
+    # capacity (no drops), on the same weights
+    gcfg = dataclasses.replace(cfg, capacity_factor=2.0 * cfg.n_experts) \
+        if cfg.n_experts else cfg
+    out["greedy_tokens_checked"] = greedy_vs_forward(gcfg, params, prompts,
+                                                     memory, dev)
+    out["greedy_capacity_factor"] = gcfg.capacity_factor
+
+    # (e) one decode step under sync-debug "error", on the batch prefill
+    B = len(prompts)
+    tok8 = torch.from_numpy(np.stack(prompts).astype(np.int32)).to(dev)
+    mem8 = None if memory is None else memory.expand(B, -1, -1)
+    lg8, cache = T.prefill(cfg, params, tok8, mem8, max_len=256,
+                           compute_dtype=torch.float32)
+    check(bool(torch.isfinite(lg8[:, :cfg.vocab]).all()),
+          f"{arch}: non-finite prefill logits")
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def step():
+        nxt = S.sample(lg8, scfg, generator=gen)
+        return T.decode_step(cfg, params, nxt, cache,
+                             compute_dtype=torch.float32)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg_step, _ = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(lg_step[:, :cfg.vocab]).all()),
+          f"{arch}: non-finite decode logits")
+
+    # ---- times: prefill on the host clock (median of 5), the decode step
+    # in CUDA events, one profiled step
+    cold = engine()
+    out["prefill_cold_ms"] = host_ms(
+        lambda: cold.prefill_one(prompts[0], memory=memory, probe=(0, [])))
+    if eng.pageable:
+        out["prefill_warm_ms"] = host_ms(
+            lambda: eng.prefill_one(prompts[0], memory=memory))
+    out["decode_step_ms"] = cuda_ms(step, reps=9, warmup=2)
+    prof = device_profile(step)
+    prof["idle_share"] = 1 - prof["kernels_ms"] / out["decode_step_ms"]
+    out["profile_decode_step"] = prof
+    out["decode_step_launches"] = prof["kernel_launches"]
+    out.update(decode_step_bound(cfg, params, cache, B))
+    out["decode_step_bound_share"] = out["bound_ms"] / out["decode_step_ms"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["wall_s"] = time.perf_counter() - t_model
+    return out
+
+
+def families_path(dev, seed: int) -> tuple:
+    """Phase 17: every model of FAMILY_MODELS, one at a time, its memory
+    freed before the next. Returns (summary, CDF launches by model and
+    posture, page-kernel launches on mixtral's wholesale store)."""
+    import gc
+    t0 = time.perf_counter()
+    summary, cdf, page = {}, {}, {}
+    for arch, layers, rounds, wholesale, n_params in FAMILY_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = family_path(dev, seed, arch, layers, rounds, wholesale,
+                          n_params)
+        cut = "whole" if res["layers"] == res["layers_full"] else \
+            f"{res['layers']} of {res['layers_full']} layers"
+        print(f"phase 17: {arch} ({cut}) " + json.dumps(res), flush=True)
+        summary[arch] = {k: res[k] for k in (
+            "family", "layers", "layers_full", "params", "param_bytes",
+            "max_memory_allocated", "prefill_cold_ms", "decode_step_ms",
+            "bound_ms", "bound_by", "decode_step_launches")}
+        summary[arch]["idle_share"] = res["profile_decode_step"]["idle_share"]
+        for posture in ("mutable", "wholesale"):
+            if posture in res:
+                cdf[f"{arch}/{posture}"] = res[posture]["launches"][
+                    "cdf_search"]
+        if "wholesale" in res:
+            page[arch] = {
+                "launches": res["wholesale"]["launches"][
+                    "page_search_bucketed"],
+                "max_abs_err": res["wholesale"]["store_probe_max_abs_err"]}
+        del res
+    summary["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17: {summary['wall_s']:.1f} s", flush=True)
+    return summary, cdf, page
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -4409,6 +4766,9 @@ def main() -> int:
     print("phase 16d: serving over nitrogen " + json.dumps(serve16),
           flush=True)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    del imm_idx
+    fam17, cdf17, page17 = families_path(dev, args.seed)
+    print("phase 17: families " + json.dumps(fam17), flush=True)
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -4447,6 +4807,8 @@ def main() -> int:
         k: {"launches": v["cdf_launches"], "flushes": v["decode_flushes"]}
         for k, v in decode13["runs"].items() if k != "inline"}
     cdf_row["flat_index_serve_launches"] = cdf16      # phase 16d
+    cdf_row["families_launches"] = cdf17              # phase 17
+    rows[0]["families_wholesale"] = page17            # phase 17, mixtral
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@
                                               [--out F]
 
 The autotuner (``repro_torch/tune``) scores a sweep point by the p50 of
-``engine_op_seconds{path="lookup"}``, the host time to dispatch a store
-lookup, in sqrt-2 buckets, and ``verify_profile`` accepts a profile when
-a fresh p50 lies within 10% or one bucket of the recorded one. This
+``engine_op_seconds{path="lookup"}``, on the card the time from a store
+lookup's call to the device's completion (the reference times the
+call's dispatch boundary), in sqrt-2 buckets, and ``verify_profile``
+accepts a profile when a fresh p50 lies within 10% or one bucket of the
+recorded one. This
 prints, on the autotuner's own workload at 2^24 keys and 2^16 queries:
 
 - the host dispatch times (µs, p10 / p50 / p90 of 64 after one warm-up,

@@ -2,9 +2,8 @@
 ``repro/configs/base.py``, copied so the port imports nothing of the
 reference).
 
-``get_config`` resolves the architectures whose model family the port
-runs; the others raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+One file per architecture lives next to this module, each a copy of the
+reference's; ``get_config`` resolves every id of ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -14,15 +13,12 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
-from ..core.util import not_ported
-
 ARCH_IDS = (
     "stablelm-12b", "minicpm-2b", "qwen3-0.6b", "nemotron-4-340b",
     "llama4-scout-17b-a16e", "mixtral-8x7b", "mamba2-370m",
     "llama-3.2-vision-11b", "whisper-small", "jamba-v0.1-52b",
     "nitrogen-db",           # the paper's own workload as a config
 )
-PORTED_ARCHS = ("qwen3-0.6b",)
 
 
 @dataclass(frozen=True)
@@ -150,7 +146,5 @@ _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULE_OF:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_OF)}")
-    if arch_id not in PORTED_ARCHS:
-        raise not_ported(f"arch {arch_id!r}", "item 13 (serving stack)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.CONFIG

@@ -64,14 +64,6 @@ def pad_to(keys: np.ndarray, size: int) -> np.ndarray:
     return out
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a not-yet-ported kind, option or function raises, naming
-    the ROADMAP Queue 1 item that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it comes with ROADMAP "
-        f"Queue 1 {item}")
-
-
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype (int32 -> np.int32, ...)."""
     return torch.empty(0, dtype=dtype).numpy().dtype

@@ -6,6 +6,12 @@ CUDA card (PyTorch port of ``repro/launch/serve.py``).
     # off the card, at a tiny width:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --tenants 2 --queue-max-share 0.5 --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+        --reduced --device cpu
+
+``--arch`` takes every LM id of ``configs.ARCH_IDS``: dense and MoE models
+serve with prefix reuse; ssm, hybrid, vlm and audio ones skip the store
+(reused 0), and vlm / audio ones get the stub frontend's memory.
 
 The prefix store is the mutable tiered store unless ``--wholesale`` asks
 for the immutable index rebuilt on the probe after an insert; ``--index``
@@ -40,6 +46,16 @@ def make_prompts(vocab: int, requests: int = 8, prompt_len: int = 48,
     return [np.concatenate([
         shared, rng.integers(0, vocab, prompt_len - shared_prefix)])
         for _ in range(requests)]
+
+
+def stub_memory(cfg, device, seed: int = 5):
+    """The stub frontend's embeddings [1, encoder_seq, d_model] for the
+    vlm and audio families, drawn on ``device`` from a seeded generator
+    (the reference launcher draws them from ``PRNGKey(5)``)."""
+    import torch
+    return torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                       generator=torch.Generator(device).manual_seed(seed),
+                       device=device)
 
 
 def main():
@@ -206,10 +222,13 @@ def main():
     tenants = None
     if args.tenants > 0:
         tenants = [f"t{i % args.tenants}" for i in range(args.requests)]
+    mem = None
+    if cfg.family in ("vlm", "audio"):
+        mem = stub_memory(cfg, device)
     gen = torch.Generator(device).manual_seed(0)
     for _ in range(max(args.rounds, 1)):
         out = eng.generate(prompts, steps=args.steps, generator=gen,
-                           tenants=tenants)
+                           memory=mem, tenants=tenants)
     s = eng.stats
     print(f"tokens out: {tuple(out.shape)}")
     print(f"prefill computed/reused: {s.prefill_tokens}/{s.reused_tokens}")

@@ -11,14 +11,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.util import not_ported
 from .flash_attention import flash_attention, masked_attention
 
 
-def _dense_init(gen: torch.Generator, shape: tuple, device) -> torch.Tensor:
-    """Normal weights scaled by fan_in ** -0.5 (fan_in = shape[0])."""
+def _dense_init(gen: torch.Generator, shape: tuple, device,
+                fan_in: int | None = None) -> torch.Tensor:
+    """Normal weights scaled by fan_in ** -0.5 (fan_in = shape[0] unless
+    given: the stacked experts' [E, D, F] draw as E matrices [D, F])."""
     return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * (shape[0] ** -0.5)
+                       dtype=torch.float32).mul_((fan_in or shape[0]) ** -0.5)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
@@ -83,8 +84,26 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=None,
 
 
 def cross_attention_block(cfg, p, x, memory, *, return_kv=False, kv=None):
-    raise not_ported("cross attention (vlm/audio families)",
-                     "item 13 (serving stack)")
+    """Cross attention to encoder or vision memory (no mask, no RoPE);
+    ``kv`` reuses the cached K/V at decode."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if kv is None:
+        m = memory.to(x.dtype)
+        k = (m @ p["wk"].to(x.dtype)).reshape(B, m.shape[1], cfg.n_kv_heads,
+                                              hd)
+        v = (m @ p["wv"].to(x.dtype)).reshape(B, m.shape[1], cfg.n_kv_heads,
+                                              hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    else:
+        k, v = kv
+    o = flash_attention(q, k, v, causal=False)
+    o = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return (o, (k, v)) if return_kv else o
 
 
 def _grouped_attention(cfg, p, q, k_cache, v_cache, ok):

@@ -1,71 +1,113 @@
-"""Decoder LM of the dense family: init, forward, prefill, prefill with a
-reused prefix, and batched decode (PyTorch port of
-``repro/models/transformer.py``).
+"""Config-driven transformer family: decoder LMs (dense, moe, ssm, hybrid),
+the encoder-decoder (audio) and the cross-attention backbone (vlm):
+init, forward, encode, prefill, prefill with a reused prefix, and batched
+decode (PyTorch port of ``repro/models/transformer.py``).
 
 The reference stacks its blocks ``[repeats, ...]`` per pattern position
 and scans over them. The port keeps one dict of tensors per layer in
-``params["layers"]`` and loops over them, and keeps the decode cache as
-one ``[n_layers, B, max_len, Hkv, hd]`` tensor each for K and V:
-``from_reference_params`` converts the reference's parameters, and a
-dense model's reference cache ``layers.p0.k`` has the same shape as the
-port's ``k``. Prefill and decode write the cache in place.
+``params["layers"]`` (layer ``l = r * period + p`` is the reference's
+``blocks[f"p{p}"][r]``) and loops over them; ``from_reference_params``
+converts the reference's parameters. The decode cache stacks each state
+kind over the layers that carry it:
 
-The other families (moe, ssm, hybrid, vlm, audio) raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 13.
+    lengths  [B] int32
+    k, v     [L_attn, B, max_len, Hkv, hd]      attention layers
+    conv     [L_mamba, B, ssm_conv - 1, conv_dim]   mamba layers (cache dtype)
+    ssm      [L_mamba, B, H, P, N] float32          mamba layers
+    ck, cv   [L_cross, B, memory_len, Hkv, hd]  cross layers
+
+so a dense or MoE model's ``k`` / ``v`` are ``[n_layers, ...]`` and page as
+they are. ``to_reference_cache`` gives the reference's layout. Prefill and
+decode write the cache in place. Modality frontends are stubs, as in the
+reference: vlm and audio take precomputed embeddings at d_model
+("memory").
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.util import not_ported, resolve_device, take
+from ..core.util import resolve_device, take
 from . import layers as L
+from . import moe as MOE
+from . import ssm as SSM
 
-PORTED_FAMILIES = ("dense",)
+PAGEABLE_FAMILIES = ("dense", "moe")
+STATE_KINDS = {"attn": ("k", "v"), "mamba": ("conv", "ssm"),
+               "cross": ("ck", "cv")}
 
 
-def _check_family(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise not_ported(f"model family {cfg.family!r}",
-                         "item 13 (serving stack)")
+def _specs(cfg) -> list:
+    """The resolved block structure of every layer."""
+    return [cfg.layer_spec(i % cfg.period) for i in range(cfg.n_layers)]
+
+
+def _slots(cfg) -> list:
+    """Per layer, {kind: its index in the cache's stack of that kind}."""
+    count = {"attn": 0, "mamba": 0, "cross": 0}
+    out = []
+    for spec in _specs(cfg):
+        kinds = [spec["mixer"]] + (["cross"] if spec["cross"] else [])
+        out.append({kd: count[kd] for kd in kinds})
+        for kd in kinds:
+            count[kd] += 1
+    return out
 
 
 # =============================================================== init
-def _init_block(cfg, gen: torch.Generator, device) -> dict:
-    return {
-        "ln1": torch.ones(cfg.d_model, device=device),
-        "attn": L.init_attention(cfg, gen, device),
-        "ln2": torch.ones(cfg.d_model, device=device),
-        "mlp": L.init_mlp(cfg, gen, device),
-    }
+def _init_block(cfg, spec, gen: torch.Generator, device) -> dict:
+    ones = lambda: torch.ones(cfg.d_model, device=device)  # noqa: E731
+    p = {"ln1": ones()}
+    if spec["mixer"] == "attn":
+        p["attn"] = L.init_attention(cfg, gen, device)
+    else:
+        p["mamba"] = SSM.init_mamba(cfg, gen, device)
+    if spec["cross"]:
+        p["ln_cross"] = ones()
+        p["cross"] = L.init_attention(cfg, gen, device)
+    if spec["ffn"] == "dense":
+        p["ln2"] = ones()
+        p["mlp"] = L.init_mlp(cfg, gen, device)
+    elif spec["ffn"] == "moe":
+        p["ln2"] = ones()
+        p["moe"] = MOE.init_moe(cfg, gen, device)
+    return p
+
+
+ENCODER_SPEC = {"mixer": "attn", "cross": False, "ffn": "dense"}
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     """Random float32 parameters with the reference's shapes and scales,
     drawn from ``generator`` (which must live on ``device``)."""
-    _check_family(cfg)
     device = resolve_device(device)
     vp = cfg.padded_vocab            # padded columns are masked in logits
     params = {
         "embed": torch.randn(vp, cfg.d_model, generator=generator,
-                             device=device) * 0.02,
+                             device=device).mul_(0.02),
         "final_norm": torch.ones(cfg.d_model, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L._dense_init(generator, (cfg.d_model, vp),
                                           device)
-    params["layers"] = [_init_block(cfg, generator, device)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_init_block(cfg, spec, generator, device)
+                        for spec in _specs(cfg)]
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [_init_block(cfg, ENCODER_SPEC, generator, device)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": torch.ones(cfg.d_model, device=device),
+        }
     return params
 
 
 def from_reference_params(cfg, params, *, device=None) -> dict:
     """The port's parameters from the reference's parameter pytree (numpy
-    or JAX arrays, blocks stacked ``[repeats, ...]`` under ``p0``), so
-    that both packages compute the same function."""
-    _check_family(cfg)
+    or JAX arrays, blocks stacked ``[repeats, ...]`` per pattern position),
+    so that both packages compute the same function."""
     device = resolve_device(device)
 
     def conv(tree, r=None):
@@ -74,9 +116,17 @@ def from_reference_params(cfg, params, *, device=None) -> dict:
         a = np.array(tree)
         return torch.from_numpy(a if r is None else a[r]).to(device)
 
-    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
-    out["layers"] = [conv(params["blocks"]["p0"], r)
-                     for r in range(cfg.n_layers)]
+    out = {k: conv(v) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
+    blocks, period = params["blocks"], cfg.period
+    out["layers"] = [conv(blocks[f"p{i % period}"], i // period)
+                     for i in range(cfg.n_layers)]
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": [conv(enc["blocks"], r)
+                       for r in range(cfg.encoder_layers)],
+            "final_norm": conv(enc["final_norm"])}
     return out
 
 
@@ -90,34 +140,88 @@ def param_count(params) -> int:
     return count(params)
 
 
-# =============================================================== forward
+# =============================================================== blocks
 def _embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return take(params["embed"], tokens).to(dtype)
 
 
-def _run_blocks(cfg, params, x, positions):
-    """Every layer over x; returns (x, [(k, v) per layer])."""
-    kvs = []
-    for lp in params["layers"]:
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        h, kv = L.attention_block(cfg, lp["attn"], h, positions, causal=True,
-                                  window=cfg.window, return_kv=True)
-        kvs.append(kv)
+def _ffn(cfg, spec, lp, x):
+    """The block's FFN residual: (x, aux)."""
+    if spec["ffn"] == "dense":
+        return x + L.mlp_block(cfg, lp["mlp"],
+                               L.rms_norm(x, lp["ln2"], cfg.norm_eps)), None
+    if spec["ffn"] == "moe":
+        y, aux = MOE.moe_block(cfg, lp["moe"],
+                               L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x + y, aux
+    return x, None
+
+
+def _apply_block(cfg, spec, lp, x, positions, memory):
+    """One pre-norm residual block over whole sequences. Returns (x, aux,
+    the states it leaves for the cache)."""
+    states = {}
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if spec["mixer"] == "attn":
+        h, (states["k"], states["v"]) = L.attention_block(
+            cfg, lp["attn"], h, positions, causal=True, window=cfg.window,
+            return_kv=True)
+    else:
+        h, (states["conv"], states["ssm"]) = SSM.mamba_block(
+            cfg, lp["mamba"], h, chunk=cfg.ssd_chunk, return_state=True)
+    x = x + h
+    if spec["cross"]:
+        h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        h, (states["ck"], states["cv"]) = L.cross_attention_block(
+            cfg, lp["cross"], h, memory, return_kv=True)
         x = x + h
+    x, aux = _ffn(cfg, spec, lp, x)
+    return x, aux, states
+
+
+def _run_blocks(cfg, params, x, positions, memory):
+    """Every layer over x; returns (x, aux summed over blocks, [states per
+    layer])."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    states = []
+    for spec, lp in zip(_specs(cfg), params["layers"]):
+        x, a, st = _apply_block(cfg, spec, lp, x, positions, memory)
+        if a is not None:
+            aux = aux + a
+        states.append(st)
+    return x, aux, states
+
+
+# =============================================================== public api
+def encode(cfg, params, memory: torch.Tensor, compute_dtype=torch.bfloat16):
+    """The encoder stack over stub-frontend embeddings (audio): non-causal
+    self attention with RoPE at arange(S), then the encoder's final
+    norm."""
+    x = memory.to(compute_dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for lp in params["encoder"]["layers"]:
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + L.attention_block(cfg, lp["attn"], h, pos, causal=False)
         x = x + L.mlp_block(cfg, lp["mlp"],
                             L.rms_norm(x, lp["ln2"], cfg.norm_eps))
-    return x, kvs
+    return L.rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
-def forward(cfg, params, tokens: torch.Tensor, *,
+def _memory(cfg, params, memory, compute_dtype):
+    """Encoded memory for the encoder-decoder, cast memory otherwise."""
+    if cfg.is_encoder_decoder:
+        return encode(cfg, params, memory, compute_dtype)
+    return None if memory is None else memory.to(compute_dtype)
+
+
+def forward(cfg, params, tokens: torch.Tensor, memory=None, *,
             compute_dtype=torch.bfloat16):
     """Forward over whole sequences -> (hidden [B,S,D], aux loss). Logits
     are computed by the caller (last token for serving)."""
-    _check_family(cfg)
     x = _embed(params, tokens, compute_dtype)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    x, _ = _run_blocks(cfg, params, x, positions)
-    aux = torch.zeros((), device=x.device)
+    memory = _memory(cfg, params, memory, compute_dtype)
+    x, aux, _ = _run_blocks(cfg, params, x, positions, memory)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -136,43 +240,68 @@ def logits_of(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
 
 # =============================================================== serving
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device) -> dict:
-    """Zeroed decode cache: per-row valid lengths and K/V of every
-    layer."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"lengths": torch.zeros(batch, dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+               memory_len: int = 0, device) -> dict:
+    """Zeroed decode cache: per-row valid lengths and each state kind
+    stacked over the layers that carry it (see the module's docstring).
+    Mixtral's sliding window keeps a full-length cache and masks by
+    window, as the reference does."""
+    n = Counter(kind for slots in _slots(cfg) for kind in slots)
+    cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
+    kv = (cfg.n_kv_heads, cfg.hd)
+    if n["attn"]:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((n["attn"], batch, max_len, *kv),
+                                      dtype=dtype, device=device)
+    if n["mamba"]:
+        H, _, conv_dim = SSM.dims(cfg)
+        cache["conv"] = torch.zeros((n["mamba"], batch, cfg.ssm_conv - 1,
+                                     conv_dim), dtype=dtype, device=device)
+        cache["ssm"] = torch.zeros((n["mamba"], batch, H, cfg.ssm_headdim,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=device)
+    if n["cross"]:
+        for name in ("ck", "cv"):
+            cache[name] = torch.zeros((n["cross"], batch, memory_len, *kv),
+                                      dtype=dtype, device=device)
+    return cache
 
 
-def prefill(cfg, params, tokens: torch.Tensor, *,
+def prefill(cfg, params, tokens: torch.Tensor, memory=None, *,
             compute_dtype=torch.bfloat16, max_len: Optional[int] = None):
     """Run the prompt, build the decode cache. Returns (last_logits, cache)."""
-    _check_family(cfg)
     B, S = tokens.shape
     x = _embed(params, tokens, compute_dtype)
     positions = torch.arange(S, device=x.device)
-    x, kvs = _run_blocks(cfg, params, x, positions)
+    memory = _memory(cfg, params, memory, compute_dtype)
+    x, _, states = _run_blocks(cfg, params, x, positions, memory)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    cache = init_cache(cfg, B, max_len or S, compute_dtype, device=x.device)
+    cache = init_cache(cfg, B, max_len or S, compute_dtype,
+                       memory_len=0 if memory is None else memory.shape[1],
+                       device=x.device)
     cache["lengths"].fill_(S)
-    for i, (k, v) in enumerate(kvs):
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    for slots, st in zip(_slots(cfg), states):
+        for kind, i in slots.items():
+            for name in STATE_KINDS[kind]:
+                dst = cache[name][i]
+                if name in ("k", "v"):
+                    dst = dst[:, :S]
+                dst.copy_(st[name])
     return logits_of(cfg, params, hidden[:, -1:])[:, 0], cache
 
 
 def prefill_continue(cfg, params, tokens: torch.Tensor, cache: dict,
                      start: int, *, compute_dtype=torch.bfloat16):
     """Continue a prefill from position ``start`` (prefix pages already in
-    the cache): the serving path behind prefix reuse. Writes the new K/V
+    the cache): the serving path behind prefix reuse, for pageable
+    (pure-attention) archs only, as in the reference. Writes the new K/V
     into ``cache`` in place."""
-    _check_family(cfg)
+    if cfg.family not in PAGEABLE_FAMILIES:
+        raise ValueError("prefix-continue requires a pageable "
+                         f"(pure-attention) arch, got {cfg.family}")
     B, St = tokens.shape
     x = _embed(params, tokens, compute_dtype)
     positions = start + torch.arange(St, device=x.device)
-    for i, lp in enumerate(params["layers"]):
+    for i, (spec, lp) in enumerate(zip(_specs(cfg), params["layers"])):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         k1, v1 = L._project_qkv(cfg, lp["attn"], h, h, positions, positions,
                                 use_rope=True)[1:]
@@ -181,8 +310,7 @@ def prefill_continue(cfg, params, tokens: torch.Tensor, cache: dict,
         vc[:, start:start + St] = v1
         x = x + L.append_attention(cfg, lp["attn"], h, kc, vc, start,
                                    window=cfg.window)
-        x = x + L.mlp_block(cfg, lp["mlp"],
-                            L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x, _ = _ffn(cfg, spec, lp, x)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_of(cfg, params, hidden[:, -1:])[:, 0]
     return logits, dict(cache, lengths=torch.full_like(cache["lengths"],
@@ -193,25 +321,55 @@ def decode_step(cfg, params, token: torch.Tensor, cache: dict, *,
                 compute_dtype=torch.bfloat16):
     """One token for every sequence. token: [B] int. Returns (logits
     [B, V], cache). Ragged lengths per row: row b writes its K/V at
-    ``min(lengths[b], max_len - 1)``, in place, with no host sync."""
-    _check_family(cfg)
+    ``min(lengths[b], max_len - 1)``; K/V and the mamba states are
+    written in place, with no host sync."""
     B = token.shape[0]
     lengths = cache["lengths"]                      # valid BEFORE this step
     x = _embed(params, token, compute_dtype)[:, None]
-    kv_len = cache["k"].shape[2]
-    wpos = lengths.clamp_max(kv_len - 1).long()
-    at = wpos.view(B, 1, 1, 1).expand(B, 1, cfg.n_kv_heads, cfg.hd)
     valid = lengths + 1
-    for i, lp in enumerate(params["layers"]):
+    if "k" in cache:
+        kv_len = cache["k"].shape[2]
+        wpos = lengths.clamp_max(kv_len - 1).long()
+        at = wpos.view(B, 1, 1, 1).expand(B, 1, cfg.n_kv_heads, cfg.hd)
+    for spec, slots, lp in zip(_specs(cfg), _slots(cfg), params["layers"]):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        k1, v1 = L.project_kv_token(cfg, lp["attn"], h, lengths)
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc.scatter_(1, at, k1.to(kc.dtype))
-        vc.scatter_(1, at, v1.to(vc.dtype))
-        x = x + L.decode_attention(cfg, lp["attn"], h, kc, vc, valid,
-                                   lengths)
-        x = x + L.mlp_block(cfg, lp["mlp"],
-                            L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        if spec["mixer"] == "attn":
+            i = slots["attn"]
+            k1, v1 = L.project_kv_token(cfg, lp["attn"], h, lengths)
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc.scatter_(1, at, k1.to(kc.dtype))
+            vc.scatter_(1, at, v1.to(vc.dtype))
+            h = L.decode_attention(cfg, lp["attn"], h, kc, vc, valid, lengths)
+        else:
+            j = slots["mamba"]
+            h, (conv_s, ssm_s) = SSM.mamba_block(
+                cfg, lp["mamba"], h, conv_state=cache["conv"][j],
+                ssm_state=cache["ssm"][j], return_state=True)
+            cache["conv"][j].copy_(conv_s)
+            cache["ssm"][j].copy_(ssm_s)
+        x = x + h
+        if spec["cross"]:
+            c = slots["cross"]
+            h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + L.cross_attention_block(cfg, lp["cross"], h, None,
+                                            kv=(cache["ck"][c],
+                                                cache["cv"][c]))
+        x, _ = _ffn(cfg, spec, lp, x)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_of(cfg, params, hidden)[:, 0]
     return logits, dict(cache, lengths=valid)
+
+
+def to_reference_cache(cfg, cache: dict) -> dict:
+    """The cache in the reference's layout, as numpy: ``{"lengths",
+    "layers": {"p{i}": {name: [repeats, B, ...]}}}``."""
+    layers = {}
+    period = cfg.period
+    for l, slots in enumerate(_slots(cfg)):
+        ent = layers.setdefault(f"p{l % period}", {})
+        for kind, i in slots.items():
+            for name in STATE_KINDS[kind]:
+                ent.setdefault(name, []).append(cache[name][i].cpu().numpy())
+    return {"lengths": cache["lengths"].cpu().numpy(),
+            "layers": {p: {n: np.stack(v) for n, v in ent.items()}
+                       for p, ent in layers.items()}}

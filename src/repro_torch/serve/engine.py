@@ -89,7 +89,7 @@ class ServeEngine:
         self.sampler = sampler
         self.decode_batching = decode_batching
         self.dtype = compute_dtype
-        self.pageable = cfg.family in ("dense", "moe")
+        self.pageable = cfg.family in T.PAGEABLE_FAMILIES
         # the default probe is the mutable tiered store, as in the reference
         self.store = KV.PrefixPageStore(
             page_size, index_config or IndexConfig(kind="tiered",
@@ -120,11 +120,14 @@ class ServeEngine:
         return self._decode_queue
 
     # ------------------------------------------------------------- prefill
-    def prefill_one(self, tokens: np.ndarray, probe=None):
+    def prefill_one(self, tokens: np.ndarray, memory=None, probe=None):
         """Returns (last_logits [1,V], cache). Uses prefix reuse when the
-        arch is pageable. ``probe`` carries a precomputed (n_hit, payloads)
-        from a batched store probe (:meth:`_probe_batch`); without it the
-        store is probed inline, one request at a time."""
+        arch is pageable (dense, moe); the others (ssm, hybrid, vlm,
+        audio) skip the store. ``memory`` is the vlm / audio frontend's
+        embeddings [1, encoder_seq, d_model]. ``probe`` carries a
+        precomputed (n_hit, payloads) from a batched store probe
+        (:meth:`_probe_batch`); without it the store is probed inline, one
+        request at a time."""
         t0 = time.perf_counter()
         tokens = np.asarray(tokens, np.int32)[None]        # B=1
         S = tokens.shape[1]
@@ -148,7 +151,10 @@ class ServeEngine:
             self.stats.reused_tokens += start
             self.stats.prefill_tokens += S - start
         else:
+            if memory is not None:
+                memory = torch.as_tensor(memory, device=self.device)
             logits, cache = T.prefill(self.cfg, self.params, tok,
+                                      memory=memory,
                                       compute_dtype=self.dtype,
                                       max_len=self.max_len)
             self.stats.prefill_tokens += S
@@ -181,14 +187,15 @@ class ServeEngine:
     # ------------------------------------------------------------- decode
     def generate(self, prompts: list, steps: int,
                  generator: Optional[torch.Generator] = None,
-                 tenants=None) -> torch.Tensor:
+                 memory=None, tenants=None) -> torch.Tensor:
         """Prefill each prompt (with reuse), then decode ``steps`` tokens
         for the whole batch. Store probes for all B prompts go out as one
         micro-batch before the prefill loop; sampled decode steps route
         their CDF inversions through the decode queue (one launch a step)
         unless ``decode_batching=False``, which samples inline.
         ``tenants`` (one id per prompt) lands both the probes and the
-        decode submissions on per-tenant admission lanes. ``generator``
+        decode submissions on per-tenant admission lanes; ``memory``
+        goes to every prompt's prefill (vlm, audio). ``generator``
         (on the engine's device) drives the sampled draws; None seeds one
         with 0, and the queued and inline samplers give the same tokens
         for the same generator. Returns [B, steps] int32 token ids on the
@@ -199,9 +206,10 @@ class ServeEngine:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         with span("serve.generate", batch=len(prompts), steps=steps):
-            return self._generate(prompts, steps, generator, tenants)
+            return self._generate(prompts, steps, generator, memory,
+                                  tenants)
 
-    def _generate(self, prompts, steps, generator, tenants):
+    def _generate(self, prompts, steps, generator, memory, tenants):
         probes = self._probe_batch(prompts, tenants=tenants)
         revision = self.store.revision
         logits_list, caches = [], []
@@ -215,13 +223,13 @@ class ServeEngine:
                 if not full:
                     probe = None
             with span("serve.prefill", tokens=len(p)):
-                lg, c = self.prefill_one(p, probe=probe)
+                lg, c = self.prefill_one(p, memory=memory, probe=probe)
             logits_list.append(lg)
             caches.append(c)
-        # stack along batch: lengths on axis 0, K/V [L, B, ...] on axis 1
-        cache = {"lengths": torch.cat([c["lengths"] for c in caches]),
-                 "k": torch.cat([c["k"] for c in caches], dim=1),
-                 "v": torch.cat([c["v"] for c in caches], dim=1)}
+        # stack along batch: lengths on axis 0, every state [L, B, ...] on 1
+        cache = {name: torch.cat([c[name] for c in caches],
+                                 dim=0 if name == "lengths" else 1)
+                 for name in caches[0]}
         del caches
         logits = torch.cat(logits_list, dim=0)
         toks_out = []

@@ -19,11 +19,17 @@ bucket. The grids, weights and rules are the reference's.
 The trials run on ``device`` (default: the CUDA card). The lookup and
 scan legs' batches are uploaded once, before the measured reps, and each
 rep waits for the device (``torch.cuda.synchronize``) where the
-reference blocks on its result. ``autotune(...)`` persists the winner and
-its registry snapshot via ``tune.profile``; ``verify_profile`` reloads it
-through ``IndexConfig.from_tuned`` and checks that the recorded lookup
-p50 reproduces within 10% (or one √2 bucket, whichever is looser —
-bucket resolution is the measurement floor).
+reference blocks on its result. On the card those two legs observe each
+rep from the call to the device's completion (``_timed_reps``), not at
+the call's dispatch boundary as the reference and the CPU do: a card
+call returns once its work is queued, so its dispatch time is host time
+that no swept knob moves, and it drifts by whole √2 buckets from one
+tenth of a second to the next on a shared host. ``autotune(...)``
+persists the winner and its registry snapshot via ``tune.profile``;
+``verify_profile`` reloads it through ``IndexConfig.from_tuned`` and
+checks that the recorded lookup p50 reproduces within 10% (or one √2
+bucket, whichever is looser — bucket resolution is the measurement
+floor).
 
     python -m repro_torch.tune.autotune --smoke [--profile-dir DIR]
 """
@@ -32,13 +38,14 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.util import resolve_device
-from ..obs import Registry, use_registry
+from ..obs import NULL_REGISTRY, Registry, get_registry, use_registry
 from .profile import TunedProfile, platform_key, save_profile
 
 # per-path weights of the serving objective: lookups dominate, scans are
@@ -87,6 +94,30 @@ def _wait(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed_reps(fn, reps: int, path: str, device: torch.device) -> None:
+    """``reps`` calls of ``fn``, each waited for. On the CPU a call's work
+    is done when it returns, and it observes its own
+    ``engine_op_seconds{path}``, as the reference's reps do. On the card
+    each rep is observed from the call to the device's completion into
+    the active registry, one ``engine_ops`` count with it, and the call's
+    own dispatch-boundary observations are silenced."""
+    if device.type != "cuda":
+        for _ in range(reps):
+            fn()
+            _wait(device)
+        return
+    reg = get_registry()
+    hist = reg.histogram("engine_op_seconds", path=path)
+    ops = reg.counter("engine_ops", path=path)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        with use_registry(NULL_REGISTRY):
+            fn()
+        _wait(device)
+        hist.observe(time.perf_counter() - t0)
+        ops.inc()
+
+
 def _device_kind(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" \
         else device.type
@@ -100,7 +131,6 @@ def run_trial(knobs: Dict[str, Any], *, n: int = 20000, q_n: int = 2048,
     from ..core.api import IndexConfig, build_index
     from ..engine import schedule
     from ..engine.queue import MicroBatchQueue, index_probe_fn
-    from ..obs import NULL_REGISTRY
 
     device = resolve_device(device)
     keys, q, lo, hi = _workload(n, q_n, seed)
@@ -153,12 +183,9 @@ def run_trial(knobs: Dict[str, Any], *, n: int = 20000, q_n: int = 2048,
             _wait(device)
             queue_round()
         with use_registry(reg):
-            for _ in range(reps):
-                store.lookup(qd)
-                _wait(device)
-            for _ in range(reps):
-                store.scan_range(lod, hid)
-                _wait(device)
+            _timed_reps(lambda: store.lookup(qd), reps, "lookup", device)
+            _timed_reps(lambda: store.scan_range(lod, hid), reps, "scan",
+                        device)
             queue_round()
         store.close()
     objective, score = _objective(reg)
@@ -235,10 +262,10 @@ def verify_profile(prof: TunedProfile, *,
                    q_n: int = 2048, reps: int = 8, seed: int = 0,
                    device=None) -> Dict[str, Any]:
     """Reload the profile through ``IndexConfig.from_tuned`` and re-run
-    the lookup leg: the recorded p50 must reproduce within 10% or one √2
-    bucket (the histogram's resolution floor), whichever is looser."""
+    the lookup leg, timed as the trials time it: the recorded p50 must
+    reproduce within 10% or one √2 bucket (the histogram's resolution
+    floor), whichever is looser."""
     from ..core.api import IndexConfig, build_index
-    from ..obs import NULL_REGISTRY
 
     device = resolve_device(device)
     cfg = IndexConfig.from_tuned(prof.platform, profile_dir=profile_dir,
@@ -251,9 +278,7 @@ def verify_profile(prof: TunedProfile, *,
         store.lookup(qd)
         _wait(device)
     with use_registry(reg):
-        for _ in range(reps):
-            store.lookup(qd)
-            _wait(device)
+        _timed_reps(lambda: store.lookup(qd), reps, "lookup", device)
     store.close()
     fresh = reg.merged_histogram("engine_op_seconds",
                                  path="lookup").quantile(0.5)

@@ -1287,3 +1287,144 @@ def test_flat_store_lookup_and_fold_make_no_sync(cuda):
     for f in ("count", "r_lo", "r_hi_excl", "vsum", "vmin", "vmax", "ranks",
               "values", "overflow"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+def reduced_model(arch, device, seed=0):
+    """A reduced model of ``arch`` with weights drawn on the CPU, and the
+    same weights on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(device)
+    return cfg, cpu, to(cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,groups", [(8.0, 1), (0.5, 1), (1.25, 4)])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, cap, groups):
+    """moe_block on the card == the CPU port at reduced width: the routing
+    bit for bit (the same router logits go through both), the outputs and
+    aux loss to 1e-4; with ample capacity, with drops, grouped."""
+    import dataclasses
+    from repro_torch.models import moe as M
+    cfg, cpu, dev = reduced_model("mixtral-8x7b", cuda)
+    cfg = dataclasses.replace(cfg, capacity_factor=cap, moe_groups=groups)
+    p_cpu, p_dev = cpu["layers"][0]["moe"], dev["layers"][0]["moe"]
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    y, aux = M.moe_block(cfg, p_cpu, x)
+    yd, auxd = M.moe_block(cfg, p_dev, x.to(cuda))
+    torch.testing.assert_close(yd.cpu(), y, rtol=0, atol=1e-4)
+    torch.testing.assert_close(auxd.cpu(), aux, rtol=0, atol=1e-5)
+    logits = torch.randn(48, cfg.n_experts, generator=torch.Generator()
+                         .manual_seed(2))
+    logits[::3] = logits[::3].round()                     # ties
+    for a, b in zip(M.tournament_topk(logits, cfg.topk),
+                    M.tournament_topk(logits.to(cuda), cfg.topk)):
+        assert torch.equal(a, b.cpu())
+    ids = torch.randint(0, cfg.n_experts, (3, 40),
+                        generator=torch.Generator().manual_seed(3))
+    for C in (1, 4, 40):
+        for a, b in zip(M._dispatch_slots(ids, cfg.n_experts, C),
+                        M._dispatch_slots(ids.to(cuda), cfg.n_experts, C)):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_mamba_decode_step_on_the_card_matches_the_cpu(cuda):
+    """A mamba2 prefill and two decode steps on the card == the CPU port:
+    the logits and the conv / SSM states to 1e-4."""
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = reduced_model("mamba2-370m", cuda)
+    toks = torch.randint(0, cfg.vocab, (3, 11),
+                         generator=torch.Generator().manual_seed(4))
+    f32 = dict(compute_dtype=torch.float32)
+    lg, c = T.prefill(cfg, cpu, toks, max_len=16, **f32)
+    lgd, cd = T.prefill(cfg, dev, toks.to(cuda), max_len=16, **f32)
+    for step in range(2):
+        torch.testing.assert_close(lgd.cpu(), lg, rtol=0, atol=1e-4)
+        for name in ("conv", "ssm"):
+            torch.testing.assert_close(cd[name].cpu(), c[name], rtol=0,
+                                       atol=1e-4)
+        tok = lg.argmax(-1).int()
+        lg, c = T.decode_step(cfg, cpu, tok, c, **f32)
+        lgd, cd = T.decode_step(cfg, dev, tok.to(cuda), cd, **f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-v0.1-52b"])
+def test_moe_and_hybrid_decode_step_make_no_sync(cuda, arch):
+    """One sampled decode step (sample + decode_step) of an MoE and of a
+    hybrid model under sync-debug mode "error"; its logits equal the same
+    step's on the CPU to 1e-4."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SamplerConfig
+    from repro_torch.serve import sampler as S
+    cfg, cpu, dev = reduced_model(arch, cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 9),
+                         generator=torch.Generator().manual_seed(5))
+    f32 = dict(compute_dtype=torch.float32)
+    lgd, cd = T.prefill(cfg, dev, toks.to(cuda), max_len=32, **f32)
+    scfg = SamplerConfig(temperature=0.8, top_p=0.9)
+    gen = torch.Generator(cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt = S.sample(lgd, scfg, generator=gen)
+        out, cd = T.decode_step(cfg, dev, nxt, cd, **f32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, c = T.prefill(cfg, cpu, toks, max_len=32, **f32)
+    want, _ = T.decode_step(cfg, cpu, nxt.cpu(), c, **f32)
+    torch.testing.assert_close(out.cpu(), want, rtol=0, atol=1e-4)
+    assert bool(torch.isfinite(out[:, :cfg.vocab]).all())
+
+
+@pytest.mark.cuda
+def test_tune_legs_on_the_card_time_each_rep_to_completion(cuda, tmp_path):
+    """On the card a trial's lookup and scan legs hold one observation a
+    rep, each from the call to the device's completion: at a batch whose
+    device time is many times its dispatch time, the lookup's mean is at
+    least that device time. verify_profile times its lookups so too."""
+    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.tune import autotune, run_trial, verify_profile
+    from repro_torch.tune.autotune import _workload
+    n, q_n = 1 << 22, 1 << 20
+    knobs = {"tile": 128, "leaf_width": None, "histogram_max_pages": 32,
+             "queue_min_flush": 32, "queue_deadline_s": 1e-3}
+    prev = schedule.set_plan_thresholds()
+    try:
+        keys, q, _, _ = _workload(n, q_n)
+        store = build_index(keys, None, IndexConfig(
+            kind="tiered", mutable=True, specialize=True, tile=128),
+            device=cuda)
+        qd = torch.from_numpy(q).to(cuda)
+        store.lookup(qd)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        store.lookup(qd)
+        end.record()
+        torch.cuda.synchronize()
+        store.close()
+        device_s = start.elapsed_time(end) / 1e3
+        t = run_trial(knobs, n=n, q_n=q_n, reps=4, device=cuda)
+        obj = t["objective"]
+        assert obj["lookup"]["count"] == 4 and obj["scan"]["count"] == 4
+        assert obj["lookup"]["mean"] >= 0.8 * device_s, (obj, device_s)
+        d = str(tmp_path)
+        prof, _ = autotune(smoke=True, n=n, q_n=q_n, reps=4,
+                           profile_dir=d, device=cuda)
+        v = verify_profile(prof, profile_dir=d, n=n, q_n=q_n, reps=4,
+                           device=cuda)
+        # p50 is its bucket's upper bound, so at least the median
+        assert v["fresh_p50"] >= 0.8 * device_s, (v, device_s)
+    finally:
+        schedule.set_plan_thresholds(**prev)

@@ -6,8 +6,9 @@ go through both packages' forward, prefill, prefill_continue and
 decode_step in float32, at ``qwen3-0.6b``'s reduced width. Logits and the
 K/V cache must agree to 1e-4 (float32 matmuls summed in another order;
 measured differences are about 1e-6). Also the layers the blocks do not
-reach here (the sqrelu and gelu MLPs, windowed and non-causal attention),
-the configs, and the families that are not ported yet."""
+reach here (the sqrelu and gelu MLPs, windowed and non-causal attention,
+cross attention), the configs of every architecture, and an MoE variant
+of the same model (tests/test_torch_families.py holds every family)."""
 import dataclasses
 
 import numpy as np
@@ -61,34 +62,67 @@ def close(got: torch.Tensor, want, what: str, atol: float = ATOL):
 
 
 def test_configs_match_reference():
-    for cfg, rcfg in ((get_config("qwen3-0.6b"),
-                       ref_get_config("qwen3-0.6b")),
-                      (get_config("qwen3-0.6b").reduced(),
-                       ref_get_config("qwen3-0.6b").reduced())):
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
-        assert (cfg.hd, cfg.padded_vocab, cfg.period, cfg.repeats) == \
-            (rcfg.hd, rcfg.padded_vocab, rcfg.period, rcfg.repeats)
-        assert cfg.layer_spec(0) == rcfg.layer_spec(0)
+    """All 11 ids, at full width and reduced."""
+    assert len(ARCH_IDS) == 11
+    for arch in ARCH_IDS:
+        for cfg, rcfg in ((get_config(arch), ref_get_config(arch)),
+                          (get_config(arch).reduced(),
+                           ref_get_config(arch).reduced())):
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg), arch
+            assert (cfg.hd, cfg.padded_vocab, cfg.period) == \
+                (rcfg.hd, rcfg.padded_vocab, rcfg.period)
+            if cfg.n_layers:
+                assert cfg.repeats == rcfg.repeats
+            assert [cfg.layer_spec(i) for i in range(cfg.period)] == \
+                [rcfg.layer_spec(i) for i in range(rcfg.period)]
     assert get_config("qwen3-0.6b").padded_vocab == 152_064
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "qwen3-0.6b"])
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        get_config(arch)
+    """Every id resolves (once item 13 was to bring them) to the
+    reference's config; an unknown id still raises KeyError."""
+    cfg = get_config(arch)
+    assert type(cfg).__module__ == "repro_torch.configs.base"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_config(arch))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 def test_unported_family_raises(model):
-    _, cfg, _, pp, _ = model
+    """An MoE variant of the model (top-2 of 4 experts on every layer)
+    initialises and runs forward as the reference does on its weights,
+    and cross attention answers as the reference's."""
+    rcfg, cfg, _, _, _ = model
     moe = dataclasses.replace(cfg, family="moe", n_experts=4, topk=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt_T.init_params(moe, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt_T.forward(moe, pp, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt_L.cross_attention_block(cfg, {}, None, None)
+    rmoe = dataclasses.replace(rcfg, family="moe", n_experts=4, topk=2)
+    mine = pt_T.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    assert set(mine["layers"][0]) == {"ln1", "attn", "ln2", "moe"}
+    rp = ref_T.init_params(rmoe, jax.random.PRNGKey(1))
+    assert pt_T.param_count(mine) == ref_T.param_count(rp)
+    pp = pt_T.from_reference_params(moe, rp, device="cpu")
+    t = tokens((2, 12), 8, cfg.vocab)
+    hw, aw = jax.jit(lambda p, t: ref_T.forward(rmoe, p, t, remat=False,
+                                                **F32))(rp, jnp.asarray(t))
+    h, aux = pt_T.forward(moe, pp, torch.from_numpy(t),
+                          compute_dtype=torch.float32)
+    close(h, hw, "moe forward hidden")
+    close(aux, aw, "moe aux loss", 1e-6)
+    # cross attention over a memory of 7 rows, then reusing its K/V
+    ap = ref_L.init_attention(rcfg, jax.random.PRNGKey(2))
+    x, mem = (np.random.default_rng(s).normal(size=shape).astype(np.float32)
+              for s, shape in ((9, (2, 3, cfg.d_model)),
+                               (10, (2, 7, cfg.d_model))))
+    want, (wk, wv) = ref_L.cross_attention_block(
+        rcfg, ap, jnp.asarray(x), jnp.asarray(mem), return_kv=True)
+    app = {k: torch.from_numpy(np.array(v)) for k, v in ap.items()}
+    got, (k, v) = pt_L.cross_attention_block(
+        cfg, app, torch.from_numpy(x), torch.from_numpy(mem), return_kv=True)
+    close(got, want, "cross attention")
+    close(k, wk, "cross K")
+    close(v, wv, "cross V")
+    close(pt_L.cross_attention_block(cfg, app, torch.from_numpy(x), None,
+                                     kv=(k, v)), want, "cross, cached K/V")
 
 
 def test_init_params_shapes_and_count(model):
