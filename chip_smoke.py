@@ -257,7 +257,30 @@ Phases, in order; any failure exits non-zero with its traceback:
      prefill ms cold (and warm where pageable), decode ms a step with
      its launches and idle share beside its byte bound, and the phase's
      wall time;
- 18. one line {"kernels": [...]} with each kernel's launches, times
+ 18. training, beside the card's name and power limit (no kernel of
+     csrc/ is on this path):
+     a. qwen3-0.6b at full width and depth (596,180,992 float32 params,
+        AdamW state float32, bf16 compute, remat by layer group, batch 8
+        x 1,024 tokens of the data pipeline, CE chunks of 1,024,
+        attention chunks (512, 512), lr 3e-4 cosine, warmup 1, 6 steps)
+        through the Trainer: trainer A saves a checkpoint at step 4 in a
+        temporary directory, trainer B resumes there; both run steps 5-6.
+        Checks: every loss and grad norm finite, step 6's loss below step
+        1's, B's losses within 1e-3 relative of A's. Prints the losses,
+        ms a step (the median of steps 2-6), tokens a second,
+        max_memory_allocated with one trainer and with two, the save and
+        restore ms, and one more step under the profiler;
+     b. two float32 train steps of each other family's reduced model
+        (mixtral, mamba2, jamba, llama-3.2-vision, whisper) on the card
+        and on the CPU from the same params and batches: losses and grad
+        norms within 1e-4 relative (TF32 off), all finite;
+     c. the chunked attention at B 2, S 4,096, Hq 16, Hkv 8, D 128,
+        causal, bf16 in, chunks (512, 512): its output and the grads of
+        q, k and v against masked_attention's on the inputs widened to
+        float32, within 1e-2 relative in norm over every block of 512
+        positions (the bf16 plain version's error beside it), each
+        backward's peak memory and ms; the phase's wall time;
+ 19. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
@@ -4652,6 +4675,251 @@ def families_path(dev, seed: int) -> tuple:
     return summary, cdf, page
 
 
+# -------------------------------------------------------------- phase 18
+# Training (the reference's train/, optim/ and data/ ported): qwen3-0.6b
+# at full width and depth through the Trainer with a checkpoint and a
+# resume, the other families at their reduced widths on the card against
+# the CPU, and the chunked attention with its backward against the plain
+# version. No kernel of csrc/ is on this path.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_PARAMS = 596_180_992          # 28 layers, tied 152,064 x 1,024 embed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_AT = 8, 1024, 6, 4
+TRAIN_RESUME_RTOL = 1e-3            # the backward's scatter-adds reorder
+TRAIN_FAMILIES = ("mixtral-8x7b", "mamba2-370m", "jamba-v0.1-52b",
+                  "llama-3.2-vision-11b", "whisper-small")
+TRAIN_FAMILY_RTOL = 1e-4            # float32, TF32 off: summation order
+ATTN_SHAPE = (2, 4096, 16, 8, 128)  # B, S, Hq, Hkv, D
+ATTN_CHUNKS = (512, 512)
+ATTN_BLOCK = 512                    # rows of one error block (a chunk)
+ATTN_REL_TOL = 1e-2                 # bf16 outputs, each block: ||err|| /
+#                                     ||float32 value||; about 2e-3 from
+#                                     bf16 rounding, 2e-2 for a block off
+#                                     by 2%, 1 for a block left at zero
+
+
+def train_full_path(dev, seed: int, tmp: str) -> dict:
+    """(a) qwen3-0.6b at full width and depth, bf16 compute over float32
+    params and AdamW state, remat: trainer A runs steps 1-4 (saving step
+    4), trainer B resumes from that directory, A runs on to step 6, B runs
+    steps 5-6. Losses and grad norms finite, step 6 below step 1, B's
+    losses within TRAIN_RESUME_RTOL of A's. Then one more step of A under
+    the profiler (its kernels against the median step's time)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = OptConfig(lr=3e-4, schedule="cosine", warmup_steps=1,
+                     total_steps=TRAIN_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_dir=tmp,
+                       ckpt_every=TRAIN_CKPT_AT, keep=1, log_every=1)
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = Trainer(cfg, ocfg, dcfg, tcfg, compute_dtype=torch.bfloat16,
+                log=logs.append, device=dev)
+    n = T.param_count(a.state.params)
+    check(n == TRAIN_PARAMS, f"{TRAIN_ARCH}: {n} parameters")
+    a.run(TRAIN_CKPT_AT)
+    torch.cuda.synchronize()
+    peak_a = torch.cuda.max_memory_allocated()
+    b = Trainer(cfg, ocfg, dcfg, tcfg, compute_dtype=torch.bfloat16,
+                log=logs.append, device=dev)
+    check(b.state.step == TRAIN_CKPT_AT, f"resumed at step {b.state.step}")
+    # steps 5-6 run without checkpoints: their final saves would repeat
+    # the one above and check nothing more
+    for tr in (a, b):
+        tr.tcfg = dataclasses.replace(tr.tcfg, ckpt_dir=None)
+    a.run()
+    b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ha, hb = list(a.metrics_history), b.metrics_history
+    restore_s = b.restore_seconds
+    del b
+    prof = device_profile(lambda: a.run(a.state.step + 1))
+    check([h["step"] for h in ha] == list(range(1, TRAIN_STEPS + 1)),
+          "trainer A's steps")
+    check([h["step"] for h in hb] == list(range(TRAIN_CKPT_AT + 1,
+                                                TRAIN_STEPS + 1)),
+          "trainer B's steps")
+    for h in ha + hb:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']}, grad norm "
+              f"{h['grad_norm']}")
+    check(ha[-1]["loss"] < ha[0]["loss"],
+          f"loss {ha[0]['loss']} -> {ha[-1]['loss']} did not fall")
+    resume_rel = [abs(y["loss"] - x["loss"]) / abs(x["loss"])
+                  for x, y in zip(ha[TRAIN_CKPT_AT:], hb)]
+    check(max(resume_rel) <= TRAIN_RESUME_RTOL,
+          f"resumed losses {[h['loss'] for h in hb]} against "
+          f"{[h['loss'] for h in ha[TRAIN_CKPT_AT:]]}")
+    step_s = float(np.median([h["sec"] for h in ha[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {
+        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "compute_dtype": "bfloat16", "remat": "group",
+        "losses": [h["loss"] for h in ha],
+        "grad_norms": [h["grad_norm"] for h in ha],
+        "lrs": [h["lr"] for h in ha],
+        "resumed_losses": [h["loss"] for h in hb],
+        "resume_max_rel": max(resume_rel),
+        "step_ms": [h["sec"] * 1e3 for h in ha],
+        "resumed_step_ms": [h["sec"] * 1e3 for h in hb],
+        "ms_per_step_median_2_6": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "flops_6nd_per_s": 6 * n * tokens / step_s,
+        "max_memory_allocated_one_trainer": peak_a,
+        "max_memory_allocated_two_trainers": torch.cuda.max_memory_allocated(),
+        "save_ms": [s * 1e3 for s in a.save_seconds],
+        "restore_ms": restore_s * 1e3,
+        "checkpoint_bytes": sum(
+            os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(tmp)
+            for f in fs),
+        "straggler_flags": a.straggler_flags,
+        "profile_step": dict(prof, idle_share=1 - prof["kernels_ms"]
+                             / (step_s * 1e3)),
+        "wall_s": wall}
+
+
+def train_family_run(dev, arch: str, seed: int) -> dict:
+    """(b) one family's reduced model: two train steps on the card and on
+    the CPU from the same float32 params, batches and memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.train import make_train_step
+    cfg = get_config(arch).reduced()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4,
+                      seed=seed)
+    host = T.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    memory = None
+    if cfg.family in ("vlm", "audio"):
+        memory = torch.from_numpy(rng.normal(size=(
+            4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params = T.from_reference_params(cfg, T.to_reference_params(
+            cfg, host), device=where)
+        state = init_state(params)
+        step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=10),
+                               compute_dtype=torch.float32,
+                               has_memory=memory is not None)
+        out = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(where)
+                     for k, v in batch_at(dcfg, s).items()}
+            if memory is not None:
+                batch["memory"] = memory.to(where)
+            params, state, m = step(params, state, batch)
+            out.append([float(m["loss"]), float(m["grad_norm"])])
+        runs[where.type] = out
+    card, cpu = np.array(runs[dev.type]), np.array(runs["cpu"])
+    check(np.isfinite(card).all() and np.isfinite(cpu).all(),
+          f"{arch}: loss or grad norm not finite {card} {cpu}")
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    check(rel.max() <= TRAIN_FAMILY_RTOL,
+          f"{arch}: card {card.tolist()} against CPU {cpu.tolist()}")
+    return {"family": cfg.family, "card_loss_gnorm": card.tolist(),
+            "cpu_loss_gnorm": cpu.tolist(), "max_rel": float(rel.max())}
+
+
+def block_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest ||a - b|| / ||b|| over blocks of ATTN_BLOCK positions
+    of the sequence axis (axis 1): a check that scales with each block's
+    values, so a block whose values are small is held as tightly as one
+    whose values are large."""
+    return max(float((a[:, s:s + ATTN_BLOCK] - b[:, s:s + ATTN_BLOCK])
+                     .norm() / b[:, s:s + ATTN_BLOCK].norm())
+               for s in range(0, b.shape[1], ATTN_BLOCK))
+
+
+def chunked_attention_path(dev, seed: int) -> dict:
+    """(c) the chunked attention at ATTN_SHAPE, causal, bf16 in: its
+    forward and the grads of q, k, v against masked_attention on the same
+    inputs widened to float32, block by block (``block_rel_err``), with
+    the plain version in bf16 beside it; each backward's time and peak
+    memory above its inputs."""
+    from repro_torch.models.flash_attention import (flash_attention,
+                                                    masked_attention)
+    B, S, Hq, Hkv, D = ATTN_SHAPE
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev)
+            for _ in range(2))
+    dout = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    q, k, v, dout = (x.to(torch.bfloat16) for x in (q, k, v, dout))
+    pos = torch.arange(S, device=dev)
+    ok = (pos[:, None] >= pos[None, :])[None]
+    fns = {"chunked": lambda a, b, c: flash_attention(a, b, c, True, None,
+                                                      *ATTN_CHUNKS),
+           "plain": lambda a, b, c: masked_attention(a, b, c, ok)}
+    got, peak, ms = {}, {}, {}
+    for name, fn in fns.items():
+        ins = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*ins)
+        grads = torch.autograd.grad(out, ins, dout)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        got[name] = [out.detach(), *grads]
+        del out, grads
+
+        def fwd_bwd(fn=fn, ins=ins):
+            torch.autograd.grad(fn(*ins), ins, dout)
+        ms[name] = cuda_ms(fwd_bwd, reps=3, warmup=1)
+    ins = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    out = masked_attention(*ins, ok)
+    want = [out.detach(), *torch.autograd.grad(out, ins, dout.float())]
+    del ins, out
+    errs, plain_errs = {}, {}
+    for i, what in enumerate(("out", "dq", "dk", "dv")):
+        a = got["chunked"][i].float()
+        check(torch.isfinite(a).all(), f"chunked {what} not finite")
+        errs[what] = block_rel_err(a, want[i])
+        plain_errs[what] = block_rel_err(got["plain"][i].float(), want[i])
+        check(errs[what] <= ATTN_REL_TOL,
+              f"chunked attention {what}: block error {errs[what]} "
+              f"(the bf16 plain version's {plain_errs[what]})")
+    return {"shape_B_S_Hq_Hkv_D": list(ATTN_SHAPE), "chunks": ATTN_CHUNKS,
+            "causal": True, "dtype": "bfloat16",
+            "block_rel_err": errs, "plain_bf16_block_rel_err": plain_errs,
+            "rel_tol": ATTN_REL_TOL, "block": ATTN_BLOCK,
+            "fwd_bwd_peak_bytes": peak, "fwd_bwd_ms": ms}
+
+
+def training_path(dev, seed: int, smi: str) -> dict:
+    """Phase 18: (a), (b) and (c), the card's name and power limit beside
+    their numbers, and the phase's wall time."""
+    import gc
+    import tempfile
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train_full_path(dev, seed, tmp)
+    print("phase 18a: " + json.dumps(full), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {arch: train_family_run(dev, arch, seed)
+                for arch in TRAIN_FAMILIES}
+    print("phase 18b: " + json.dumps(families), flush=True)
+    attn = chunked_attention_path(dev, seed)
+    print("phase 18c: " + json.dumps(attn), flush=True)
+    return {"card": smi, "full": full, "families": families,
+            "chunked_attention": attn, "wall_s": time.perf_counter() - t0}
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -4769,6 +5037,8 @@ def main() -> int:
     del imm_idx
     fam17, cdf17, page17 = families_path(dev, args.seed)
     print("phase 17: families " + json.dumps(fam17), flush=True)
+    train18 = training_path(dev, args.seed, smi.splitlines()[0])
+    print(f"phase 18: {train18['wall_s']:.1f} s", flush=True)
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):

@@ -1,2 +1,3 @@
-# Durability for the mutable store (PyTorch port of repro.ckpt): the
-# CRC32-framed write-ahead journal and the manifest-verified snapshots.
+# Durability (PyTorch port of repro.ckpt): the CRC32-framed write-ahead
+# journal of the mutable store and the manifest-verified snapshots that it
+# and the trainer save.

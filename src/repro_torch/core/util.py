@@ -14,6 +14,9 @@ that want the CPU (the parity tests) pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
@@ -67,6 +70,42 @@ def pad_to(keys: np.ndarray, size: int) -> np.ndarray:
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype (int32 -> np.int32, ...)."""
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def tree_map(fn: Callable, *trees, is_leaf: Optional[Callable] = None):
+    """Map ``fn`` over the leaves of trees of one structure, keeping the
+    structure: dicts (visited in sorted key order, as JAX's pytrees are),
+    lists, tuples (NamedTuples too) and dataclasses; a None stays None.
+    Tensors, arrays, whatever ``is_leaf`` accepts and any other object
+    are leaves."""
+    head = trees[0]
+    if head is None:
+        return None
+    if isinstance(head, (torch.Tensor, np.ndarray)) or \
+            (is_leaf is not None and is_leaf(head)):
+        return fn(*trees)
+
+    def sub(*parts):
+        return tree_map(fn, *parts, is_leaf=is_leaf)
+    if isinstance(head, dict):
+        return {k: sub(*(t[k] for t in trees)) for k in sorted(head)}
+    if dataclasses.is_dataclass(head) and not isinstance(head, type):
+        return type(head)(**{
+            f.name: sub(*(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(head)})
+    if isinstance(head, (tuple, list)):
+        kids = [sub(*parts) for parts in zip(*trees)]
+        if hasattr(head, "_fields"):                     # a NamedTuple
+            return type(head)(*kids)
+        return type(head)(kids)
+    return fn(*trees)
+
+
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
+    """The leaves of ``tree`` in tree_map's order."""
+    out = []
+    tree_map(out.append, tree, is_leaf=is_leaf)
+    return out
 
 
 def take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

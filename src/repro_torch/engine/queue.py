@@ -47,7 +47,6 @@ so a timer-thread flush cannot deadlock against a thread-mode fold.
 """
 from __future__ import annotations
 
-import dataclasses
 import threading
 import time
 from collections import deque
@@ -57,7 +56,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.util import upload_async
+from ..core.util import tree_leaves, tree_map, upload_async
 from ..obs import get_registry, span
 from .admission import (AdmissionPolicy, QueueOverflow, RateEstimator,
                         TenantStats, effective_deadline)
@@ -88,41 +87,12 @@ class _LeafSpec:
                            device=self.device)
 
 
-def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, _LeafSpec))
-
-
-def _tree_map(fn: Callable, *trees):
-    """Map ``fn`` over the leaves of trees of one structure, keeping the
-    structure: tuples (NamedTuples too), lists, dicts and dataclasses; a
-    None stays None (a LookupResult without values)."""
-    head = trees[0]
-    if head is None:
-        return None
-    if _is_leaf(head):
-        return fn(*trees)
-    if isinstance(head, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in head}
-    if dataclasses.is_dataclass(head):
-        return type(head)(**{
-            f.name: _tree_map(fn, *(getattr(t, f.name) for t in trees))
-            for f in dataclasses.fields(head)})
-    if isinstance(head, (tuple, list)):
-        kids = [_tree_map(fn, *parts) for parts in zip(*trees)]
-        if hasattr(head, "_fields"):                     # a NamedTuple
-            return type(head)(*kids)
-        return type(head)(kids)
-    raise TypeError(f"unsupported submission node {type(head).__name__}")
-
-
-def _tree_leaves(tree) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
+def _is_spec(x) -> bool:
+    return isinstance(x, _LeafSpec)
 
 
 def _leading_dim(queries) -> int:
-    leaves = _tree_leaves(queries)
+    leaves = tree_leaves(queries)
     if not leaves:
         return 0
     n = int(leaves[0].shape[0])
@@ -222,7 +192,7 @@ class QueueFuture:
             raise self._error
         if not self._sliced:
             lo, hi = self._bounds
-            self._value = _tree_map(lambda leaf: leaf[lo:hi], self._raw)
+            self._value = tree_map(lambda leaf: leaf[lo:hi], self._raw)
             self._raw = None                  # drop the shared batch ref
             self._sliced = True
         return self._value
@@ -344,8 +314,8 @@ class MicroBatchQueue:
         a future for exactly those results in the caller's order. May flush
         inline (capacity trigger). Never blocks on the device: feedback
         resolution happens at the next flush, not here."""
-        if not _is_leaf(queries) and not isinstance(
-                queries, (tuple, list, dict)):
+        if not isinstance(queries, (torch.Tensor, np.ndarray, tuple, list,
+                                    dict)):
             queries = np.asarray(queries)
         q_n = _leading_dim(queries)
         fut = QueueFuture(self)
@@ -370,7 +340,7 @@ class MicroBatchQueue:
                 return fut
             now = self._now()
             if q_n:
-                self._spec = _tree_map(_LeafSpec.of, queries)
+                self._spec = tree_map(_LeafSpec.of, queries)
                 self._rate.observe(now, q_n)
             lane.append((queries, q_n, fut, now))
             self._pending_queries += q_n
@@ -540,7 +510,8 @@ class MicroBatchQueue:
         mixed leaf uploaded without a sync); an all-empty flush builds
         zero-length leaves from the recorded spec."""
         if not parts:
-            return _tree_map(lambda s: s.zeros(0), self._spec)
+            return tree_map(lambda s: s.zeros(0), self._spec,
+                            is_leaf=_is_spec)
 
         def cat(*leaves):
             arrs = list(leaves)
@@ -557,7 +528,7 @@ class MicroBatchQueue:
             return torch.cat([a if isinstance(a, torch.Tensor)
                               else upload_async(a, dev) for a in arrs])
 
-        return _tree_map(cat, *parts)
+        return tree_map(cat, *parts)
 
     # ----------------------------------------------------------- deadline
     def _arm_timer(self, delay: Optional[float] = None):

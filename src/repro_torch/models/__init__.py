@@ -1,2 +1,3 @@
-# Model stack (PyTorch port of repro.models) for the dense family: layers,
-# plain masked attention, and the transformer's forward, prefill and decode.
+# Model stack (PyTorch port of repro.models) for every family: layers, the
+# chunked attention with its backward and the plain masked one, MoE, Mamba2,
+# and the transformer's forward (with remat), prefill and decode.

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import flash_attention, masked_attention
+from .flash_attention import attend, masked_attention
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, device,
@@ -75,10 +75,10 @@ def _project_qkv(cfg, p, x, kv_src, positions, kv_positions, use_rope: bool):
 
 
 def attention_block(cfg, p, x, positions, *, causal=True, window=None,
-                    return_kv=False):
+                    q_chunk=512, kv_chunk=512, return_kv=False):
     """Self attention over x; used by forward and prefill."""
     q, k, v = _project_qkv(cfg, p, x, x, positions, positions, use_rope=True)
-    o = flash_attention(q, k, v, causal, window)
+    o = attend(q, k, v, causal, window, q_chunk, kv_chunk)
     o = o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
     return (o, (k, v)) if return_kv else o
 
@@ -101,7 +101,7 @@ def cross_attention_block(cfg, p, x, memory, *, return_kv=False, kv=None):
             k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     else:
         k, v = kv
-    o = flash_attention(q, k, v, causal=False)
+    o = attend(q, k, v, False, None, 512, 512)
     o = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
     return (o, (k, v)) if return_kv else o
 

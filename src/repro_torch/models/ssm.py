@@ -90,13 +90,15 @@ def ssd_chunked(x, a_log, dt, B_, C_, chunk: int, h0=None):
 
     # intra-chunk (the quadratic dual):
     #   y_t += sum_{s<=t} exp(cum_t - cum_s) dt_s (C_t . B_s) x_s
-    # the upper triangle's exp overflows to inf: masked by a select, not a
-    # multiply (inf * 0 is NaN)
+    # the upper triangle's exp may overflow to inf: masked by a select,
+    # not a multiply (inf * 0 is NaN), and before the exp as well, so that
+    # the backward's exp' * 0 is no inf * 0 either
     CB = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)       # [B,nc,H,cs,cs]
     q_cum = cum.permute(0, 1, 3, 2)                       # [B,nc,H,cs]
-    decay = torch.exp(q_cum[..., :, None] - q_cum[..., None, :])
     mask = torch.tril(torch.ones((cs, cs), dtype=torch.bool,
                                  device=x.device))
+    decay = torch.exp(torch.where(
+        mask, q_cum[..., :, None] - q_cum[..., None, :], float("-inf")))
     M = torch.where(mask, CB * decay, 0.0)
     M = M * dtc.permute(0, 1, 3, 2)[..., None, :]         # * dt_s
     y_intra = torch.einsum("bchts,bcshp->bcthp", M, xc)

@@ -1,13 +1,16 @@
 """Config-driven transformer family: decoder LMs (dense, moe, ssm, hybrid),
 the encoder-decoder (audio) and the cross-attention backbone (vlm):
-init, forward, encode, prefill, prefill with a reused prefix, and batched
-decode (PyTorch port of ``repro/models/transformer.py``).
+init, the differentiable forward with remat that training runs, encode,
+prefill, prefill with a reused prefix, and batched decode (PyTorch port
+of ``repro/models/transformer.py``).
 
 The reference stacks its blocks ``[repeats, ...]`` per pattern position
 and scans over them. The port keeps one dict of tensors per layer in
 ``params["layers"]`` (layer ``l = r * period + p`` is the reference's
 ``blocks[f"p{p}"][r]``) and loops over them; ``from_reference_params``
-converts the reference's parameters. The decode cache stacks each state
+and ``to_reference_params`` convert parameters (and, with
+``*_reference_opt_state``, the optimizer's moments) between the two
+layouts. The decode cache stacks each state
 kind over the layers that carry it:
 
     lengths  [B] int32
@@ -30,7 +33,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.util import resolve_device, take
+from torch.utils.checkpoint import checkpoint
+
+from ..core.util import resolve_device, take, tree_map
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -105,14 +110,18 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 
 
 def from_reference_params(cfg, params, *, device=None) -> dict:
-    """The port's parameters from the reference's parameter pytree (numpy
-    or JAX arrays, blocks stacked ``[repeats, ...]`` per pattern position),
-    so that both packages compute the same function."""
+    """The port's parameters from the reference's parameter pytree (numpy,
+    JAX arrays or tensors, blocks stacked ``[repeats, ...]`` per pattern
+    position), so that both packages compute the same function. Tensors
+    keep their dtype and, on ``device`` already, are used as they are (a
+    layer of a stacked tensor is a view of it)."""
     device = resolve_device(device)
 
     def conv(tree, r=None):
         if isinstance(tree, dict):
             return {k: conv(v, r) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return (tree if r is None else tree[r]).to(device)
         a = np.array(tree)
         return torch.from_numpy(a if r is None else a[r]).to(device)
 
@@ -128,6 +137,51 @@ def from_reference_params(cfg, params, *, device=None) -> dict:
                        for r in range(cfg.encoder_layers)],
             "final_norm": conv(enc["final_norm"])}
     return out
+
+
+def to_reference_params(cfg, params) -> dict:
+    """The reference's parameter pytree from the port's, as CPU tensors
+    in their own dtype (copies: later in-place updates of ``params`` do
+    not reach them): ``layers[r * period + p]`` stacked into
+    ``blocks[f"p{p}"][r]``, the encoder's layers into
+    ``encoder["blocks"]``. The inverse of ``from_reference_params``; the
+    trainer's checkpoints hold this layout, under the reference's names."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    def stack(*ts):          # where the layers live: one copy to the host
+        return torch.stack([t.detach() for t in ts]).cpu()
+
+    out = {k: tree_map(host, v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    layers, period = params["layers"], cfg.period
+    out["blocks"] = {f"p{p}": tree_map(stack, *layers[p::period])
+                     for p in range(period)}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": tree_map(stack, *enc["layers"]),
+                          "final_norm": host(enc["final_norm"])}
+    return out
+
+
+def to_reference_opt_state(cfg, state: dict) -> dict:
+    """The optimizer state ``{m, v, count}`` in the reference's layout (see
+    ``to_reference_params``)."""
+    return {"m": to_reference_params(cfg, state["m"]),
+            "v": to_reference_params(cfg, state["v"]),
+            "count": state["count"].detach().to("cpu", copy=True)}
+
+
+def from_reference_opt_state(cfg, state: dict, *, device=None) -> dict:
+    """The port's optimizer state from the reference's ``{m, v, count}``
+    (moments in its parameter layout, an int32 count)."""
+    device = resolve_device(device)
+    count = state["count"]
+    if not isinstance(count, torch.Tensor):
+        count = torch.from_numpy(np.array(count))
+    return {"m": from_reference_params(cfg, state["m"], device=device),
+            "v": from_reference_params(cfg, state["v"], device=device),
+            "count": count.to(device=device, dtype=torch.int32)}
 
 
 def param_count(params) -> int:
@@ -157,7 +211,7 @@ def _ffn(cfg, spec, lp, x):
     return x, None
 
 
-def _apply_block(cfg, spec, lp, x, positions, memory):
+def _apply_block(cfg, spec, lp, x, positions, memory, chunks=(512, 512)):
     """One pre-norm residual block over whole sequences. Returns (x, aux,
     the states it leaves for the cache)."""
     states = {}
@@ -165,7 +219,7 @@ def _apply_block(cfg, spec, lp, x, positions, memory):
     if spec["mixer"] == "attn":
         h, (states["k"], states["v"]) = L.attention_block(
             cfg, lp["attn"], h, positions, causal=True, window=cfg.window,
-            return_kv=True)
+            q_chunk=chunks[0], kv_chunk=chunks[1], return_kv=True)
     else:
         h, (states["conv"], states["ssm"]) = SSM.mamba_block(
             cfg, lp["mamba"], h, chunk=cfg.ssd_chunk, return_state=True)
@@ -179,13 +233,48 @@ def _apply_block(cfg, spec, lp, x, positions, memory):
     return x, aux, states
 
 
-def _run_blocks(cfg, params, x, positions, memory):
+def _blocks_fn(cfg, specs, lps, positions, memory, chunks):
+    """(x, aux) -> (x, aux + the blocks' aux) through the blocks ``lps``,
+    keeping no states: the function that remat checkpoints. The running
+    aux goes through it, so that the sum's order is the one without
+    remat."""
+    def run(x, aux):
+        for spec, lp in zip(specs, lps):
+            x, a, _ = _apply_block(cfg, spec, lp, x, positions, memory,
+                                   chunks)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+    return run
+
+
+def _run_blocks(cfg, params, x, positions, memory, *, remat=False,
+                chunks=(512, 512)):
     """Every layer over x; returns (x, aux summed over blocks, [states per
-    layer])."""
+    layer]).
+
+    remat, as in the reference: False | True / "group" (checkpoint each
+    period group of layers, the reference's ``nothing_saveable`` policy on
+    its scan body) | "block" (checkpoint every block: the backward's
+    working set is one block, not a period group). Under remat the
+    backward recomputes each checkpointed span from its input, and the
+    states are not kept (training needs none): the list is empty. Without
+    grad there is nothing to recompute, and remat is moot."""
+    specs, layers = _specs(cfg), params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat and torch.is_grad_enabled():
+        size = 1 if remat == "block" else cfg.period
+        for s in range(0, len(layers), size):
+            # the blocks draw no random numbers: no RNG state to replay
+            x, aux = checkpoint(_blocks_fn(cfg, specs[s:s + size],
+                                           layers[s:s + size], positions,
+                                           memory, chunks),
+                                x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        return x, aux, []
     states = []
-    for spec, lp in zip(_specs(cfg), params["layers"]):
-        x, a, st = _apply_block(cfg, spec, lp, x, positions, memory)
+    for spec, lp in zip(specs, layers):
+        x, a, st = _apply_block(cfg, spec, lp, x, positions, memory, chunks)
         if a is not None:
             aux = aux + a
         states.append(st)
@@ -215,13 +304,17 @@ def _memory(cfg, params, memory, compute_dtype):
 
 
 def forward(cfg, params, tokens: torch.Tensor, memory=None, *,
-            compute_dtype=torch.bfloat16):
-    """Forward over whole sequences -> (hidden [B,S,D], aux loss). Logits
-    are computed by the caller (last token for serving)."""
+            remat=True, compute_dtype=torch.bfloat16, chunks=(512, 512)):
+    """Training and prefill forward over whole sequences -> (hidden
+    [B,S,D], aux loss), differentiable in the parameters. Logits are
+    computed by the caller (chunked CE for training, the last token for
+    serving). ``remat``: see ``_run_blocks``; ``chunks``: the attention's
+    (q, kv) chunk sizes."""
     x = _embed(params, tokens, compute_dtype)
     positions = torch.arange(tokens.shape[1], device=x.device)
     memory = _memory(cfg, params, memory, compute_dtype)
-    x, aux, _ = _run_blocks(cfg, params, x, positions, memory)
+    x, aux, _ = _run_blocks(cfg, params, x, positions, memory, remat=remat,
+                            chunks=chunks)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 

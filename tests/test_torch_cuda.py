@@ -1428,3 +1428,99 @@ def test_tune_legs_on_the_card_time_each_rep_to_completion(cuda, tmp_path):
         assert v["fresh_p50"] >= 0.8 * device_s, (v, device_s)
     finally:
         schedule.set_plan_thresholds(**prev)
+
+
+# ------------------------------------------------------------------ training
+def _two_train_steps(cfg, host_params, device, seed: int = 0) -> list:
+    """[loss, grad norm] of two float32 train steps on ``device`` from
+    copies of ``host_params``, on the data pipeline's batches."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.train import make_train_step
+    params = T.from_reference_params(cfg, T.to_reference_params(
+        cfg, host_params), device=device)
+    state = init_state(params)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=10),
+                           compute_dtype=torch.float32, ce_chunk=8,
+                           attn_chunks=(8, 8))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=seed)
+    out = []
+    for s in range(2):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch_at(dcfg, s).items()}
+        params, state, m = step(params, state, batch)
+        out.append([float(m["loss"]), float(m["grad_norm"])])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced dense and MoE model: two steps (chunked attention, remat,
+    chunked CE, AdamW) on the card and on the CPU from the same params;
+    float32 with TF32 off, so the losses and grad norms differ only by
+    summation order (rtol 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = np.array(_two_train_steps(cfg, host, cuda))
+    cpu = np.array(_two_train_steps(cfg, host, torch.device("cpu")))
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_chunked_attention_on_the_card_matches_plain(cuda, dtype, tol):
+    """Forward and grads of the chunked attention (GQA, causal, a ragged
+    sequence) against autograd through masked_attention; errors over the
+    largest value (bf16: one rounding of the outputs)."""
+    from repro_torch.models.flash_attention import (flash_attention,
+                                                    masked_attention)
+    g = torch.Generator(cuda).manual_seed(1)
+    B, S, Hq, Hkv, D = 2, 300, 8, 2, 64
+    ins = [torch.randn(shape, generator=g, device=cuda).to(dtype)
+           for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    dout = torch.randn((B, S, Hq, D), generator=g, device=cuda).to(dtype)
+    pos = torch.arange(S, device=cuda)
+    ok = (pos[:, None] >= pos[None, :])[None]
+    res = []
+    for fn in (lambda a, b, c: flash_attention(a, b, c, True, None, 128, 64),
+               lambda a, b, c: masked_attention(a, b, c, ok)):
+        xs = [x.detach().clone().requires_grad_() for x in ins]
+        out = fn(*xs)
+        res.append([out.detach(), *torch.autograd.grad(out, xs, dout)])
+    for got, want in zip(*res):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_trainer_save_resume_on_the_card(cuda, tmp_path):
+    """A reduced model's Trainer on the card saves at step 2; a second one
+    resumes there and its steps 3-4 match the first's (rtol 1e-4: the
+    embedding's backward scatter-adds in any order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainConfig
+    cfg = get_config("qwen3-0.6b").reduced()
+    args = (cfg, OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+            DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4),
+            TrainConfig(steps=4, ckpt_dir=str(tmp_path), ckpt_every=2))
+    a = Trainer(*args, log=lambda s: None, device=cuda)
+    a.run(2)
+    b = Trainer(*args, log=lambda s: None, device=cuda)
+    assert b.state.step == 2
+    assert all(t.is_cuda for t in b.state.params["layers"][0].values()
+               if isinstance(t, torch.Tensor))
+    a.run()
+    b.run()
+    want = [h["loss"] for h in a.metrics_history[2:]]
+    got = [h["loss"] for h in b.metrics_history]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
