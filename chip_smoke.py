@@ -280,7 +280,37 @@ Phases, in order; any failure exits non-zero with its traceback:
         float32, within 1e-2 relative in norm over every block of 512
         positions (the bf16 plain version's error beside it), each
         backward's peak memory and ms; the phase's wall time;
- 19. one line {"kernels": [...]} with each kernel's launches, times
+ 19. several ranks on the one card, beside its name and power limit
+     (NCCL refuses two ranks on one GPU: W processes on cuda:0 over
+     gloo, whose all_reduce and all_gather take CUDA tensors; the kernels
+     built in phase 1 before any rank starts; a failing rank fails the
+     phase with its traceback):
+     a. 8 ranks: the reference test's case (50,000 keys over 8 shards,
+        2,048 queries on the scheduled bottom and 64 on the row gather)
+        against numpy; then phase 4's 2^24 keys over 4 shards held by
+        ranks 0-3 (leaf width 2,048: 2,048 pages a shard, a depth-2 k-ary
+        top, the scheduled bottom), 2^20 replicated queries (half hits)
+        with the launch counters set to 0 before the search and read
+        after: the ranks against np.searchsorted on every rank, kernels
+        1-2 against their plain versions on each rank's operands, a
+        rank's device bytes, the local count's CUDA-event ms, the
+        all-reduce's and the search's host-clock ms beside phase 4's
+        lookup_ms; then the same unsharded at world 1 over NCCL under
+        set_sync_debug_mode("error");
+     b. qwen3-0.6b at full width and depth, mesh (2, 2) (4 ranks), global
+        batch 8 x 1,024 of the data pipeline, 2 microbatches, bf16
+        compute, remat by group, 3 steps of the sharded step against the
+        single-process step of phase 18's code on the same params and
+        batches (run first, in this process): each step's loss and step
+        1's grad norm within 1e-3 relative, ||params difference|| /
+        ||update|| within 0.2 over every rank's blocks, each leaf's local
+        shape as its placements give it; each rank's peak memory and ms
+        a step; then elastic: the state from host copies onto
+        choose_mesh(2, prefer_model=2) (ranks 0-1) and the params through
+        a checkpoint restored under its rules, every block equal;
+     c. int8 compression with error feedback on [4, ...] card tensors,
+        two rounds, equal to the same on the CPU bit for bit;
+ 20. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
@@ -290,7 +320,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      kernels 1-4 their launches inside phase 14's replays, for kernels 1
      and 2 their launches and times under ops.fast_page_search /
      ops.kary_search (phase 15b), the CDF kernel's launches on phase 17
-     and the page kernel's on its wholesale store; the last line {"ok":
+     and the page kernel's on its wholesale store, for kernels 1 and 2
+     their launches, error, times and bound on every rank of phase 19a
+     and at its world 1; the last line {"ok":
      true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -4920,6 +4952,517 @@ def training_path(dev, seed: int, smi: str) -> dict:
             "chunked_attention": attn, "wall_s": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------- phase 19
+DIST_SHARDS = 4                     # ranks that hold the sharded 2^24 keys
+DIST_LEAF_WIDTH = 2048              # phase 4's page width (see dist_lookup)
+DIST_SMALL = (50_000, 8, 64)        # the reference test: keys, shards, and
+#                                     the low-locality batch (2,048 in all)
+DIST_REPS = 5                       # timed calls of a collective path
+DIST_MESH = (2, 2)                  # the sharded train step's (data, model)
+DIST_STEPS = 3
+DIST_MICROBATCHES = 2
+DIST_LOSS_RTOL = 1e-3               # each step's loss and step 1's grad
+#                                     norm: bf16 GEMMs over fewer rows a
+#                                     rank (other kernels, other rounding)
+DIST_UPDATE_RTOL = 0.2              # ||params difference|| / ||update||:
+#                                     Adam turns a grad at noise level into
+#                                     a step of up to lr either way
+
+
+def run_ranks(fn, world: int, backend: str, tmp: str, *args,
+              timeout: float = 900.0) -> list:
+    """``fn(rank, *args)`` in ``world`` spawned processes on this card, in
+    one process group over ``backend`` (a ``file://`` store in ``tmp``).
+    The arguments travel in a file, the results come back in files; a
+    failing rank's traceback fails the phase. Every process is ended."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    init = "file://" + os.path.join(tmp, f"store.{backend}{world}")
+    torch.save((fn, args), os.path.join(tmp, "args.pt"))
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pt")
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [ctx.Process(target=rank_main, args=(r, world, init, backend,
+                                                 tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pt")
+        out.append(torch.load(path, weights_only=False)
+                   if os.path.exists(path) else
+                   {"error": f"no result, exit code {procs[r].exitcode}"})
+    for r, res in enumerate(out):
+        if "error" in res:
+            raise RuntimeError(f"rank {r} of {world} ({backend}) failed:\n"
+                               f"{res['error']}")
+    return out
+
+
+def rank_main(rank: int, world: int, init: str, backend: str, tmp: str):
+    import traceback
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)                     # every rank: the card
+        dist.init_process_group(backend, init_method=init,
+                                world_size=world, rank=rank)
+        fn, args = torch.load(os.path.join(tmp, "args.pt"),
+                              weights_only=False)
+        res = fn(rank, *args)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def swap_kernels(module, **fns):
+    """Swap the kernel modules that ``module`` knows (``_page``,
+    ``_kary``) for copies whose named wrappers also keep their last
+    call's arguments; returns the dict they write to and a restore."""
+    seen, saved = {}, {}
+    for alias, name in fns.items():
+        kernels = getattr(module, alias)
+        orig = getattr(kernels, name)
+
+        def record(*a, _orig=orig, _name=name, **kw):
+            seen[_name] = (a, kw)
+            return _orig(*a, **kw)
+        saved[alias] = kernels
+        setattr(module, alias, types.SimpleNamespace(
+            **{**vars(kernels), name: record}))
+
+    def restore():
+        for alias, kernels in saved.items():
+            setattr(module, alias, kernels)
+    return seen, restore
+
+
+def host_clock_ms(fn, reps: int = DIST_REPS) -> list:
+    """Host-clock ms of each of ``reps`` calls of a collective path, each
+    to the card's completion (every rank calls it as often)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_lookup_rank(rank: int, keys_path: str, queries_path: str,
+                     small: bool) -> dict:
+    """(a) on one rank: with ``small``, the reference test's case on a
+    mesh of 8 ranks (both bottoms); then the 2^24 keys over the first
+    DIST_SHARDS ranks (or all, in a smaller world): launch counts set to
+    0 before the search and read after, the ranks against numpy, each
+    kernel against its plain version on this rank's operands, and times.
+    Over NCCL the search runs under sync-debug mode "error"."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as SH
+    from repro_torch.engine import sharded
+    from repro_torch.kernels import kary_search as kk
+    from repro_torch.kernels import page_search as pk
+    from repro_torch.launch.mesh import make_host_mesh
+    world = dist.get_world_size()
+    nccl = dist.get_backend() == "nccl"
+    out = {"rank": rank, "backend": dist.get_backend(), "world": world}
+    if small:
+        n, shards, low = DIST_SMALL
+        rng = np.random.default_rng(0)             # the reference test's
+        keys = rng.integers(0, 2**31 - 2, n).astype(np.int32)
+        qs = np.concatenate([keys[rng.integers(0, n, 1024)],
+                             rng.integers(0, 2**31 - 2, 1024)
+                             .astype(np.int32)])
+        idx = sharded.build(keys, make_host_mesh((shards,), ("data",)))
+        want = np.searchsorted(np.sort(keys), qs)
+        for q, what in ((qs, "scheduled"), (qs[:low], "gather")):
+            got = sharded.search(idx, q).cpu().numpy()
+            check(np.array_equal(got, want[:q.size]),
+                  f"rank {rank}: the reference test's {what} case")
+        out["small"] = {"keys": n, "shards": idx.num_shards,
+                        "pages_per_shard": int(idx.pages.shape[1]),
+                        "batches": [qs.size, low], "equal": True}
+    shards = min(DIST_SHARDS, world)
+    mesh = make_host_mesh((shards,), ("data",))
+    if rank >= shards:
+        return out
+    dev = SH.mesh_device(mesh)
+    keys = np.load(keys_path, mmap_mode="r")
+    queries = np.load(queries_path)
+    want = np.searchsorted(keys, queries, side="left")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    idx = sharded.build(keys, mesh, leaf_width=DIST_LEAF_WIDTH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    device_bytes = torch.cuda.memory_allocated() - base
+    q = torch.from_numpy(queries).to(dev)
+    torch.cuda.synchronize()
+    pk.page_search_bucketed.launches = 0
+    kk.kary_search_levels.launches = 0
+    if nccl:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sharded.search(idx, q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {"page_search_bucketed": pk.page_search_bucketed.launches,
+                "kary_search_levels": kk.kary_search_levels.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"rank {rank}: a kernel of the sharded search did not launch: "
+          f"{launches}")
+    check(np.array_equal(got.cpu().numpy(), want),
+          f"rank {rank}: sharded ranks against numpy")
+
+    # each kernel on this rank's own operands, against its plain version
+    seen, restore = swap_kernels(sharded, _page="page_search_bucketed",
+                                 _kary="kary_search_levels")
+    try:
+        counts = sharded.local_count(idx, q)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    pa, pkw = seen["page_search_bucketed"]
+    ka, kkw = seen["kary_search_levels"]
+    used = int(pkw["steps_used"])
+    tile = pa[0].shape[1]
+    p_plain = pk.page_search_plain(*pa, stride=pkw["stride"])
+    p_got = pk.page_search_bucketed(*pa, **pkw)
+    k_plain = kk.kary_search_plain(*ka, **kkw)
+    k_got = kk.kary_search_levels(*ka, **kkw)
+    touched = int(torch.unique(pa[1][:used]).numel())
+    lanes = used * tile
+    p_bound = bound(lanes * 4 * 2 + used * 4 + touched * DIST_LEAF_WIDTH * 4,
+                    lanes * sorted_count_compares(DIST_LEAF_WIDTH))
+    flat, offsets = ka[1], ka[2]
+    k_bound = bound(2 * q.numel() * 4 + flat.numel() * 4, q.numel()
+                    * len(offsets) * sorted_count_compares(kkw["wpad"]))
+    group = mesh.get_group("data")
+    kernels = {
+        "page_search_bucketed": {
+            "launches": launches["page_search_bucketed"],
+            "max_abs_err": max_abs_err(p_got[:used], p_plain[:used]),
+            "ms": cuda_ms(lambda: pk.page_search_bucketed(*pa, **pkw)),
+            "plain_ms": cuda_ms(lambda: pk.page_search_plain(
+                *pa, stride=pkw["stride"]), reps=3),
+            "bound_ms": p_bound[0], "bound_by": p_bound[1],
+            "grid": int(pa[0].shape[0]), "steps_used": used,
+            "pages_touched": touched},
+        "kary_search_levels": {
+            "launches": launches["kary_search_levels"],
+            "max_abs_err": max_abs_err(k_got, k_plain),
+            "ms": cuda_ms(lambda: kk.kary_search_levels(*ka, **kkw)),
+            "plain_ms": cuda_ms(lambda: kk.kary_search_plain(*ka, **kkw),
+                                reps=3),
+            "bound_ms": k_bound[0], "bound_by": k_bound[1],
+            "depth": len(offsets)}}
+    check(all(k["max_abs_err"] == 0 for k in kernels.values()),
+          f"rank {rank}: a kernel disagrees with its plain version on the "
+          f"sharded search's operands: {kernels}")
+    pages_per_shard = int(idx.pages.shape[1])
+    out.update({
+        "shards": idx.num_shards, "keys": idx.n,
+        "pages_per_shard": pages_per_shard,
+        "top": "kary" if pages_per_shard > 256 else "nitrogen",
+        "bottom": "scheduled" if used else "gather",
+        "queries": q.numel(), "build_s": build_s,
+        "device_bytes": device_bytes, "kernels": kernels,
+        "local_count_ms": cuda_ms(lambda: sharded.local_count(idx, q)),
+        "all_reduce_ms": host_clock_ms(
+            lambda: dist.all_reduce(counts.clone(), group=group)),
+        "search_ms": host_clock_ms(lambda: sharded.search(idx, q)),
+        "all_reduce_transport": f"{dist.get_backend(group)}, "
+                                f"{counts.device.type} tensors"})
+    return out
+
+
+def dist_lookup_path(dev, seed: int, keys_sorted: np.ndarray, tmp: str,
+                     lookup_ms: float) -> dict:
+    """(a): 8 ranks over gloo (the reference test's case on all 8, the
+    2^24 keys on the first 4), then world 1 over NCCL."""
+    rng = np.random.default_rng(seed + 19)
+    queries = rng.permutation(np.concatenate([
+        keys_sorted[rng.integers(0, N_KEYS, N_QUERIES // 2)],
+        rng.integers(I32.min + 1, I32.max - 1, N_QUERIES - N_QUERIES // 2
+                     ).astype(np.int32)]))
+    keys_path = os.path.join(tmp, "keys.npy")
+    queries_path = os.path.join(tmp, "queries.npy")
+    np.save(keys_path, keys_sorted)
+    np.save(queries_path, queries)
+    t0 = time.perf_counter()
+    gloo = run_ranks(dist_lookup_rank, 8, "gloo", tmp, keys_path,
+                     queries_path, True)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = run_ranks(dist_lookup_rank, 1, "nccl", tmp, keys_path,
+                     queries_path, False)
+    return {"gloo_ranks": gloo[:DIST_SHARDS], "gloo_small_only": [
+        r["small"] for r in gloo[DIST_SHARDS:]], "gloo_wall_s": gloo_s,
+        "nccl_world1": nccl[0], "nccl_wall_s": time.perf_counter() - t0,
+        "phase4_lookup_ms": lookup_ms}
+
+
+def dist_train_reference(dev, seed: int, tmp: str) -> dict:
+    """The single-process step of phase 18's code on the batches (b) runs
+    sharded: the initial and final params saved to ``tmp`` in the
+    reference's layout, the losses and grad norms kept."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.train import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.save(T.to_reference_params(cfg, params),
+               os.path.join(tmp, "init.pt"))
+    ocfg = OptConfig(lr=3e-4, schedule="cosine", warmup_steps=1,
+                     total_steps=DIST_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    step = make_train_step(cfg, ocfg, microbatches=DIST_MICROBATCHES,
+                           compute_dtype=torch.bfloat16, remat=True)
+    opt = init_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for s in range(DIST_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_at(dcfg, s).items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        hist.append({"loss": loss, "grad_norm": gnorm,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    torch.save(T.to_reference_params(cfg, params),
+               os.path.join(tmp, "final.pt"))
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, step, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": hist, "max_memory_allocated": peak,
+            "ocfg": ocfg, "dcfg": dcfg}
+
+
+def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
+    """(b) and the elastic half of (c) on one rank of the (2, 2) mesh."""
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.util import tree_leaves, tree_map
+    from repro_torch.data import batch_at
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.elastic import choose_mesh, reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import make_sharded_train_step
+    from torch.distributed.tensor import Replicate, Shard
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_host_mesh(DIST_MESH, ("data", "model"))
+    coord = mesh.get_coordinate()
+    init = torch.load(os.path.join(tmp, "init.pt"), mmap=True)
+    abstract = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), init)
+    zeros = tree_map(lambda t: torch.zeros(()).expand(t.shape), init)
+    torch.cuda.reset_peak_memory_stats()
+    state = reshard_state({"params": init, "opt": {
+        "m": zeros, "v": zeros, "count": torch.zeros((), dtype=torch.int32)}},
+        mesh, abstract)
+    params, opt = state["params"], state["opt"]
+    def local_shape(d) -> list:
+        shape = list(d.shape)
+        for size, p in zip(DIST_MESH, d.placements):
+            if isinstance(p, Shard):
+                shape[p.dim] //= size
+        return shape
+    shapes_ok = all(list(d.to_local().shape) == local_shape(d)
+                    for d in tree_leaves(params))
+    step = make_sharded_train_step(
+        cfg, ocfg, mesh, microbatches=DIST_MICROBATCHES,
+        compute_dtype=torch.bfloat16, remat=True)
+    bsh = SH.batch_shardings(mesh)
+    hist = []
+    for s in range(DIST_STEPS):
+        batch = {k: SH.distribute(torch.from_numpy(v), bsh[k])
+                 for k, v in batch_at(dcfg, s).items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        hist.append({"loss": loss, "grad_norm": gnorm,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    peak = torch.cuda.max_memory_allocated()
+
+    # this rank's blocks against the single-process step's params: the
+    # elements it owns (coordinate 0 on every mesh dim a leaf replicates)
+    final = torch.load(os.path.join(tmp, "final.pt"), mmap=True)
+    diff2 = upd2 = 0.0
+    max_diff = 0.0
+    for d, f, i in zip(tree_leaves(params), tree_leaves(final),
+                       tree_leaves(init)):
+        if any(isinstance(p, Replicate) and coord[k]
+               for k, p in enumerate(d.placements)):
+            continue
+        mine = d.to_local().float()
+        ref = SH.local_slice(f, mesh, d.placements, coord).to(mine.device)
+        ini = SH.local_slice(i, mesh, d.placements, coord).to(mine.device)
+        diff2 += float(((mine - ref) ** 2).sum())
+        upd2 += float(((ref - ini) ** 2).sum())
+        max_diff = max(max_diff, float((mine - ref).abs().max()))
+    del final
+    out = {"rank": rank, "coord": coord, "steps": hist,
+           "max_memory_allocated": peak, "local_shapes_ok": shapes_ok,
+           "diff_sq": diff2, "update_sq": upd2, "max_abs_diff": max_diff,
+           "wq": [list(params["blocks"]["p0"]["attn"]["wq"].to_local()
+                       .shape), [str(p) for p in params["blocks"]["p0"][
+                           "attn"]["wq"].placements]]}
+
+    # (c) elastic: the state from host copies onto choose_mesh(2), and the
+    # params through a checkpoint restored under the new rules
+    t0 = time.perf_counter()
+    host = {"params": tree_map(SH.host_copy, params), "opt": {
+        "m": tree_map(SH.host_copy, opt["m"]),
+        "v": tree_map(SH.host_copy, opt["v"]),
+        "count": SH.host_copy(opt["count"])}}
+    del params, opt, state
+    torch.cuda.empty_cache()
+    mesh2 = choose_mesh(2, prefer_model=2)
+    state2 = reshard_state(host, mesh2, abstract)
+    reshard_s = time.perf_counter() - t0
+    on2 = mesh2.get_coordinate() is not None
+
+    def blocks_equal(tree, full):
+        return all(bool(torch.equal(d.to_local().cpu(), SH.local_slice(
+            f, mesh2, d.placements, mesh2.get_coordinate())))
+            for d, f in zip(tree_leaves(tree), tree_leaves(full)))
+    ck = os.path.join(tmp, "ckpt")
+    if rank == 0:
+        ckpt.save(ck, DIST_STEPS, {"params": host["params"]})
+    dist.barrier()
+    t0 = time.perf_counter()
+    psh2 = SH.params_shardings(mesh2, abstract)
+    restored, at = ckpt.restore(
+        ck, {"params": tree_map(lambda t: torch.empty(0, dtype=t.dtype),
+                                abstract)},
+        shardings={"params": psh2})
+    out["elastic"] = {
+        "mesh": SH.axis_sizes(mesh2), "on_mesh": on2,
+        "reshard_s": reshard_s, "restore_s": time.perf_counter() - t0,
+        "restored_step": at,
+        "holds_embed": state2["params"]["embed"].to_local().numel() > 0}
+    if on2:
+        out["elastic"]["resharded_equal"] = blocks_equal(
+            state2["params"], host["params"]) and blocks_equal(
+            state2["opt"]["m"], host["opt"]["m"]) and blocks_equal(
+            state2["opt"]["v"], host["opt"]["v"]) and int(
+            state2["opt"]["count"].to_local()) == DIST_STEPS
+        out["elastic"]["restored_equal"] = blocks_equal(
+            restored["params"], host["params"])
+        check(out["elastic"]["resharded_equal"]
+              and out["elastic"]["restored_equal"],
+              f"rank {rank}: elastic values differ {out['elastic']}")
+    return out
+
+
+def dist_train_path(dev, seed: int, tmp: str) -> dict:
+    """(b) and (c)'s elastic: the single-process reference, then 4 ranks
+    of the (2, 2) mesh over gloo on the card."""
+    t0 = time.perf_counter()
+    ref = dist_train_reference(dev, seed, tmp)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_train_rank, DIST_MESH[0] * DIST_MESH[1], "gloo",
+                      tmp, tmp, ref["ocfg"], ref["dcfg"])
+    wall = time.perf_counter() - t0
+    want = [h["loss"] for h in ref["steps"]] \
+        + [ref["steps"][0]["grad_norm"]]
+    for r in ranks:
+        got = [h["loss"] for h in r["steps"]] + [r["steps"][0]["grad_norm"]]
+        check(all(np.isfinite(got)), f"rank {r['rank']}: losses {got}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(rel <= DIST_LOSS_RTOL, f"rank {r['rank']}: sharded losses "
+              f"and step 1's grad norm {got} against the single-process "
+              f"step's {want}")
+        check(r["local_shapes_ok"], f"rank {r['rank']}: a leaf's local "
+              "shape does not follow its placements")
+    update_rel = float(np.sqrt(sum(r["diff_sq"] for r in ranks)
+                               / sum(r["update_sq"] for r in ranks)))
+    check(update_rel <= DIST_UPDATE_RTOL,
+          f"sharded params: ||difference|| / ||update|| = {update_rel}")
+    holders = [r["elastic"]["holds_embed"] for r in ranks]
+    check(sum(holders) <= 2 and holders[:2] == [True, True],
+          f"elastic: ranks holding a block {holders}")
+    del ref["ocfg"], ref["dcfg"]
+    return {"arch": TRAIN_ARCH, "mesh": DIST_MESH, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "microbatches": DIST_MICROBATCHES,
+            "compute_dtype": "bfloat16", "remat": "group",
+            "single_process": ref, "single_process_s": ref_s,
+            "ranks": ranks, "update_rel_diff": update_rel,
+            "loss_rtol": DIST_LOSS_RTOL, "update_rtol": DIST_UPDATE_RTOL,
+            "ranks_wall_s": wall}
+
+
+def compression_path(dev, seed: int) -> dict:
+    """(c) int8 compression with error feedback on [4, ...] card tensors
+    (and [3, ...], a device count whose reciprocal is inexact), two
+    rounds, against the same on the CPU: bit for bit."""
+    from repro_torch.dist import compression as C
+    from repro_torch.dist.sharding import MeshShape
+    g = torch.Generator(dev).manual_seed(seed)
+    out = {"rounds": 2, "shapes": {}}
+    for d in (4, 3):
+        grads = {"w": torch.randn((d, 4096, 1024), generator=g, device=dev),
+                 "b": torch.randn((d, 1000), generator=g, device=dev) * 1e3,
+                 "z": torch.zeros((d, 7), device=dev)}
+        f = C.make_compressed_allreduce(MeshShape((d,), ("data",)), "data")
+        cpu = {k: v.cpu() for k, v in grads.items()}
+        err, err_c = C.init_error_state(grads), C.init_error_state(cpu)
+        for _ in range(2):
+            (res, err), (res_c, err_c) = f(grads, err), f(cpu, err_c)
+            for k in grads:
+                for a, b in ((res[k], res_c[k]), (err[k], err_c[k])):
+                    check(torch.equal(a.cpu(), b),
+                          f"compression {k} over {d}: card against CPU")
+        truth = grads["w"].mean(0)
+        out["shapes"][d] = {k: list(v.shape) for k, v in grads.items()}
+        out[f"rel_err_round2_{d}"] = float((res["w"][0] - truth).norm()
+                                           / truth.norm())
+        out[f"ms_{d}"] = cuda_ms(lambda: f(grads, err), reps=5)
+    out["card_equals_cpu"] = True
+    return out
+
+
+def dist_path(dev, seed: int, smi: str, keys_sorted: np.ndarray,
+              lookup_ms: float) -> dict:
+    """Phase 19: (a), (b), (c), the card's name and power limit beside
+    their numbers, and the phase's wall time. The parent frees its cached
+    device memory first: the ranks share the card with it."""
+    import gc
+    import tempfile
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lookup = dist_lookup_path(dev, seed, keys_sorted, tmp, lookup_ms)
+        print("phase 19a: sharded lookup " + json.dumps(lookup), flush=True)
+        train = dist_train_path(dev, seed, tmp)
+        print("phase 19b: sharded train step " + json.dumps(train),
+              flush=True)
+    comp = compression_path(dev, seed)
+    print("phase 19c: compression " + json.dumps(comp), flush=True)
+    return {"card": smi, "lookup": lookup, "train": train,
+            "compression": comp, "wall_s": time.perf_counter() - t0}
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -5039,6 +5582,9 @@ def main() -> int:
     print("phase 17: families " + json.dumps(fam17), flush=True)
     train18 = training_path(dev, args.seed, smi.splitlines()[0])
     print(f"phase 18: {train18['wall_s']:.1f} s", flush=True)
+    dist19 = dist_path(dev, args.seed, smi.splitlines()[0], keys_sorted,
+                       main["lookup_ms"])
+    print(f"phase 19: {dist19['wall_s']:.1f} s", flush=True)
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -5079,6 +5625,12 @@ def main() -> int:
     cdf_row["flat_index_serve_launches"] = cdf16      # phase 16d
     cdf_row["families_launches"] = cdf17              # phase 17
     rows[0]["families_wholesale"] = page17            # phase 17, mixtral
+    for row in rows:                     # the sharded search (phase 19a)
+        lk = dist19["lookup"]
+        row["sharded"] = {
+            "gloo_ranks": [r["kernels"][row["name"]]
+                           for r in lk["gloo_ranks"]],
+            "nccl_world1": lk["nccl_world1"]["kernels"][row["name"]]}
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.util import tree_map
+from ..dist import sharding as SH
 
 # manifest dtype -> the dtype of the array that stores it
 _STORED_AS = {"bfloat16": "uint16"}
@@ -167,7 +168,8 @@ def _load_verified(path: str, manifest: dict) -> Optional[dict]:
 
 
 def restore(ckpt_dir: str, target: Any = None,
-            step: Optional[int] = None) -> tuple[Any, int]:
+            step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Fill ``target``'s tree from the newest verifying snapshot (or
     ``step``); a corrupt or torn newer snapshot is skipped with a
     RuntimeWarning (graceful degradation to the previous step). A tensor
@@ -176,8 +178,11 @@ def restore(ckpt_dir: str, target: Any = None,
     leaf (a placeholder) the stored value in its stored dtype; the stored
     shapes are kept. ``target=None`` returns the raw ``{"a/b": array}``
     dict with the stored dtypes (bfloat16 leaves as tensors), for callers
-    whose tree is known only from the snapshot. Returns (tree, step).
-    Raises FileNotFoundError when no snapshot verifies."""
+    whose tree is known only from the snapshot. ``shardings``, a tree of
+    ``dist.sharding.Sharding`` in ``target``'s structure, distributes each
+    restored leaf under its own (this rank keeps its block, a DTensor on
+    the mesh's device), as the reference's ``device_put``. Returns (tree,
+    step). Raises FileNotFoundError when no snapshot verifies."""
     candidates = [step] if step is not None \
         else list(reversed(all_steps(ckpt_dir)))
     for i, s in enumerate(candidates):
@@ -197,5 +202,8 @@ def restore(ckpt_dir: str, target: Any = None,
                 RuntimeWarning, stacklevel=2)
         if target is None:
             return values, s
-        return _fill(target, values), s
+        tree = _fill(target, values)
+        if shardings is not None:
+            tree = tree_map(SH.distribute, tree, shardings)
+        return tree, s
     raise FileNotFoundError(f"no valid checkpoint in {ckpt_dir}")

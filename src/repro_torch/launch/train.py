@@ -9,12 +9,20 @@
 
 The flags and defaults are the reference's; ``--device`` picks the torch
 device (the default is the card). Weights are random, from the seed 0; the
-batches are the reference pipeline's. Multi-device training (``--mesh``,
-``--coordinator``) is not ported yet: the launcher refuses those flags.
+batches are the reference pipeline's. On a cluster the launcher runs once
+a host: ``--coordinator host:port`` (or an ``init_method`` URL such as
+``tcp://host:port`` or ``file:///shared/path``) joins the default process
+group of ``--num-hosts`` ranks as rank ``--host-id``, over NCCL on the card
+and gloo with ``--device cpu``, and each host trains on its slice of the
+global batch. ``--mesh`` is parsed and, as in the reference, not acted on:
+the Trainer holds no mesh (the sharded step is
+``train.make_sharded_train_step``).
 """
 from __future__ import annotations
 
 import argparse
+
+import torch.distributed as dist
 
 
 def main():
@@ -33,18 +41,38 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device; the default is the CUDA card")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (multi-device, ROADMAP Queue 1 "
-                         "item 14)")
+                    help="host:DxM; parsed and not acted on (the Trainer "
+                         "holds no mesh), as in the reference")
     ap.add_argument("--coordinator", default=None,
-                    help="not ported yet (multi-device, ROADMAP Queue 1 "
-                         "item 14)")
+                    help="host:port (or an init_method URL: tcp://..., "
+                         "file://...) of the multi-host process group")
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
     args = ap.parse_args()
-    if args.mesh or args.coordinator:
-        ap.error("--mesh and --coordinator need multi-device training, "
-                 "which is not ported yet (ROADMAP Queue 1 item 14)")
+    if not 0 <= args.host_id < args.num_hosts:
+        ap.error(f"--host-id {args.host_id} is not a rank of --num-hosts "
+                 f"{args.num_hosts}")
+    if args.coordinator:
+        init = args.coordinator
+        if "://" not in init:
+            host, _, port = init.rpartition(":")
+            if not host or not port.isdigit():
+                ap.error(f"--coordinator {init!r} is neither host:port nor "
+                         "an init_method URL")
+            init = f"tcp://{init}"
+        on_cpu = args.device is not None and \
+            str(args.device).startswith("cpu")
+        dist.init_process_group("gloo" if on_cpu else "nccl",
+                                init_method=init, world_size=args.num_hosts,
+                                rank=args.host_id)
+    try:
+        train(args)
+    finally:
+        if args.coordinator:
+            dist.destroy_process_group()
 
+
+def train(args):
     from ..configs import get_config
     from ..data import DataConfig
     from ..optim import OptConfig

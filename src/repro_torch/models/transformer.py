@@ -36,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.util import resolve_device, take, tree_map
+from ..dist.sharding import constrain_activations
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -139,18 +140,19 @@ def from_reference_params(cfg, params, *, device=None) -> dict:
     return out
 
 
-def to_reference_params(cfg, params) -> dict:
-    """The reference's parameter pytree from the port's, as CPU tensors
-    in their own dtype (copies: later in-place updates of ``params`` do
-    not reach them): ``layers[r * period + p]`` stacked into
-    ``blocks[f"p{p}"][r]``, the encoder's layers into
-    ``encoder["blocks"]``. The inverse of ``from_reference_params``; the
-    trainer's checkpoints hold this layout, under the reference's names."""
+def to_reference_params(cfg, params, *, device="cpu") -> dict:
+    """The reference's parameter pytree from the port's, as tensors on
+    ``device`` (the CPU by default; "meta" for shapes alone) in their own
+    dtype (copies: later in-place updates of ``params`` do not reach
+    them): ``layers[r * period + p]`` stacked into ``blocks[f"p{p}"][r]``,
+    the encoder's layers into ``encoder["blocks"]``. The inverse of
+    ``from_reference_params``; the trainer's checkpoints and the sharded
+    train state hold this layout, under the reference's names."""
     def host(t):
-        return t.detach().to("cpu", copy=True)
+        return t.detach().to(device, copy=True)
 
-    def stack(*ts):          # where the layers live: one copy to the host
-        return torch.stack([t.detach() for t in ts]).cpu()
+    def stack(*ts):          # where the layers live: one copy to `device`
+        return torch.stack([t.detach() for t in ts]).to(device)
 
     out = {k: tree_map(host, v) for k, v in params.items()
            if k not in ("layers", "encoder")}
@@ -271,12 +273,16 @@ def _run_blocks(cfg, params, x, positions, memory, *, remat=False,
                                            memory, chunks),
                                 x, aux, use_reentrant=False,
                                 preserve_rng_state=False)
+            if (s + size) % cfg.period == 0:
+                x = constrain_activations(x)    # after each period group
         return x, aux, []
     states = []
-    for spec, lp in zip(specs, layers):
+    for i, (spec, lp) in enumerate(zip(specs, layers)):
         x, a, st = _apply_block(cfg, spec, lp, x, positions, memory, chunks)
         if a is not None:
             aux = aux + a
+        if (i + 1) % cfg.period == 0:
+            x = constrain_activations(x)        # no-op outside a context
         states.append(st)
     return x, aux, states
 

@@ -99,14 +99,17 @@ def global_norm(tree) -> torch.Tensor:
         ]).sum())
 
 
-def apply_updates(cfg: OptConfig, params, grads, state):
+def apply_updates(cfg: OptConfig, params, grads, state, *, gnorm=None):
     """One AdamW step. Updates ``params`` and the state's moments in place
     and returns (params, new_state, {"grad_norm" (before the clip),
-    "lr"}), the metrics as float32 device tensors."""
+    "lr"}), the metrics as float32 device tensors. ``gnorm``: the global
+    norm of the whole grads, where ``grads`` are one rank's shards of them
+    (the sharded step); by default the norm of ``grads``."""
     with torch.no_grad():
         count = state["count"] + 1
         lr = schedule_fn(cfg, count)
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = None
         if cfg.clip_norm is not None:
             scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),

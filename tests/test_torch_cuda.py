@@ -1524,3 +1524,90 @@ def test_trainer_save_resume_on_the_card(cuda, tmp_path):
     want = [h["loss"] for h in a.metrics_history[2:]]
     got = [h["loss"] for h in b.metrics_history]
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ------------------------------------------------------------- multi-rank
+def card_world(fn, world, tmp, *args, backend="gloo"):
+    """``fn`` in ``world`` ranks on the one card (gloo: NCCL refuses two
+    ranks on one GPU; NCCL at world 1)."""
+    import torch_dist_worlds as W
+    return W.run_world(fn, world, tmp, *args, backend=backend)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_sharded_search_on_the_card(cuda, tmp_path, backend, world):
+    import torch_dist_worlds as W
+    res = card_world(W.card_search_case, world, tmp_path, backend=backend)
+    keys, qs = res[0]["keys"], res[0]["queries"]
+    want = np.searchsorted(np.sort(keys), qs)
+    for r in res:
+        np.testing.assert_array_equal(r["ranks"], want)
+        np.testing.assert_array_equal(r["small"], want[:100])
+        assert all(n > 0 for n in r["launches"]), r["launches"]
+        assert r["page_equal"] and r["kary_equal"]
+
+
+@pytest.mark.cuda
+def test_compression_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.dist import compression as C
+    from repro_torch.dist.sharding import MeshShape
+    g = torch.Generator(cuda).manual_seed(3)
+    for d in (4, 3):
+        grads = {"w": torch.randn((d, 256, 64), generator=g, device=cuda),
+                 "b": torch.randn((d, 9), generator=g, device=cuda) * 1e3}
+        cpu = {k: v.cpu() for k, v in grads.items()}
+        f = C.make_compressed_allreduce(MeshShape((d,), ("data",)), "data")
+        err, err_c = C.init_error_state(grads), C.init_error_state(cpu)
+        for _ in range(2):
+            (out, err), (out_c, err_c) = f(grads, err), f(cpu, err_c)
+            for k in grads:
+                assert torch.equal(out[k].cpu(), out_c[k])
+                assert torch.equal(err[k].cpu(), err_c[k])
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_the_card(cuda, tmp_path):
+    """One float32 step of reduced qwen3 at mesh (2, 1), two ranks on the
+    card, against the single-device step on the card: loss, grad norm and
+    lr to 1e-5, params to 1e-6 where |m| > 1e-6 and within 2 lr."""
+    import torch_dist_worlds as W
+    from repro_torch.configs import get_config
+    from repro_torch.core.util import tree_leaves
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.train import make_train_step
+    cfg = get_config("qwen3-0.6b").reduced()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ref = T.to_reference_params(cfg, host)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    batch["labels"][1, 4:] = -1
+    res = card_world(W.train_case, 2, tmp_path, cfg, _numpy_tree(ref),
+                     batch, 1e-3, 2, (2, 1), "cuda")
+    params = T.from_reference_params(cfg, ref, device=cuda)
+    opt = init_state(params)
+    step = make_train_step(cfg, OptConfig(lr=1e-3), microbatches=2,
+                           compute_dtype=torch.float32)
+    params, opt, m = step(params, opt, {k: torch.from_numpy(v).to(cuda)
+                                        for k, v in batch.items()})
+    for r in res:
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(r[k], float(m[k]), rtol=1e-5)
+    got = res[0]["state"]["params"]
+    want = T.to_reference_params(cfg, params)
+    mom = T.to_reference_opt_state(cfg, opt)["m"]
+    for x, y, mm in zip(tree_leaves(got), tree_leaves(want),
+                        tree_leaves(mom)):
+        d = (x - y).abs()
+        assert float(d.max()) <= 2e-3
+        sig = mm.abs() > 1e-6
+        if bool(sig.any()):
+            assert float(d[sig].max()) <= 1e-6
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -539,13 +539,18 @@ def test_train_launcher_reduced(monkeypatch, capsys):
 
 
 def test_train_launcher_refuses_multi_device_flags(monkeypatch, capsys):
-    for flag in ("--mesh", "--coordinator"):
-        monkeypatch.setattr(sys, "argv", ["train", flag, "x", "--device",
+    """The multi-device flags are ported (tests/test_torch_dist.py runs
+    them); the launcher refuses the ones it cannot use: a coordinator that
+    is neither host:port nor a URL, and a host id outside the hosts."""
+    for flags, what in ((["--coordinator", "x"], "--coordinator"),
+                        (["--coordinator", "h:1", "--num-hosts", "2",
+                          "--host-id", "2"], "--host-id")):
+        monkeypatch.setattr(sys, "argv", ["train", *flags, "--device",
                                           "cpu"])
         with pytest.raises(SystemExit) as e:
             train_launcher.main()
-        assert e.value.code != 0
-        assert "ROADMAP Queue 1 item 14" in capsys.readouterr().err
+        assert e.value.code == 2
+        assert what in capsys.readouterr().err
 
 
 # ------------------------------------------------------------------ grads
