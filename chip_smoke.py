@@ -310,7 +310,27 @@ Phases, in order; any failure exits non-zero with its traceback:
         a checkpoint restored under its rules, every block equal;
      c. int8 compression with error feedback on [4, ...] card tensors,
         two rounds, equal to the same on the CPU bit for bit;
- 20. one line {"kernels": [...]} with each kernel's launches, times
+     d. mixtral-8x7b's widths at 1 of 32 layers (8 experts, top-2,
+        capacity factor 1.25), mesh (2, 1) (2 ranks), (b)'s batch,
+        microbatches, dtype and steps, the sharded step against the
+        single-process step with (b)'s limits: each MoE layer routes the
+        whole global microbatch over both ranks (the router logits
+        gathered), as the reference does; each rank's peak memory and ms
+        a step;
+ 20. the port's tools, beside the card's name and power limit:
+     a. phase 18a's step (qwen3-0.6b, batch 8 x 1,024, bf16, remat)
+        counted op by op on the meta device (roofline.analysis.count_ops):
+        FLOPs and bytes, their ratio to 6 N D, compute_s and memory_s at
+        the H100's data-sheet rates, phase 18a's measured step ms beside
+        them and the share of peak bf16 FLOPs it reaches;
+     b. launch.dryrun's records of whisper-small x decode_32k and
+        qwen3-0.6b x train_4k on the (16, 16) mesh;
+     c. the four examples/*_torch.py at the reference examples' sizes
+        (1M keys and 8,192 queries; 500,000 rows; the serving example;
+        200 train steps with a crash and a resume), each with its
+        self-checks: wall time, and the kernels each launched, counted
+        from 0;
+ 21. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
@@ -322,7 +342,8 @@ Phases, in order; any failure exits non-zero with its traceback:
      ops.kary_search (phase 15b), the CDF kernel's launches on phase 17
      and the page kernel's on its wholesale store, for kernels 1 and 2
      their launches, error, times and bound on every rank of phase 19a
-     and at its world 1; the last line {"ok":
+     and at its world 1, for kernels 1, 2 and 5 their launches in each
+     example of phase 20c; the last line {"ok":
      true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -345,11 +366,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+# the card's data-sheet rates have one home: the port's roofline module
+from repro_torch.roofline.analysis import (  # noqa: E402
+    COMPARES_PER_S, HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_FP32 as FLOPS_F32)
+
 I32 = np.iinfo(np.int32)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-# A compare is one 32-bit instruction. The H100 SXM's published 67 TFLOP/s
-# float32 peak counts an FMA as two operations: 33.5e12 instructions/s.
-COMPARES_PER_S = 33.5e12
 N_KEYS = 1 << 24
 N_QUERIES = 1 << 20
 
@@ -4386,7 +4407,6 @@ FAMILY_MODELS = (     # arch, layers (None: whole), rounds, wholesale, params
     ("whisper-small", None, 1, False, 278_444_544),
 )
 FAMILY_STEPS = 16
-FLOPS_F32 = 67e12              # H100 SXM float32 peak, an FMA counted as 2
 
 
 def family_cfg(arch: str, layers):
@@ -4967,6 +4987,13 @@ DIST_LOSS_RTOL = 1e-3               # each step's loss and step 1's grad
 DIST_UPDATE_RTOL = 0.2              # ||params difference|| / ||update||:
 #                                     Adam turns a grad at noise level into
 #                                     a step of up to lr either way
+# (d): a MoE's sharded step at published widths, routing each global
+# microbatch as one: mixtral-8x7b at 1 of 32 layers (1.71e9 float32
+# params, 6.9 GB; a rank holds its half of the params and moments and the
+# whole params and grads in the step: 32.8 GB a rank on the H100, 65.7
+# for the two, PERF.md)
+MOE_DIST_ARCH, MOE_DIST_LAYERS = "mixtral-8x7b", 1
+MOE_DIST_MESH = (2, 1)
 
 
 def run_ranks(fn, world: int, backend: str, tmp: str, *args,
@@ -5214,17 +5241,15 @@ def dist_lookup_path(dev, seed: int, keys_sorted: np.ndarray, tmp: str,
         "phase4_lookup_ms": lookup_ms}
 
 
-def dist_train_reference(dev, seed: int, tmp: str) -> dict:
-    """The single-process step of phase 18's code on the batches (b) runs
-    sharded: the initial and final params saved to ``tmp`` in the
-    reference's layout, the losses and grad norms kept."""
+def dist_train_reference(dev, seed: int, tmp: str, cfg) -> dict:
+    """The single-process step of phase 18's code on the batches that (b)
+    and (d) run sharded: the initial and final params saved to ``tmp`` in
+    the reference's layout, the losses and grad norms kept."""
     import gc
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, batch_at
     from repro_torch.models import transformer as T
     from repro_torch.optim import OptConfig, init_state
     from repro_torch.train import make_train_step
-    cfg = get_config(TRAIN_ARCH)
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
     torch.save(T.to_reference_params(cfg, params),
                os.path.join(tmp, "init.pt"))
@@ -5255,11 +5280,12 @@ def dist_train_reference(dev, seed: int, tmp: str) -> dict:
             "ocfg": ocfg, "dcfg": dcfg}
 
 
-def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
-    """(b) and the elastic half of (c) on one rank of the (2, 2) mesh."""
+def dist_train_rank(rank: int, tmp: str, cfg, mesh_shape, ocfg, dcfg,
+                    elastic: bool) -> dict:
+    """(b) and, with ``elastic``, the elastic half of (c) on one rank of
+    the (2, 2) mesh; (d) on one rank of the (2, 1) mesh."""
     import torch.distributed as dist
     from repro_torch.ckpt import checkpoint as ckpt
-    from repro_torch.configs import get_config
     from repro_torch.core.util import tree_leaves, tree_map
     from repro_torch.data import batch_at
     from repro_torch.dist import sharding as SH
@@ -5267,8 +5293,7 @@ def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import make_sharded_train_step
     from torch.distributed.tensor import Replicate, Shard
-    cfg = get_config(TRAIN_ARCH)
-    mesh = make_host_mesh(DIST_MESH, ("data", "model"))
+    mesh = make_host_mesh(mesh_shape, ("data", "model"))
     coord = mesh.get_coordinate()
     init = torch.load(os.path.join(tmp, "init.pt"), mmap=True)
     abstract = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
@@ -5281,7 +5306,7 @@ def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
     params, opt = state["params"], state["opt"]
     def local_shape(d) -> list:
         shape = list(d.shape)
-        for size, p in zip(DIST_MESH, d.placements):
+        for size, p in zip(mesh_shape, d.placements):
             if isinstance(p, Shard):
                 shape[p.dim] //= size
         return shape
@@ -5325,6 +5350,8 @@ def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
            "wq": [list(params["blocks"]["p0"]["attn"]["wq"].to_local()
                        .shape), [str(p) for p in params["blocks"]["p0"][
                            "attn"]["wq"].placements]]}
+    if not elastic:
+        return out
 
     # (c) elastic: the state from host copies onto choose_mesh(2), and the
     # params through a checkpoint restored under the new rules
@@ -5373,15 +5400,20 @@ def dist_train_rank(rank: int, tmp: str, ocfg, dcfg) -> dict:
     return out
 
 
-def dist_train_path(dev, seed: int, tmp: str) -> dict:
-    """(b) and (c)'s elastic: the single-process reference, then 4 ranks
-    of the (2, 2) mesh over gloo on the card."""
+def sharded_against_single(dev, seed: int, tmp: str, cfg, mesh_shape,
+                           elastic: bool) -> tuple:
+    """The single-process reference in this process, then the ranks of
+    ``mesh_shape`` over gloo on the card: each rank's losses and step 1's
+    grad norm within DIST_LOSS_RTOL, the params' ||difference|| /
+    ||update|| within DIST_UPDATE_RTOL, every leaf's local shape as its
+    placements give it. Returns (reference, ranks, update_rel, times)."""
     t0 = time.perf_counter()
-    ref = dist_train_reference(dev, seed, tmp)
+    ref = dist_train_reference(dev, seed, tmp, cfg)
     ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = run_ranks(dist_train_rank, DIST_MESH[0] * DIST_MESH[1], "gloo",
-                      tmp, tmp, ref["ocfg"], ref["dcfg"])
+    ranks = run_ranks(dist_train_rank, int(np.prod(mesh_shape)), "gloo",
+                      tmp, tmp, cfg, mesh_shape, ref["ocfg"], ref["dcfg"],
+                      elastic)
     wall = time.perf_counter() - t0
     want = [h["loss"] for h in ref["steps"]] \
         + [ref["steps"][0]["grad_norm"]]
@@ -5398,17 +5430,48 @@ def dist_train_path(dev, seed: int, tmp: str) -> dict:
                                / sum(r["update_sq"] for r in ranks)))
     check(update_rel <= DIST_UPDATE_RTOL,
           f"sharded params: ||difference|| / ||update|| = {update_rel}")
+    del ref["ocfg"], ref["dcfg"]
+    return ref, ranks, update_rel, {"single_process_s": ref_s,
+                                    "ranks_wall_s": wall}
+
+
+def dist_train_path(dev, seed: int, tmp: str) -> dict:
+    """(b) and (c)'s elastic: the single-process reference, then 4 ranks
+    of the (2, 2) mesh over gloo on the card."""
+    from repro_torch.configs import get_config
+    ref, ranks, update_rel, times = sharded_against_single(
+        dev, seed, tmp, get_config(TRAIN_ARCH), DIST_MESH, True)
     holders = [r["elastic"]["holds_embed"] for r in ranks]
     check(sum(holders) <= 2 and holders[:2] == [True, True],
           f"elastic: ranks holding a block {holders}")
-    del ref["ocfg"], ref["dcfg"]
     return {"arch": TRAIN_ARCH, "mesh": DIST_MESH, "batch": TRAIN_BATCH,
             "seq": TRAIN_SEQ, "microbatches": DIST_MICROBATCHES,
             "compute_dtype": "bfloat16", "remat": "group",
-            "single_process": ref, "single_process_s": ref_s,
-            "ranks": ranks, "update_rel_diff": update_rel,
-            "loss_rtol": DIST_LOSS_RTOL, "update_rtol": DIST_UPDATE_RTOL,
-            "ranks_wall_s": wall}
+            "single_process": ref, "ranks": ranks,
+            "update_rel_diff": update_rel, "loss_rtol": DIST_LOSS_RTOL,
+            "update_rtol": DIST_UPDATE_RTOL, **times}
+
+
+def moe_dist_train_path(dev, seed: int, tmp: str) -> dict:
+    """(d) mixtral-8x7b's widths at MOE_DIST_LAYERS layer, mesh (2, 1):
+    phase (b)'s batch, microbatches, dtype and steps, the sharded step
+    (each MoE layer routing the whole global microbatch over the two
+    ranks) against the single-process step; each rank's peak memory and
+    ms a step."""
+    cfg = family_cfg(MOE_DIST_ARCH, MOE_DIST_LAYERS)
+    ref, ranks, update_rel, times = sharded_against_single(
+        dev, seed, tmp, cfg, MOE_DIST_MESH, False)
+    return {"arch": MOE_DIST_ARCH, "layers": cfg.n_layers,
+            "experts": cfg.n_experts, "topk": cfg.topk,
+            "capacity_factor": cfg.capacity_factor, "mesh": MOE_DIST_MESH,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "microbatches": DIST_MICROBATCHES, "compute_dtype": "bfloat16",
+            "remat": "group", "single_process": ref,
+            "ranks": [{k: r[k] for k in (
+                "rank", "coord", "steps", "max_memory_allocated",
+                "local_shapes_ok", "max_abs_diff")} for r in ranks],
+            "update_rel_diff": update_rel, "loss_rtol": DIST_LOSS_RTOL,
+            "update_rtol": DIST_UPDATE_RTOL, **times}
 
 
 def compression_path(dev, seed: int) -> dict:
@@ -5459,8 +5522,138 @@ def dist_path(dev, seed: int, smi: str, keys_sorted: np.ndarray,
               flush=True)
     comp = compression_path(dev, seed)
     print("phase 19c: compression " + json.dumps(comp), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = moe_dist_train_path(dev, seed, tmp)
+    print(f"phase 19d: sharded MoE train step ({smi}) " + json.dumps(moe),
+          flush=True)
     return {"card": smi, "lookup": lookup, "train": train,
-            "compression": comp, "wall_s": time.perf_counter() - t0}
+            "compression": comp, "moe_train": moe,
+            "wall_s": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------- phase 20
+# The roofline counter, the dry run and the example twins: (a) phase 18a's
+# step counted op by op on the meta device beside its measured time, (b)
+# two dry-run cells, (c) the four examples/*_torch.py at the reference
+# examples' sizes, each with its self-checks, launches of kernels 1, 2
+# and 5 counted from 0 around each.
+DRYRUN_CELLS = (("whisper-small", "decode_32k"), ("qwen3-0.6b", "train_4k"))
+EXAMPLE_TWINS = ("quickstart_torch", "index_db_torch", "serve_batched_torch",
+                 "train_tiny_torch")
+
+
+def counted_step_path(step_ms: float) -> dict:
+    """(a) the single-process step of phase 18a (qwen3-0.6b, batch
+    TRAIN_BATCH x TRAIN_SEQ, bf16, remat by group, AdamW) run once on
+    "meta" tensors under ``roofline.analysis.count_ops``: its FLOPs and
+    bytes, their ratio to model_flops, the roofline terms at the H100's
+    constants, and phase 18a's median step beside them with the share of
+    peak bf16 FLOPs it reaches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.train import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = T.init_params(cfg, None, "meta")
+    step = make_train_step(cfg, OptConfig(lr=3e-4, schedule="cosine",
+                                          warmup_steps=1,
+                                          total_steps=TRAIN_STEPS),
+                           compute_dtype=torch.bfloat16)
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    _, st = RA.count_ops(step, params, init_state(params), batch)
+    count_s = time.perf_counter() - t0
+    mf = RA.model_flops(cfg, "train", TRAIN_SEQ, TRAIN_BATCH)
+    roof = RA.roofline_terms(st, model_flops_total=mf, chips=1)
+    out = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "counted_flops": st.flops, "counted_bytes": st.bytes_hbm,
+           "aten_ops": st.ops, "dots": st.dots,
+           "peak_live_bytes": st.peak_live_bytes, "model_flops": mf,
+           "flops_over_model_flops": st.flops / mf,
+           "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+           "dominant": roof.dominant, "count_s": count_s,
+           "phase18_step_ms": step_ms,
+           "step_over_roofline": step_ms / 1e3 / max(roof.compute_s,
+                                                     roof.memory_s),
+           "share_of_peak_bf16": st.flops / (step_ms / 1e3)
+           / RA.PEAK_FLOPS_BF16,
+           "model_flops_share_of_peak_bf16": mf / (step_ms / 1e3)
+           / RA.PEAK_FLOPS_BF16}
+    check(st.flops > 0 and st.bytes_hbm > 0, f"counted step {out}")
+    check(1.0 < out["flops_over_model_flops"] < 2.0,
+          f"counted FLOPs against 6 N D: {out['flops_over_model_flops']}")
+    return out
+
+
+def dryrun_path() -> dict:
+    """(b) ``launch.dryrun.lower_cell`` on DRYRUN_CELLS (single pod)."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.lower_cell(arch, shape, False)
+        check(rec["roofline"]["dominant"] in ("compute", "memory",
+                                              "collective")
+              and rec["hlo"]["flops_per_chip"] > 0,
+              f"dry run {arch} x {shape}: {rec['roofline']}")
+        rec.pop("key_meanings")
+        out[f"{arch} x {shape}"] = rec
+    return out
+
+
+def load_example(name: str):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(dev) -> dict:
+    """(c) each example twin's ``main`` on the card at its default sizes
+    (the reference examples'), its self-checks inside it; its wall time
+    and the kernel launches it made."""
+    import contextlib
+    import io
+    out = {}
+    for name in EXAMPLE_TWINS:
+        mod = load_example(name)
+        ws = reset_launches()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = mod.main(dev)
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": read_launches(ws), "result": res,
+                     "last_line": printed.getvalue().strip().splitlines()[-1]}
+    check(out["serve_batched_torch"]["launches"].get("cdf_search", 0) > 0,
+          "serve_batched_torch: its top-p sampler launched no CDF kernel")
+    return out
+
+
+def tools_path(dev, smi: str, step_ms: float) -> dict:
+    """Phase 20: (a), (b), (c), the card's name and power limit beside
+    their numbers, and the phase's wall time."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = counted_step_path(step_ms)
+    print(f"phase 20a: counted step ({smi}) " + json.dumps(counted),
+          flush=True)
+    cells = dryrun_path()
+    print("phase 20b: dry run " + json.dumps(cells), flush=True)
+    ex = examples_path(dev)
+    print(f"phase 20c: examples ({smi}) " + json.dumps(ex), flush=True)
+    return {"card": smi, "counted": counted, "dryrun": cells,
+            "examples": ex, "wall_s": time.perf_counter() - t0}
 
 
 def kernel_resources() -> dict:
@@ -5585,6 +5778,9 @@ def main() -> int:
     dist19 = dist_path(dev, args.seed, smi.splitlines()[0], keys_sorted,
                        main["lookup_ms"])
     print(f"phase 19: {dist19['wall_s']:.1f} s", flush=True)
+    tools20 = tools_path(dev, smi.splitlines()[0],
+                         train18["full"]["ms_per_step_median_2_6"])
+    print(f"phase 20: {tools20['wall_s']:.1f} s", flush=True)
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -5631,6 +5827,10 @@ def main() -> int:
             "gloo_ranks": [r["kernels"][row["name"]]
                            for r in lk["gloo_ranks"]],
             "nccl_world1": lk["nccl_world1"]["kernels"][row["name"]]}
+    for row in rows + [cdf_row]:         # the example twins (phase 20c)
+        row["examples_launches"] = {
+            k: v["launches"].get(row["name"], 0)
+            for k, v in tools20["examples"].items()}
     print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

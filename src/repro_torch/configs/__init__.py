@@ -1,3 +1,5 @@
 # Model-architecture configs (PyTorch port of repro.configs): the
-# ArchConfig schema and get_config for the architectures the port runs.
-from .base import ARCH_IDS, ArchConfig, get_config  # noqa: F401
+# ArchConfig schema, get_config for the architectures the port runs, and
+# the LM pool's input shapes (SHAPES, shape_applicable).
+from .base import (ARCH_IDS, SHAPES, ArchConfig, get_config,  # noqa: F401
+                   shape_applicable)

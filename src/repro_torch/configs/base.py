@@ -148,3 +148,21 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_OF)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.CONFIG
+
+
+# ---- input shapes assigned to the LM pool (seq_len, global_batch) ----------
+SHAPES = {
+    "train_4k": dict(seq_len=4_096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32_768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524_288, global_batch=1, kind="decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
+    """(applicable, reason-if-not). Skips recorded per DESIGN.md §5."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, "pure full attention at 524k context (see DESIGN.md §5)"
+    if cfg.family == "index":
+        return False, "index-search workload has its own benchmark shapes"
+    return True, ""

@@ -248,6 +248,40 @@ def gather(x: DTensor) -> torch.Tensor:
     return out
 
 
+class _GatherRows(torch.autograd.Function):
+    """All-gather of dim 0 over ``groups`` (outermost first), innermost
+    group first, so the rows come in the order of the ranks' nested
+    coordinates; the backward sums the gathered grad over every group and
+    keeps block ``index`` (gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, groups, index):
+        ctx.groups, ctx.index, ctx.n = groups, index, x.shape[0]
+        out = x.contiguous()
+        for group in reversed(groups):
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, out, group=group)
+            out = torch.cat(parts)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(grad, group=group)
+        n = ctx.n
+        return grad[ctx.index * n:(ctx.index + 1) * n], None, None
+
+
+def gather_rows(x: torch.Tensor, groups, index: int) -> torch.Tensor:
+    """``x`` [n, ...] of every rank of ``groups`` (process groups,
+    outermost first) as one [n * ranks, ...] tensor, this rank's block at
+    ``index``; differentiable, the grad of each block summed over the
+    ranks onto its owner."""
+    return _GatherRows.apply(x, tuple(groups), index)
+
+
 def host_copy(x) -> torch.Tensor:
     """A whole CPU copy of a DTensor (a collective over its mesh), a tensor
     or an array."""

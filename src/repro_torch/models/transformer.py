@@ -201,19 +201,21 @@ def _embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return take(params["embed"], tokens).to(dtype)
 
 
-def _ffn(cfg, spec, lp, x):
-    """The block's FFN residual: (x, aux)."""
+def _ffn(cfg, spec, lp, x, share=None):
+    """The block's FFN residual: (x, aux). ``share``: a data rank's part
+    of a microbatch that routes as one (``moe.RowShare``)."""
     if spec["ffn"] == "dense":
         return x + L.mlp_block(cfg, lp["mlp"],
                                L.rms_norm(x, lp["ln2"], cfg.norm_eps)), None
     if spec["ffn"] == "moe":
         y, aux = MOE.moe_block(cfg, lp["moe"],
-                               L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+                               L.rms_norm(x, lp["ln2"], cfg.norm_eps), share)
         return x + y, aux
     return x, None
 
 
-def _apply_block(cfg, spec, lp, x, positions, memory, chunks=(512, 512)):
+def _apply_block(cfg, spec, lp, x, positions, memory, chunks=(512, 512),
+                 share=None):
     """One pre-norm residual block over whole sequences. Returns (x, aux,
     the states it leaves for the cache)."""
     states = {}
@@ -231,11 +233,11 @@ def _apply_block(cfg, spec, lp, x, positions, memory, chunks=(512, 512)):
         h, (states["ck"], states["cv"]) = L.cross_attention_block(
             cfg, lp["cross"], h, memory, return_kv=True)
         x = x + h
-    x, aux = _ffn(cfg, spec, lp, x)
+    x, aux = _ffn(cfg, spec, lp, x, share)
     return x, aux, states
 
 
-def _blocks_fn(cfg, specs, lps, positions, memory, chunks):
+def _blocks_fn(cfg, specs, lps, positions, memory, chunks, share=None):
     """(x, aux) -> (x, aux + the blocks' aux) through the blocks ``lps``,
     keeping no states: the function that remat checkpoints. The running
     aux goes through it, so that the sum's order is the one without
@@ -243,7 +245,7 @@ def _blocks_fn(cfg, specs, lps, positions, memory, chunks):
     def run(x, aux):
         for spec, lp in zip(specs, lps):
             x, a, _ = _apply_block(cfg, spec, lp, x, positions, memory,
-                                   chunks)
+                                   chunks, share)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -251,7 +253,7 @@ def _blocks_fn(cfg, specs, lps, positions, memory, chunks):
 
 
 def _run_blocks(cfg, params, x, positions, memory, *, remat=False,
-                chunks=(512, 512)):
+                chunks=(512, 512), share=None):
     """Every layer over x; returns (x, aux summed over blocks, [states per
     layer]).
 
@@ -270,7 +272,7 @@ def _run_blocks(cfg, params, x, positions, memory, *, remat=False,
             # the blocks draw no random numbers: no RNG state to replay
             x, aux = checkpoint(_blocks_fn(cfg, specs[s:s + size],
                                            layers[s:s + size], positions,
-                                           memory, chunks),
+                                           memory, chunks, share),
                                 x, aux, use_reentrant=False,
                                 preserve_rng_state=False)
             if (s + size) % cfg.period == 0:
@@ -278,7 +280,8 @@ def _run_blocks(cfg, params, x, positions, memory, *, remat=False,
         return x, aux, []
     states = []
     for i, (spec, lp) in enumerate(zip(specs, layers)):
-        x, a, st = _apply_block(cfg, spec, lp, x, positions, memory, chunks)
+        x, a, st = _apply_block(cfg, spec, lp, x, positions, memory, chunks,
+                                share)
         if a is not None:
             aux = aux + a
         if (i + 1) % cfg.period == 0:
@@ -310,17 +313,19 @@ def _memory(cfg, params, memory, compute_dtype):
 
 
 def forward(cfg, params, tokens: torch.Tensor, memory=None, *,
-            remat=True, compute_dtype=torch.bfloat16, chunks=(512, 512)):
+            remat=True, compute_dtype=torch.bfloat16, chunks=(512, 512),
+            share=None):
     """Training and prefill forward over whole sequences -> (hidden
     [B,S,D], aux loss), differentiable in the parameters. Logits are
     computed by the caller (chunked CE for training, the last token for
     serving). ``remat``: see ``_run_blocks``; ``chunks``: the attention's
-    (q, kv) chunk sizes."""
+    (q, kv) chunk sizes; ``share``: these rows are a data rank's part of a
+    microbatch whose MoE layers route as one (``moe.RowShare``)."""
     x = _embed(params, tokens, compute_dtype)
     positions = torch.arange(tokens.shape[1], device=x.device)
     memory = _memory(cfg, params, memory, compute_dtype)
     x, aux, _ = _run_blocks(cfg, params, x, positions, memory, remat=remat,
-                            chunks=chunks)
+                            chunks=chunks, share=share)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 

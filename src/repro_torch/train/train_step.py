@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.util import tree_leaves, tree_map
 from ..dist import sharding as SH
+from ..models import moe as MOE
 from ..models import transformer as T
 from ..optim import adamw
 
@@ -167,67 +168,74 @@ def make_sharded_train_step(cfg, opt_cfg: adamw.OptConfig, mesh, *,
     single-device step's.
 
     The schedule is simple and exact, with no tensor-parallel compute:
-    each rank gathers the whole params, runs the forward and backward of
-    its rows in ``microbatches`` pieces, the grads are summed over the
+    each rank gathers the whole params and the batch's token and label
+    ints, and takes an equal contiguous share of every global microbatch
+    (rows ``[i * mb, (i + 1) * mb)`` of the global batch): its forward
+    and backward run one share at a time, the grads are summed over the
     data axes, and each rank updates its own blocks. The loss is the
-    reference's: for each global microbatch (rows ``[i * mb, (i + 1) *
-    mb)`` of the global batch) sum(CE * valid) / sum(valid), averaged over
-    the microbatches. Each row's CE is weighted by 1 / (microbatches x its
-    microbatch's count of valid labels over all ranks), so that the sums
-    over the data ranks give exactly that, also where labels hold -1. The
-    global-norm clip reads the norm of the whole summed grads, which every
-    rank holds, so each leaf counts once. A MoE's auxiliary loss is each
-    rank's own, averaged over the data ranks."""
+    reference's: for each global microbatch sum(CE * valid) / sum(valid),
+    averaged over the microbatches. Each row's CE is weighted by 1 /
+    (microbatches x its microbatch's count of valid labels), so that the
+    sums over the data ranks give exactly that, also where labels hold
+    -1. A MoE layer routes the whole global microbatch as the reference
+    does (``moe.RowShare``): the router logits are gathered over the data
+    ranks, so the capacity, the slots, the drops and the auxiliary loss
+    are the whole microbatch's, the same on every rank; each rank weights
+    the aux by 1 / (microbatches x data ranks), and the sum over the
+    ranks gives the reference's aux / microbatches. The global-norm clip
+    reads the norm of the whole summed grads, which every rank holds, so
+    each leaf counts once."""
     sizes = SH.axis_sizes(mesh)
     names = list(sizes)
     dp_dims = [names.index(a) for a in SH.dp_axes(mesh)]
     n_dp = int(np.prod([sizes[names[d]] for d in dp_dims]))
+    dp_groups = [mesh.get_group(d) for d in dp_dims]
     dev = SH.mesh_device(mesh)
 
     def reduce_dp(t):
-        for d in dp_dims:
-            dist.all_reduce(t, group=mesh.get_group(d))
+        for group in dp_groups:
+            dist.all_reduce(t, group=group)
         return t
 
     def train_step(params, opt_state, batch):
         coord = mesh.get_coordinate()
-        tokens = batch["tokens"].to_local()
-        labels = batch["labels"].to_local()
-        memory = batch["memory"].to_local() if has_memory else None
-        B, lb = batch["tokens"].shape[0], tokens.shape[0]
-        if B % microbatches or lb % microbatches or lb * n_dp != B:
+        B = batch["tokens"].shape[0]
+        mb = B // microbatches
+        if B % microbatches or mb % n_dp:
             raise ValueError(
-                f"batch {B} must shard its rows over the data axes "
-                f"({n_dp} ranks) into {microbatches} microbatches each")
-        row0 = 0
+                f"batch {B} must split into {microbatches} microbatches "
+                f"whose rows split over the data axes ({n_dp} ranks)")
+        q = 0                     # this rank's place among the data ranks
         for d in dp_dims:
-            row0 = row0 * sizes[names[d]] + coord[d]
-        row0 *= lb
+            q = q * sizes[names[d]] + coord[d]
+        with torch.no_grad():
+            tokens = SH.gather(batch["tokens"])
+            labels = SH.gather(batch["labels"])
+            memory = SH.gather(batch["memory"]) if has_memory else None
+        piece = mb // n_dp
         # each row's weight: 1 / (microbatches x its global microbatch's
         # count of valid labels)
-        mb_of = torch.div(row0 + torch.arange(lb, device=dev),
-                          B // microbatches, rounding_mode="floor")
-        counts = torch.zeros(microbatches, dtype=torch.float32, device=dev)
-        counts.index_add_(0, mb_of, (labels >= 0).sum(1).float())
-        reduce_dp(counts)
-        row_w = 1.0 / (microbatches * torch.clamp(counts, min=1.0))[mb_of]
+        counts = (labels >= 0).view(microbatches, -1).sum(1).float()
+        mb_w = 1.0 / (microbatches * torch.clamp(counts, min=1.0))
+        share = MOE.RowShare(
+            lambda x: SH.gather_rows(x, dp_groups, q), q, n_dp) \
+            if n_dp > 1 else None
 
         with torch.no_grad():
             full = tree_map(lambda d: SH.gather(d).detach(), params)
         work = [w.requires_grad_() for w in tree_leaves(full)]
         grads = None
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        piece = lb // microbatches
         for j in range(microbatches):
-            sl = slice(j * piece, (j + 1) * piece)
+            sl = slice(j * mb + q * piece, j * mb + (q + 1) * piece)
             port = T.from_reference_params(cfg, full, device=dev)
             hidden, aux = T.forward(
                 cfg, port, tokens[sl],
                 memory=None if memory is None else memory[sl],
                 remat=remat, compute_dtype=compute_dtype,
-                chunks=attn_chunks)
+                chunks=attn_chunks, share=share)
             tot, _ = chunked_ce_sum(cfg, port, hidden, labels[sl], ce_chunk,
-                                    row_weights=row_w[sl])
+                                    row_weights=mb_w[j].expand(piece))
             lj = tot + aux_weight * aux / (microbatches * n_dp)
             g = torch.autograd.grad(lj, work, allow_unused=True)
             g = [torch.zeros_like(w) if x is None else x

@@ -21,8 +21,14 @@ directory; this process computes the reference's answers:
     moments to 1e-5 of each leaf's largest, params to 1e-6 where |m| >
     1e-6 and within 2 lr everywhere (``test_torch_training.py``'s
     tolerances);
+  * the same step of reduced mixtral at its capacity factor and at 0.5
+    (where the capacity binds and pairs drop) and of a period-2 reduced
+    jamba (a Mamba block with a MoE FFN, then an attention block), at the
+    same tolerances: each MoE layer routes the whole global microbatch,
+    as the reference's one SPMD program does;
   * resharding minicpm from 8 ranks to 4 keeps every value exactly.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -299,11 +305,38 @@ def train_inputs():
     return cfg, params, {"tokens": tokens, "labels": labels}
 
 
+# the MoE cases: (arch, overrides of the reduced config); jamba at the
+# period of 2 of test_torch_training.py's ``hybrid`` fixture
+MOE_CASES = {
+    "mixtral": ("mixtral-8x7b", {}),
+    "mixtral_capacity_0.5": ("mixtral-8x7b", {"capacity_factor": 0.5}),
+    "jamba_period_2": ("jamba-v0.1-52b", dict(
+        attn_every=2, attn_index=1, moe_every=2, moe_offset=0, n_layers=4)),
+}
+
+
+def moe_train_inputs():
+    """{case: (reference cfg, port cfg, reference params, batch)}."""
+    out = {}
+    for i, (name, (arch, kw)) in enumerate(MOE_CASES.items()):
+        rcfg = dataclasses.replace(ref_get_config(arch).reduced(), **kw)
+        params = jax.tree.map(np.asarray, ref_T.init_params(
+            rcfg, jax.random.PRNGKey(3 + i)))
+        rng = np.random.default_rng(10 + i)
+        batch = {k: rng.integers(0, rcfg.vocab, (8, 16)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        batch["labels"][2, 3:] = -1
+        out[name] = (rcfg, dataclasses.replace(
+            get_config(arch).reduced(), **kw), params, batch)
+    return out
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world")
     cases = search_cases()
     rcfg, rparams, batch = train_inputs()
+    moe = moe_train_inputs()
     mcfg = ref_get_config("minicpm-2b").reduced()
     mparams = jax.tree.map(np.asarray, ref_T.init_params(
         mcfg, jax.random.PRNGKey(1)))
@@ -312,9 +345,10 @@ def world(tmp_path_factory):
     res = W.run_world(
         W.cpu_world, 8, tmp, cases,
         (get_config("qwen3-0.6b").reduced(), rparams, batch, LR, 2, (4, 2)),
-        (get_config("minicpm-2b").reduced(), mparams), ckpt_dir)
+        (get_config("minicpm-2b").reduced(), mparams), ckpt_dir,
+        [(pc, p, b, LR, 2, (4, 2)) for _, pc, p, b in moe.values()])
     return {"res": res, "cases": cases, "train": (rcfg, rparams, batch),
-            "minicpm": (mcfg, mparams)}
+            "moe": moe, "minicpm": (mcfg, mparams)}
 
 
 @pytest.mark.parametrize("case", range(len(SEARCH_IDS)), ids=SEARCH_IDS)
@@ -343,16 +377,34 @@ def test_sharded_index_holds_one_shard_a_rank(world):
 
 def test_sharded_train_step_matches_reference(world):
     rcfg, rparams, batch = world["train"]
+    check_step_against_reference(
+        rcfg, rparams, batch, [res["train"] for res in world["res"]])
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_sharded_moe_train_step_matches_reference(world, case):
+    """A MoE model's sharded step is the reference's step: the router
+    logits of each global microbatch are gathered over the data ranks, so
+    the capacity, the drops and the aux loss are the whole microbatch's."""
+    rcfg, _, rparams, batch = world["moe"][case]
+    i = list(MOE_CASES).index(case)
+    check_step_against_reference(
+        rcfg, rparams, batch, [res["moe_train"][i] for res in world["res"]])
+
+
+def check_step_against_reference(rcfg, rparams, batch, ranks):
+    """One reference step (jit, microbatches 2, float32) against every
+    rank's metrics and rank 0's whole updated state."""
     step = jax.jit(ref_make_train_step(
         rcfg, ref_adamw.OptConfig(lr=LR), microbatches=2,
         compute_dtype=jnp.float32))
     p2, o2, m = step(rparams, ref_adamw.init_state(rparams),
                      {k: jnp.asarray(v) for k, v in batch.items()})
-    for res in world["res"]:
+    for res in ranks:
         for k in ("loss", "grad_norm", "lr"):
-            np.testing.assert_allclose(res["train"][k], float(m[k]),
+            np.testing.assert_allclose(res[k], float(m[k]),
                                        rtol=RTOL, err_msg=k)
-    got = world["res"][0]["train"]["state"]
+    got = ranks[0]["state"]
     assert int(got["count"]) == int(o2["count"]) == 1
     flat = {k: v.numpy() for k, v in _flatten(got["params"]).items()}
     mflat = {k: v.numpy() for k, v in _flatten(got["m"]).items()}

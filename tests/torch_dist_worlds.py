@@ -212,11 +212,13 @@ def _meta(tree):
                 tree)
 
 
-def cpu_world(rank, search, train, elastic, ckpt_dir):
+def cpu_world(rank, search, train, elastic, ckpt_dir, moe_trains=()):
     """The CPU tests' one world of 8 ranks: the sharded search cases, one
-    sharded train step at mesh (4, 2), the elastic reshard and restore."""
+    sharded train step at mesh (4, 2) of a dense model and one of each
+    MoE case in ``moe_trains``, the elastic reshard and restore."""
     return {"search": search_cases(rank, search),
             "train": train_case(rank, *train),
+            "moe_train": [train_case(rank, *c) for c in moe_trains],
             "elastic": elastic_case(rank, *elastic, ckpt_dir)}
 
 
