@@ -213,8 +213,10 @@ Phases, in order; any failure exits non-zero with its traceback:
         CUDA-event ms, the host's launch calls, the device's kernel ms
         (profiler), the ms of one CUDA-graph replay of the same call and
         the thesis' speedups from each, torch.searchsorted beside them;
-        every run checked against numpy. Eager PyTorch compositions, not
-        the thesis' generated code. The phase prints its wall time;
+        every run checked against numpy, and each NitroGen index's
+        generated kernel against its plain version on every query set.
+        Binary and css are eager PyTorch compositions; NitroGen is the
+        thesis' generated code (phase 21). The phase prints its wall time;
  16. the flat kinds under the rest of the API, over phase 4's keys and
      values, one kind of phase 15 at a time, under
      set_sync_debug_mode("error") against numpy:
@@ -330,7 +332,32 @@ Phases, in order; any failure exits non-zero with its traceback:
         200 train steps with a crash and a resume), each with its
         self-checks: wall time, and the kernels each launched, counted
         from 0;
- 21. one line {"kernels": [...]} with each kernel's launches, times
+ 21. NitroGen compiled on the card (kernels/nitrogen_codegen.py): every
+     NitroGen index built on the card has a CUDA kernel generated from it,
+     each separator a literal, built by nvcc at build. For each index
+     below: one launch a search under set_sync_debug_mode("error") and
+     inside a CUDA-graph replay, bit for bit with the plain network and
+     bottom; the source's literals read back and held bit for bit to a
+     fresh walk of its keys; compile_s, source lines, cubin and SASS
+     bytes, the compares that read the constant bank, registers and
+     spills (ptxas), beside the index's data bytes; at each batch the
+     kernel's event, device and graph-replay ms, the plain version's ms,
+     torch.searchsorted's over the same keys and the bound from this
+     run's queries. The indexes: phase 15's ng_l3_binary and ng_l3_css16
+     over 2^24 keys at 4,096 and 2^20 queries; ng_l4_vector over 2^20
+     float32 keys (NaN, +-inf, signed zeros, subnormals); the top of the
+     tiered index of 32,768 keys (256 pages, the clip to the last page in
+     the kernel) and that index's lookup against numpy; Fig. 5.2's widths
+     w 1, 2, 3, 7, 15 (2 levels, css-16) and Table 4.1's NitroGen L2-L4
+     over bench_table4_1.py's 65,536 keys; Fig. 5.1's variants (checked
+     in 15c). Then a small mutable store (20,000 keys, ~209 pages) through
+     16 repacks at a constant page count, each deriving and compiling a
+     new top: repack ms, host RSS, the card's used memory, the kernels
+     alive and the cubins on disk (bounded: a superseded top is unloaded
+     and its files deleted), lookups against numpy; last the phase's
+     main path (a lookup on the tiered index and one on NitroGen over
+     phase 4's keys) with the counters set to 0 before and read after;
+ 22. one line {"kernels": [...]} with each kernel's launches, times
      (CUDA events, and the profiler's device time beside the library
      call's) and bound, for the page and k-ary kernels the store's
      launches a lookup and their launches on the probe-queue runs, for
@@ -343,8 +370,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      and the page kernel's on its wholesale store, for kernels 1 and 2
      their launches, error, times and bound on every rank of phase 19a
      and at its world 1, for kernels 1, 2 and 5 their launches in each
-     example of phase 20c; the last line {"ok":
-     true, "device": {...}}.
+     example of phase 20c, and the generated NitroGen kernel's row (phase
+     21, with its launches in phases 5, 15, 16 and 20c); the last line
+     {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
 result: the kernels exist only on the card.
@@ -3987,6 +4015,7 @@ def fig51_path(dev) -> dict:
     keys, uniform and Zipf(1.3) queries, at the bench's Q = 4,096 and at
     2^20; torch.searchsorted on the same sorted keys beside them."""
     from repro_torch import IndexConfig, build_index
+    from repro_torch.core import nitrogen
     rng = np.random.default_rng(7)
     out = {}
     for n in FIG51_SIZES:
@@ -4010,6 +4039,14 @@ def fig51_path(dev) -> dict:
                       f"fig 5.1 n={n} {k} {name} != np.searchsorted")
                 r = fig_run(idx.search, qd)
                 if name.startswith("ng-"):
+                    # the generated kernel against its plain version
+                    got = nitrogen.search(idx.impl, qd)
+                    err = max_abs_err(got, nitrogen.search_plain(idx.impl,
+                                                                 qd))
+                    check(err == 0, f"fig 5.1 n={n} {k} {name}: kernel != "
+                          "plain")
+                    r["kernel_vs_plain_max_abs_err"] = err
+                    r["compile_s"] = idx.impl.kernel.compile_s
                     r["network_ms"] = cuda_ms(
                         lambda qd=qd: idx.impl.network(qd), reps=10)
                 cells[k][name] = r
@@ -4099,6 +4136,13 @@ def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
           + " ops.kary_search " + json.dumps(kary_rows), flush=True)
     figs = {"fig5_1": fig51_path(dev), "fig5_3": fig53_path(dev)}
     print("phase 15c: fig 5.3 " + json.dumps(figs["fig5_3"]), flush=True)
+    out["fig5_1_kernel_checks"] = {   # the generated kernels (phase 21)
+        f"{size}/{cell}/{name}": {k: r[k] for k in (
+            "kernel_vs_plain_max_abs_err", "compile_s", "ms", "graph_ms",
+            "network_ms")}
+        for size, cells in figs["fig5_1"].items()
+        for cell, runs in cells.items()
+        for name, r in runs.items() if name.startswith("ng-")}
     out["wall_s"] = time.perf_counter() - t_phase
     return out, fast_row, kary_rows
 
@@ -5656,6 +5700,417 @@ def tools_path(dev, smi: str, step_ms: float) -> dict:
             "examples": ex, "wall_s": time.perf_counter() - t0}
 
 
+# -------------------------------------------------------------- phase 21
+# NitroGen compiled on the card (kernels/nitrogen_codegen.py): every
+# NitroGen index built on the card gets a kernel generated from it, its
+# separators as literals, compiled by nvcc at build. Held here to the plain
+# network and bottom at the slice's sizes, each index with its compile
+# cost and code bytes beside its data bytes (Table 4.1's analogue).
+NG_FLOAT_KEYS = 1 << 20
+NG_TIERED_KEYS = 32_768          # 256 pages of 128: the largest NitroGen top
+NG_CODE_KEYS = 65_536            # bench_table4_1.py's keys
+NG_FIG52_WIDTHS = (1, 2, 3, 7, 15)     # bench_fig5_2.py's compiled widths
+NG_TABLE41_LEVELS = (2, 3, 4)          # bench_table4_1.py's NitroGen rows
+NG_BATCHES = (4096, 1 << 20)
+NG_REPACK_KEYS = 20_000          # a small store: ~209 pages, a NitroGen top
+NG_REPACKS = 16
+NG_ROW_KEY = "ng_l3_binary_2^24"      # the row of the kernels line
+
+
+def proc_rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def flat_seps(tree) -> list:
+    """A walked top's separators in the order its generated source writes
+    them (nitrogen_codegen._network_lines: a node's last kid, then each
+    other kid from the right before its separator)."""
+    out = []
+
+    def visit(node):
+        if isinstance(node, int):
+            return
+        seps, kids = node
+        visit(kids[-1])
+        for i in reversed(range(len(seps))):
+            visit(kids[i])
+            out.append(seps[i])
+    visit(tree)
+    return out
+
+
+def code_bytes(cubin) -> dict:
+    """The compiled artifact: the cubin's bytes, the kernel's SASS (16
+    bytes an instruction), its compares and how many of them read the
+    constant bank, and its global loads (cuobjdump)."""
+    import re
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    instr = [ln for ln in sass.splitlines()
+             if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln)]
+    setp = [ln for ln in instr if "SETP" in ln]
+    return {"cubin_bytes": os.path.getsize(cubin),
+            "sass_instructions": len(instr), "sass_bytes": 16 * len(instr),
+            "setp": len(setp), "setp_const_bank": sum("c[" in ln
+                                                      for ln in setp),
+            "ldg": sum("LDG" in ln for ln in instr)}
+
+
+def ng_work(idx, q: np.ndarray, b: np.ndarray) -> tuple[int, int, int]:
+    """(bytes, compares, separators) that searching ``q`` needs: each query
+    read, each rank written, each block slot the bottom reads read once
+    (replaying the bottom's probes on the host for these queries); for
+    each query a binary search of a node's sorted separators at each
+    level of the top (the kernel's select compares all of them), then
+    the bottom's, a sorted row counted the same way."""
+    q_n, item = q.size, q.dtype.itemsize
+    f = idx.node_width + 1
+    seps = idx.node_width * (f**idx.levels - 1) // (f - 1)
+    top = idx.levels * sorted_count_compares(idx.node_width)
+    bp = idx.block_pad.cpu().numpy()
+    b = b.astype(np.int64)
+    if idx.bottom == "binary":
+        pos = np.zeros(q_n, np.int64)
+        base = b * idx.block_pad_width
+        probed = np.zeros(bp.size, bool)          # slots read, each once
+        step, steps = idx.block_pad_width // 2, 0
+        while step >= 1:
+            a = base + pos + step - 1
+            probed[a] = True
+            pos = np.where(bp[a] < q, pos + step, pos)
+            step //= 2
+            steps += 1
+        slots = int(probed.sum())
+        bottom = q_n * steps
+    elif idx.bottom == "vector":
+        slots = np.unique(b).size * idx.block_pad_width
+        bottom = q_n * sorted_count_compares(idx.block_pad_width)
+    else:
+        w, lw = idx.css_w, idx.css_leaf_width
+        dirs = idx.css_dirs.cpu().numpy().reshape(-1, w)
+        j = np.zeros(q_n, np.int64)
+        drow = b * (idx.css_dir_len // w)
+        rows = []
+        for lev in range(idx.css_depth):
+            row = drow + idx.css_offsets[lev] // w + j
+            rows.append(row)
+            j = j * (w + 1) + (dirs[row] < q[:, None]).sum(-1)
+        leaf = b * (idx.css_leaf_len // lw) + j
+        slots = (np.unique(np.concatenate(rows)).size * w if rows else 0) \
+            + np.unique(leaf).size * lw
+        bottom = q_n * (idx.css_depth * sorted_count_compares(w)
+                        + sorted_count_compares(lw))
+    return q_n * item + q_n * 4 + slots * item, q_n * top + bottom, seps
+
+
+def ng_index_row(dev, idx, q: np.ndarray, *, clip=None,
+                 batches=(N_QUERIES,)) -> dict:
+    """One compiled index on the card: one launch a search with no host
+    sync, bit for bit with the plain version, again inside a graph replay
+    (one launch a replay); its literals' bits against the separators of a
+    fresh walk of its keys; compile cost and code bytes beside its data
+    bytes; then at each batch the kernel's event and device ms, the
+    plain version's and torch.searchsorted's over the same keys, and the
+    bound from this run's queries."""
+    from repro_torch.core import nitrogen
+    from repro_torch.engine.capture import Captures, Specialized
+    from repro_torch.kernels import nitrogen_codegen as cg
+    top = idx.kernel
+    srt = idx.keys.cpu().numpy()
+    qd = torch.from_numpy(q).to(dev)
+
+    def search(x):
+        return nitrogen.search(idx, x, clip=clip)
+
+    cg.nitrogen_search.launches = 0
+    got = no_sync(lambda: search(qd))
+    check(cg.nitrogen_search.launches == 1, "a compiled search launched "
+          f"{cg.nitrogen_search.launches} kernels")
+    want = nitrogen.search_plain(idx, qd, clip)
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want), "generated kernel != plain")
+    spec = Specialized(search, device=dev, captures=Captures())
+    spec(qd)                                    # warm-up and capture
+    cg.nitrogen_search.launches = 0
+    replay = no_sync(lambda: spec(qd))
+    check(cg.nitrogen_search.launches == 1 and torch.equal(replay, want),
+          "generated kernel inside a replay")
+    tree = nitrogen.walk(srt, idx.levels, idx.node_width, idx.block_width)
+    want_bits = np.array(flat_seps(tree), srt.dtype).view(np.uint32)
+    got_bits = cg.read_literals(top.source, srt.dtype).view(np.uint32)
+    check(np.array_equal(got_bits, want_bits), "the source's literals are "
+          "not the index's separators")
+    check("seps" not in top.source, "a separator buffer in the source")
+    data = idx.keys.numel() * idx.keys.element_size() + \
+        idx.block_pad.numel() * idx.block_pad.element_size() + \
+        (0 if idx.css_dirs is None
+         else idx.css_dirs.numel() * idx.css_dirs.element_size())
+    row = {"keys": idx.n, "levels": idx.levels, "node_width": idx.node_width,
+           "bottom": idx.bottom, "separators": int(want_bits.size),
+           "max_abs_err": err, "replay_max_abs_err": max_abs_err(replay,
+                                                                 want),
+           "compile_s": top.compile_s, "load_s": top.load_s,
+           "source_lines": top.source.count("\n"),
+           "registers": [r.get("registers") for r in top.resources],
+           "spill_stores": [r.get("spill_stores") for r in top.resources],
+           **code_bytes(top.library), "data_bytes": int(data),
+           "cubin": os.path.basename(top.library), "batches": {}}
+    ks_dev = idx.keys
+    for n in batches:
+        qn = q[:n]
+        x = qd[:n].contiguous()
+        b = idx.network(x).cpu().numpy()
+        nbytes, compares, _ = ng_work(idx, qn, b)
+        bd = bound(nbytes, compares)
+        row["batches"][str(n)] = {
+            "launches": 1,
+            "ms": cuda_ms(lambda: search(x)),
+            "device_ms": device_ms(lambda: search(x), reps=5, tries=2),
+            "graph_ms": cuda_ms(lambda: spec(x), reps=10),
+            "plain_ms": cuda_ms(lambda: nitrogen.search_plain(idx, x, clip),
+                                reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.searchsorted(ks_dev, x)),
+            "bound_ms": bd[0], "bound_by": bd[1], "bytes": nbytes,
+            "compares": compares}
+    del spec
+    return row
+
+
+def ng_float_keys(rng, n: int) -> tuple:
+    """float32 keys as phase 15's float pass draws them (magnitudes 1e-20
+    to 1e20, signed zeros, subnormals, +-3.4e38) and queries with +-inf,
+    +-0.0, NaN and subnormals."""
+    keys = np.concatenate([rng.normal(size=n - 7) * 10.0 **
+                           rng.integers(-20, 20, n - 7),
+                           [0.0, -0.0, 1e-45, -1e-45, 3e-45, -3.4e38,
+                            3.4e38]]).astype(np.float32)
+    q = np.concatenate([keys[rng.integers(0, n, N_QUERIES // 2)],
+                        rng.normal(size=N_QUERIES // 2 - 8) * 1e10,
+                        [0.0, -0.0, np.inf, -np.inf, 1e-45, 2e-45, np.nan,
+                         -np.nan]]).astype(np.float32)
+    return keys, rng.permutation(q)
+
+
+def ng_repack_path(dev, rng) -> dict:
+    """A small mutable tiered store (NitroGen top) on the card: each of
+    NG_REPACKS rounds crowds one page with 64 new keys and deletes 64
+    others, and the flush repacks and derives a new top, which compiles a
+    new kernel while the page count stays: repack ms (its nvcc in it),
+    host RSS, the card's used memory, the kernels alive and the cubins on
+    disk, which must stay bounded (a superseded top's module is unloaded
+    and its files deleted); lookups of every key and of misses against
+    numpy after each round."""
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nitrogen_codegen as cg
+
+    def usage() -> dict:
+        free, total = torch.cuda.mem_get_info()
+        return {"rss_bytes": proc_rss_bytes(),
+                "device_used_bytes": total - free,
+                "kernels_alive": cg.loaded(),
+                "cubins_on_disk": len(list(_build.BUILD_DIR.glob(
+                    f"{cg.STEM}-*.cubin")))}
+
+    keys = np.unique(rng.integers(0, 10**8, NG_REPACK_KEYS * 2
+                                  ).astype(np.int32))[:NG_REPACK_KEYS]
+    t0 = time.perf_counter()
+    store = build_index(keys, keys, IndexConfig(
+        kind="tiered", mutable=True, leaf_width=128, delta_capacity=1024))
+    torch.cuda.synchronize()
+    out = {"keys": int(keys.size), "build_s": time.perf_counter() - t0,
+           "pages": store.base.num_pages,
+           "build_compile_s": store.base.top.kernel.compile_s,
+           "before": usage(), "rounds": []}
+    check(store.base.top_kind == "nitrogen", "the small store's top")
+    live = keys
+    for r in range(NG_REPACKS):
+        b = store.base
+        p = 1 + (37 * (r + 1)) % (b.num_pages - 2)   # another page a round
+        free = np.setdiff1d(np.arange(b.seps[p - 1] + 1, b.seps[p] + 1,
+                                      dtype=np.int64), live)
+        check(free.size >= 64, f"repack round {r}: a page without room")
+        new = free[:: free.size // 64][:64].astype(np.int32)
+        i = (np.searchsorted(live, new[0]) + live.size // 2) \
+            % (live.size - 64)
+        gone = live[i: i + 64]                # half the key space away
+        lib0, splits0 = b.top.library, store.stats["splits"]
+        store.insert(new, new)
+        store.delete(gone)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.flush()
+        torch.cuda.synchronize()
+        repack_ms = (time.perf_counter() - t0) * 1e3
+        check(store.stats["splits"] > splits0 and
+              store.base.top.library != lib0, f"repack round {r}")
+        live = np.setdiff1d(np.union1d(live, new), gone)
+        q = np.concatenate([live, rng.integers(0, 10**8, 8192)]
+                           ).astype(np.int32)
+        qd = torch.from_numpy(q).to(dev)
+        cg.nitrogen_search.launches = 0
+        res = no_sync(lambda: store.lookup(qd))
+        check(cg.nitrogen_search.launches == 1, "a store lookup's top")
+        found = np.isin(q, live)
+        check(np.array_equal(res.found.cpu().numpy(), found) and
+              np.array_equal(res.values.cpu().numpy()[found], q[found]),
+              f"repack round {r}: lookups != numpy")
+        out["rounds"].append({
+            "repack_ms": repack_ms, "pages": store.base.num_pages,
+            "compile_s": store.base.top.kernel.compile_s, **usage()})
+    last = out["rounds"][-1]
+    for k in ("kernels_alive", "cubins_on_disk"):
+        check(last[k] - out["before"][k] <= 3, f"repacks left {k} growing: "
+              f"{out['before'][k]} -> {last[k]}")
+    half = out["rounds"][NG_REPACKS // 2 - 1]
+    out["per_repack_second_half"] = {
+        k: (last[k] - half[k]) / (NG_REPACKS - NG_REPACKS // 2)
+        for k in ("rss_bytes", "device_used_bytes")}
+    out["repack_ms_median"] = float(np.median(
+        [x["repack_ms"] for x in out["rounds"]]))
+    store.close()
+    return out
+
+
+def ng_main_run(dev, idx_tiered, q_tiered, idx_flat, q_flat) -> dict:
+    """The phase's main path through the public entry points, the launch
+    counters set to 0 just before and read just after: a lookup on the
+    256-page tiered index and one on NitroGen over phase 4's keys."""
+    ws = reset_launches()
+    a = idx_tiered.lookup(q_tiered)
+    b = idx_flat.lookup(q_flat)
+    torch.cuda.synchronize()
+    counts = read_launches(ws)
+    check(counts.get("nitrogen_search") == 2, f"phase 21's main path "
+          f"launched {counts}")
+    return {"launches": counts, "results": (a, b)}
+
+
+def nitrogen_compiled_path(dev, keys_sorted, values_sorted,
+                           fig51: dict) -> tuple:
+    """Phase 21: each compiled index of the slice on the card."""
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.kernels import nitrogen_codegen as cg
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    out = {"indexes": {}}
+
+    def add(name, idx, q, **kw):
+        out["indexes"][name] = ng_index_row(dev, idx, q, **kw)
+        print(f"phase 21: {name} " + json.dumps(out["indexes"][name]),
+              flush=True)
+
+    # (a) phase 15's keys and queries: the binary and css-16 bottoms
+    q = mixed_queries(rng, keys_sorted, N_QUERIES)
+    flat = {}
+    for name, bottom in (("ng_l3_binary_2^24", "binary"),
+                         ("ng_l3_css16_2^24", "css")):
+        t0 = time.perf_counter()
+        flat[name] = build_index(keys_sorted, values_sorted, IndexConfig(
+            kind="nitrogen", levels=3, compiled_node_width=3, bottom=bottom,
+            node_width=16))
+        torch.cuda.synchronize()
+        add(name, flat[name].impl, q, batches=NG_BATCHES)
+        out["indexes"][name]["build_s"] = time.perf_counter() - t0
+        if name != NG_ROW_KEY:
+            del flat[name]
+    # (b) the vector bottom on the float pass
+    fk, fq = ng_float_keys(rng, NG_FLOAT_KEYS)
+    fidx = build_index(fk, config=IndexConfig(
+        kind="nitrogen", levels=4, compiled_node_width=3, bottom="vector"))
+    add("ng_l4_vector_f32_2^20", fidx.impl, fq)
+    real = ~np.isnan(fq)
+    check(np.array_equal(fidx.search(fq).cpu().numpy()[real],
+                         np.searchsorted(np.sort(fk), fq[real])),
+          "ng_l4_vector != numpy")
+    del fidx
+    # (c) the tiered index of 32,768 keys: its top, then its lookup
+    tk = rng.integers(I32.min + 1, I32.max - 1, NG_TIERED_KEYS
+                      ).astype(np.int32)
+    tq = mixed_queries(rng, np.sort(tk), N_QUERIES)
+    tidx = build_index(tk, np.arange(tk.size, dtype=np.int32),
+                       IndexConfig(kind="tiered"))
+    check(tidx.impl.top_kind == "nitrogen" and tidx.impl.num_pages == 256,
+          "32,768 keys: a 256-page NitroGen top")
+    add("tiered_top_32768", tidx.impl.top, tq, clip=255,
+        batches=NG_BATCHES)
+    tq_d = torch.from_numpy(tq).to(dev)
+    check_lookup(no_sync(lambda: tidx.lookup(tq_d)),
+                 oracle(np.sort(tk), np.arange(tk.size, dtype=np.int32)[
+                     np.argsort(tk, kind="stable")], tq), "tiered 32,768")
+    out["tiered_32768_lookup_ms"] = cuda_ms(lambda: tidx.lookup(tq_d))
+    out["tiered_32768_top_descent_ms"] = cuda_ms(
+        lambda: tidx.impl.page_of(tq_d))
+    prof = launch_profile(lambda: tidx.lookup(tq_d))
+    out["tiered_32768_lookup_device_kernels"] = prof["device_kernels"]
+    out["tiered_32768_lookup_device_ms"] = prof["kernels_ms"]
+    # (d) Fig. 5.2's compiled widths and Table 4.1's NitroGen rows over
+    # bench_table4_1.py's 65,536 keys
+    ck = np.unique(np.random.default_rng(17).integers(
+        0, 2**31 - 2, int(NG_CODE_KEYS * 1.2)).astype(np.int32))[
+            :NG_CODE_KEYS]
+    cq = uniform_queries(0, 2**31 - 2, N_QUERIES, seed=3)
+    for w in NG_FIG52_WIDTHS:
+        t0 = time.perf_counter()
+        idx = build_index(ck, config=IndexConfig(
+            kind="nitrogen", levels=2, compiled_node_width=w, bottom="css",
+            node_width=16))
+        add(f"fig5_2_ng_css16_w{w}", idx.impl, cq, batches=NG_BATCHES)
+        out["indexes"][f"fig5_2_ng_css16_w{w}"]["build_s"] = \
+            time.perf_counter() - t0
+    for lev in NG_TABLE41_LEVELS:
+        t0 = time.perf_counter()
+        idx = build_index(ck, config=IndexConfig(
+            kind="nitrogen", levels=lev, compiled_node_width=3))
+        add(f"table4_1_ng_l{lev}", idx.impl, cq, batches=(1024, N_QUERIES))
+        out["indexes"][f"table4_1_ng_l{lev}"]["build_s"] = \
+            time.perf_counter() - t0
+    del idx
+    # (e) Fig. 5.1's NitroGen variants, checked in phase 15c
+    out["fig5_1_kernel_vs_plain"] = fig51
+    # (f) a small store's repacks
+    out["repacks"] = ng_repack_path(dev, rng)
+    print("phase 21: repacks " + json.dumps(out["repacks"]), flush=True)
+    # the main path, counted
+    fq_d = torch.from_numpy(q).to(dev)
+    main = ng_main_run(dev, tidx, tq_d, flat[NG_ROW_KEY], fq_d)
+    check_lookup(main["results"][1], oracle(keys_sorted, values_sorted, q),
+                 "phase 21 main path")
+    out["main_launches"] = main["launches"]
+    r = out["indexes"][NG_ROW_KEY]["batches"][str(N_QUERIES)]
+    row = {"name": "nitrogen_search", "route": "cuda",
+           "source": "src/repro_torch/kernels/nitrogen_codegen.py + "
+                     "src/repro_torch/csrc/nitrogen_template.cuh "
+                     "(generated a index)",
+           "replaces": "src/repro/core/nitrogen.py:208 (searcher: jax.jit "
+                       "of the constant network and its bottom; no "
+                       "pallas_call)",
+           "launches": main["launches"]["nitrogen_search"],
+           "max_abs_err": max(v["max_abs_err"]
+                              for v in out["indexes"].values()),
+           "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+           "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+           "graph_ms": r["graph_ms"], "cell": NG_ROW_KEY,
+           "indexes": {k: {"max_abs_err": v["max_abs_err"],
+                           "compile_s": v["compile_s"],
+                           "sass_bytes": v["sass_bytes"],
+                           "data_bytes": v["data_bytes"],
+                           "batches": v["batches"]}
+                       for k, v in out["indexes"].items()},
+           "repack_ms_median": out["repacks"]["repack_ms_median"]}
+    del flat, tidx
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, row
+
+
 def kernel_resources() -> dict:
     """Registers, static shared memory, stack and spills of every kernel,
     as ptxas reported them at the build (-Xptxas -v), by source."""
@@ -5685,6 +6140,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import nitrogen_codegen as ng
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
 
@@ -5708,7 +6164,10 @@ def main() -> int:
           f"{phase_kary(dev, rng)}", flush=True)
     rows, main, state = main_path(dev, rng)
     print("phase 4: main path " + json.dumps(main), flush=True)
+    ng_launches = {}               # the generated NitroGen kernel's, a phase
+    ng.nitrogen_search.launches = 0
     print("phase 5: coverage " + json.dumps(coverage(dev, rng)), flush=True)
+    ng_launches["phase_5"] = ng.nitrogen_search.launches
     print("phase 6: scan kernels == plain " + json.dumps(
         phase_scan_kernels(dev, rng)), flush=True)
     scan_rows, scan_main = scan_path(dev, rng, *state)
@@ -5756,19 +6215,25 @@ def main() -> int:
     del spec_store
     print("phase 14e: autotune " + json.dumps(spec_autotune_path(dev)),
           flush=True)
+    ng.nitrogen_search.launches = 0
     kinds15, fast_row, kary_rows = kinds_path(dev, keys_sorted,
                                               values_sorted)
     print("phase 15: index kinds " + json.dumps(kinds15), flush=True)
+    ng_launches["phase_15"] = ng.nitrogen_search.launches
     t16 = time.perf_counter()
+    ng.nitrogen_search.launches = 0
     flat16 = flat_kinds_path(dev, keys_sorted, values_sorted, scan_main)
     print("phase 16b: specialized / base lookup_ms " + json.dumps(
         {k: v for k, v in flat16.items() if "/" in k}), flush=True)
     print("phase 16c: flat store " + json.dumps(flat_store_path(
         dev, np.random.default_rng(args.seed + 16), keys_sorted,
         values_sorted)), flush=True)
+    ng_launches["phase_16ab"] = ng.nitrogen_search.launches
+    ng.nitrogen_search.launches = 0
     serve16, cdf16 = flat_serve_path(dev, args.seed)
     print("phase 16d: serving over nitrogen " + json.dumps(serve16),
           flush=True)
+    ng_launches["phase_16d"] = ng.nitrogen_search.launches
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     del imm_idx
     fam17, cdf17, page17 = families_path(dev, args.seed)
@@ -5781,6 +6246,17 @@ def main() -> int:
     tools20 = tools_path(dev, smi.splitlines()[0],
                          train18["full"]["ms_per_step_median_2_6"])
     print(f"phase 20: {tools20['wall_s']:.1f} s", flush=True)
+    ng21, ng_row = nitrogen_compiled_path(
+        dev, keys_sorted, values_sorted, kinds15["fig5_1_kernel_checks"])
+    print(f"phase 21: compiled NitroGen ({smi.splitlines()[0]}) "
+          + json.dumps({k: v for k, v in ng21.items()
+                        if k not in ("indexes", "fig5_1_kernel_vs_plain",
+                                     "repacks")}), flush=True)
+    print(f"phase 21: {ng21['wall_s']:.1f} s", flush=True)
+    ng_row["phase_launches"] = ng_launches
+    ng_row["examples_launches"] = {
+        k: v["launches"].get("nitrogen_search", 0)
+        for k, v in tools20["examples"].items()}
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -5831,7 +6307,7 @@ def main() -> int:
         row["examples_launches"] = {
             k: v["launches"].get(row["name"], 0)
             for k, v in tools20["examples"].items()}
-    print(json.dumps({"kernels": rows + scan_rows + [cdf_row]}))
+    print(json.dumps({"kernels": rows + scan_rows + [cdf_row, ng_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

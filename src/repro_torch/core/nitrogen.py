@@ -2,32 +2,42 @@
 ``repro/core/nitrogen.py``.
 
 The thesis generates code in which the *top levels of the index are
-literal constants in the instruction stream*. Here, as in the reference,
-``_gen_network`` builds in Python a branch-free select network whose
-separator keys are Python scalars: each comparison is ``q <= sep`` against a
-scalar operand, so there is no separator tensor and no gather. A float32
-query compared with a Python float stays a float32 compare (the separators
-come from float32 keys, so they convert back exactly).
+literal constants in the instruction stream*. ``walk`` follows the
+reference's ``_gen_network`` recursion and gives the top as a tree whose
+separators are Python scalars, taken at the same ranks (``sep_at``). Two
+things are made from that one walk, so they cannot drift apart:
 
-The reference's jit folds the network into one executable; in eager
-PyTorch it is one ``torch.where`` launch per separator (63 at 3 levels of
-3 separators, the tiered top's 256 pages). The selected block is then
-searched by the data-resident bottom, the thesis' hybrid: ``binary`` (the
-uniform lower_bound over the block padded to a power of two), ``vector``
-(one compare against the whole block: ``[Q, block_width]``, so only for
-narrow blocks) or ``css`` (a CSS directory per block, stacked).
+* on the card, ``build`` generates a CUDA kernel for the index, every
+  separator a literal, compiles it with nvcc into a cubin, loads it and
+  launches it once (``kernels/nitrogen_codegen.py``): the reference's
+  jitted executable. ``search`` is then one launch, the compiled top and
+  the data-resident bottom together. A compile or launch failure raises;
+* on the CPU, the plain version: the branch-free select network in
+  PyTorch, one ``torch.where`` per separator against a scalar operand (no
+  separator tensor, no gather), then the bottom. A float32 query compared
+  with a Python float stays a float32 compare (the separators come from
+  float32 keys, so they convert back exactly).
+
+The selected block is searched by the data-resident bottom, the thesis'
+hybrid: ``binary`` (the uniform lower_bound over the block padded to a
+power of two), ``vector`` (one compare against the whole block:
+``[Q, block_width]`` in the plain version, so only for narrow blocks) or
+``css`` (a CSS directory per block, stacked).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from ..kernels import nitrogen_codegen as _codegen
 from . import css_tree
-from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
-                   resolve_device, take, take_rows, upload_async)
+from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow,
+                   numpy_dtype, pad_to, resolve_device, take, take_rows,
+                   upload_async)
 
 BOTTOMS = ("binary", "vector", "css")
 
@@ -43,7 +53,7 @@ class NitroGenIndex:
     block_width: int             # keys per bottom block (before padding)
     block_pad_width: int
     bottom: str                  # 'binary' | 'vector' | 'css'
-    network: Callable            # q[batch] -> block id  (the compiled top)
+    network: Callable            # q[batch] -> block id: the plain top
     # bottom='css': a CSS directory per block, stacked (the thesis' hybrid —
     # compiled top levels, base-structure search below)
     css_dirs: Optional[torch.Tensor] = None      # [num_blocks * dir_len]
@@ -53,10 +63,18 @@ class NitroGenIndex:
     css_leaf_width: int = 0
     css_dir_len: int = 0
     css_leaf_len: int = 0
+    # the generated kernel (kernels/nitrogen_codegen.CompiledTop): the top
+    # and the bottom in one launch. None on the CPU.
+    kernel: Any = None
 
     @property
     def fanout(self) -> int:
         return self.node_width + 1
+
+    @property
+    def library(self) -> Optional[str]:
+        """Path of the kernel's cubin (None on the CPU)."""
+        return None if self.kernel is None else str(self.kernel.library)
 
     @property
     def tree_bytes(self) -> int:
@@ -64,14 +82,10 @@ class NitroGenIndex:
         return 0
 
 
-def _const(k, q: torch.Tensor) -> torch.Tensor:
-    return k(q) if callable(k) else torch.full(q.shape, k, dtype=torch.int32,
-                                                device=q.device)
-
-
-def _gen_network(srt: np.ndarray, levels: int, w: int, block_width: int):
-    """Recursively emit the constant select network: f(q) -> block index,
-    where every separator is a Python scalar and every leaf a Python int."""
+def walk(srt: np.ndarray, levels: int, w: int, block_width: int):
+    """The compiled top as the reference's recursion emits it: a leaf is
+    its block id (a Python int), a node the pair (separators, kids) with
+    ``w`` separators (Python scalars) and ``w + 1`` kids."""
     f = w + 1
     n = srt.size
 
@@ -83,19 +97,28 @@ def _gen_network(srt: np.ndarray, levels: int, w: int, block_width: int):
         if span == 1:
             return b0                     # leaf: constant block id
         child = span // f
-        kids = [rec(b0 + i * child, child) for i in range(f)]
-        seps = [sep_at(b0 + (i + 1) * child) for i in range(w)]
+        kids = tuple(rec(b0 + i * child, child) for i in range(f))
+        seps = tuple(sep_at(b0 + (i + 1) * child) for i in range(w))
+        return seps, kids
 
-        def apply(q):
-            out = _const(kids[-1], q)
-            for i in reversed(range(w)):
-                out = torch.where(q <= seps[i], _const(kids[i], q), out)
-            return out
+    return rec(0, f**levels)
 
-        return apply
 
-    top = rec(0, f**levels)
-    return lambda q: _const(top, q)
+def _plain_network(tree) -> Callable:
+    """The walked top as PyTorch: f(q) -> block index, the reference's
+    select at every node, each separator a scalar operand."""
+
+    def apply(node, q):
+        if isinstance(node, int):
+            return torch.full(q.shape, node, dtype=torch.int32,
+                              device=q.device)
+        seps, kids = node
+        out = apply(kids[-1], q)
+        for i in reversed(range(len(seps))):
+            out = torch.where(q <= seps[i], apply(kids[i], q), out)
+        return out
+
+    return lambda q: apply(tree, q)
 
 
 def build(keys, levels: int = 3, node_width: int = 3, bottom: str = "binary",
@@ -140,14 +163,46 @@ def build(keys, levels: int = 3, node_width: int = 3, bottom: str = "binary",
             pad_to(srt[b * block_width: (b + 1) * block_width], bw_pad)
             for b in range(num_blocks)
         ]).reshape(-1)
-    return NitroGenIndex(
+    tree = walk(srt, levels, node_width, block_width)
+    index = NitroGenIndex(
         keys=upload_async(srt, device),
         block_pad=upload_async(block_pad, device),
         n=int(srt.size), levels=int(levels), node_width=int(node_width),
         num_blocks=int(num_blocks), block_width=int(block_width),
         block_pad_width=int(bw_pad), bottom=bottom,
-        network=_gen_network(srt, levels, node_width, block_width), **css,
+        network=_plain_network(tree), **css,
     )
+    if device.type != "cuda":
+        return index
+    return _compiled(index, tree)
+
+
+def kernel_source(index: NitroGenIndex, tree=None) -> str:
+    """The CUDA source of the index's generated kernel; ``tree`` is its
+    walked top (walked again from the keys when not given)."""
+    if tree is None:
+        tree = walk(index.keys.cpu().numpy(), index.levels, index.node_width,
+                    index.block_width)
+    return _codegen.generate(
+        tree, dtype=numpy_dtype(index.keys.dtype), bottom=index.bottom,
+        n=index.n, block_width=index.block_width,
+        block_pad_width=index.block_pad_width,
+        block_pad_len=int(index.block_pad.numel()), css_w=index.css_w,
+        css_leaf_width=index.css_leaf_width, css_depth=index.css_depth,
+        css_dir_len=index.css_dir_len, css_leaf_len=index.css_leaf_len,
+        css_dirs_len=0 if index.css_dirs is None
+        else int(index.css_dirs.numel()),
+        css_offsets=tuple(index.css_offsets))
+
+
+def _compiled(index: NitroGenIndex, tree) -> NitroGenIndex:
+    """``index`` with its generated kernel, built and launched once here
+    (on one query), so that neither the build nor the module's lazy load
+    ever falls inside a search or a CUDA-graph capture."""
+    index = dataclasses.replace(index, kernel=_codegen.compile_top(
+        kernel_source(index, tree), index.keys.dtype))
+    _launch(index, index.keys[:1], index.n)
+    return index
 
 
 def _bottom_binary(index: NitroGenIndex, b, q):
@@ -196,18 +251,40 @@ def _bottom_width(index: NitroGenIndex) -> int:
     return 1
 
 
-def search(index: NitroGenIndex, queries) -> torch.Tensor:
-    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
-    q = as_queries(queries, index.keys)
-    b = index.network(q)                               # compiled top (constants)
+def search_plain(index: NitroGenIndex, q: torch.Tensor,
+                 clip: Optional[int] = None) -> torch.Tensor:
+    """The generated kernel's plain version: the select network, then the
+    bottom, then ``min(rank, n, clip)``; on the tensors' device."""
+    b = index.network(q)                               # the top (constants)
     off = by_chunks(_bottom_width(index), lambda qq, bb: _BOTTOM_FNS[
         index.bottom](index, bb, qq), q, b)
     rank = b * index.block_width + off.clamp_max(index.block_width)
-    return rank.clamp_max(index.n)
+    rank = rank.clamp_max(index.n)
+    return rank if clip is None else rank.clamp_max(clip)
+
+
+def _launch(index: NitroGenIndex, q: torch.Tensor, clip: int):
+    if index.kernel is None:
+        raise RuntimeError("this NitroGen index has no compiled kernel: it "
+                           f"was built on {index.keys.device}")
+    return _codegen.nitrogen_search(index.kernel, q, index.block_pad,
+                                    index.css_dirs, clip=clip)
+
+
+def search(index: NitroGenIndex, queries, *,
+           clip: Optional[int] = None) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]. With
+    ``clip``, ``min(rank, clip)`` (the tiered top's last page). On the
+    card one launch of the index's generated kernel; on the CPU the plain
+    version."""
+    q = as_queries(queries, index.keys)
+    if q.device.type == "cpu":
+        return search_plain(index, q, clip)
+    return _launch(index, q, index.n if clip is None else clip)
 
 
 def searcher(index: NitroGenIndex) -> Callable:
-    """The 'compiled index' artifact: a closure over the built index whose
-    top is the constant network (the reference jits it; here it runs
-    eagerly)."""
+    """The 'compiled index' artifact: a closure over the built index; on
+    the card over its generated kernel (the reference jits the network
+    with its bottom)."""
     return lambda q: search(index, q)

@@ -11,7 +11,8 @@ of keys below q, the global rank is the sum of the local counts: one
 twin of ``lax.psum``), with no query routing and no rank renumbering.
 
 The top counts ``|{s in seps : s < q}|`` without the reference's
-``[Q, P]`` compare: up to 256 pages with the NitroGen select network, past
+``[Q, P]`` compare: up to 256 pages with the NitroGen top compiled into a
+generated kernel (one launch; each rank compiles its own shard's), past
 that with the k-ary tree over the shard's separators, descended by the
 CUDA kernel ``kernels/kary_search.py`` (the tiered engine's tops,
 ``tiered.build_top``). The bottom is the reference's static, shape-derived

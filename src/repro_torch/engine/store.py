@@ -91,6 +91,16 @@ TOMBSTONE = int(np.iinfo(np.int32).min)
 MAINTENANCE_MODES = ("deferred", "inline", "thread")
 
 
+def _retire(old, new) -> None:
+    """A superseded top or base: its generated NitroGen kernel, if it has
+    one that the new one does not share, deletes its build files when it
+    is released (kernels/nitrogen_codegen.py), so that repacks leave no
+    files behind. The module itself goes when nothing holds it."""
+    kernel = getattr(old, "kernel", None)
+    if kernel is not None and kernel is not getattr(new, "kernel", None):
+        kernel.retire()
+
+
 def _dedup_last(keys: np.ndarray, values: np.ndarray):
     """Sort by key, keep the LAST duplicate (upsert semantics: later wins)."""
     order = np.argsort(keys, kind="stable")
@@ -165,9 +175,11 @@ class _PagedBase:
         upload the pages. Called at build and on repack (num_pages
         change) — never on a page-local merge."""
         P = self.num_pages
+        old = getattr(self, "top", None)
         self.top_kind, self.top = tiered.build_top(
             self.seps, top=self.top_cfg, vmem_budget=self.vmem_budget,
             device=self.device)
+        _retire(old, self.top)
         self.page_of_raw = tiered._make_page_of_raw(self.top_kind, self.top,
                                                     P)
         # stride = lw_pad: the pipeline returns flat slot addresses into the
@@ -396,8 +408,10 @@ class MutableIndex:
             self.stats["top_derives"] = self.base.derives
             return
         from ..core.api import build_index
+        old = getattr(self.base, "impl", None)
         self.base = build_index(ks, vs, dataclasses.replace(c, mutable=False),
                                 device=self.device)
+        _retire(old, self.base.impl)
         self._flat = (ks, vs)
         self.stats["base_rebuilds"] += 1
 

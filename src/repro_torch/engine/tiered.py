@@ -5,8 +5,10 @@ Composition per batch:
 
   1. **Top tier** — map each query to its leaf-page id,
      ``page_of(q) == |{p : seps[p] < q}|`` clipped to the last page. Up to
-     256 pages the top is the NitroGen select network (plain torch, the
-     separators as Python scalars); past that, the k-ary tree over the page
+     256 pages the top is a NitroGen index over the page separators,
+     compiled at build into a generated CUDA kernel with the separators as
+     literals (``kernels/nitrogen_codegen.py``: one launch, the clip to
+     the last page inside it); past that, the k-ary tree over the page
      separators, descended by the CUDA kernel ``kernels/kary_search.py``.
   2. **Schedule** — sort-and-bucket the batch by page id
      (``engine/schedule.py``). ``plan="device"`` (default) builds the plan
@@ -108,7 +110,8 @@ def _make_page_of_raw(top_kind: str, top, num_pages: int) -> Callable:
         return lambda q: torch.zeros(q.shape, dtype=torch.int32,
                                      device=q.device)
     if top_kind == "nitrogen":
-        return lambda q: nitrogen.search(top, q).clamp_max(num_pages - 1)
+        # one launch of the top's generated kernel, last page included
+        return lambda q: nitrogen.search(top, q, clip=num_pages - 1)
     # kary: flatten the per-level rows into one kernel operand once, here
     levels = ops.kary_levels(top, KARY_LANE)
     flat, offsets = _kary.flatten_levels(levels)

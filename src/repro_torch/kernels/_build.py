@@ -18,6 +18,16 @@ PyTorch headers, which keeps a build to seconds. ``build()`` starts one
 The C entry points take device pointers and the stream as ``void*`` and
 return ``cudaGetLastError()`` after the launch; the wrappers raise when it
 is not 0.
+
+A generated source (``kernels/nitrogen_codegen.py``: one an index, with
+the index's separators as literals) takes ``build_generated``: the text
+is written as ``build/kernels/<stem>-<hash>.cu``, keyed by a hash of the
+text, the headers ``csrc/*.cuh`` and ``CUBIN_FLAGS``, and compiled into a
+cubin (device code only, the same code-generation flags, ``-I csrc``)
+beside its ``.log``; ``kernels/_driver.py`` loads it. The source, the
+cubin and the log are each written under a name of their own process and
+thread and renamed into place, so processes that build the same index at
+once (xdist workers, the ranks of the sharded index) agree.
 """
 from __future__ import annotations
 
@@ -28,12 +38,16 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a generated source: the same device code generation, as a cubin
+CUBIN_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xptxas", "-v", "-cubin")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -53,12 +67,21 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _digest(text: bytes, flags: tuple = NVCC_FLAGS) -> str:
     # the shared headers (csrc/*.cuh) count too: an edited header rebuilds
-    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha256(text + headers
+                          + " ".join(flags).encode()).hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    digest = _digest((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def generated_path(stem: str, text: str) -> Path:
+    """Where the cubin of a generated source lives once built."""
+    return BUILD_DIR / f"{stem}-{_digest(text.encode(), CUBIN_FLAGS)}.cubin"
 
 
 def build(names: list[str] | None = None) -> None:
@@ -88,6 +111,46 @@ def build(names: list[str] | None = None) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 
 
+def _own(path: Path) -> Path:
+    """A name for ``path`` that no other process or thread writes."""
+    return path.with_name(
+        f"{path.stem}.{os.getpid()}.{threading.get_ident()}.tmp{path.suffix}")
+
+
+def build_generated(stem: str, text: str) -> tuple[Path, float, bytes]:
+    """The cubin of a generated CUDA source, built on first use: (its
+    path, the seconds nvcc took: 0.0 when it was built already, the
+    cubin's bytes)."""
+    out = generated_path(stem, text)
+    with _lock:
+        try:
+            return out, 0.0, out.read_bytes()
+        except FileNotFoundError:        # never built, or retired since
+            pass
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(".cu")
+        tmp_src, tmp_out = _own(src), _own(out)
+        tmp_src.write_text(text)
+        os.replace(tmp_src, src)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *CUBIN_FLAGS, "-I", str(CSRC), "-o", str(tmp_out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            tmp_out.unlink(missing_ok=True)
+            raise RuntimeError(f"kernel build failed: {src.name} (nvcc exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        tmp_log = _own(out.with_suffix(".log"))
+        tmp_log.write_text(proc.stdout)
+        os.replace(tmp_log, out.with_suffix(".log"))
+        image = tmp_out.read_bytes()
+        os.replace(tmp_out, out)          # atomic: concurrent builds agree
+        return out, seconds, image
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it on first use."""
     with _lock:
@@ -108,7 +171,11 @@ def resource_usage(name: str) -> list[dict]:
     """Each kernel of the built csrc/<name>.cu as ptxas reported it: the
     (mangled) kernel name, registers a thread, static shared memory, stack
     frame and spill bytes. Empty if the library was built elsewhere."""
-    log = library_path(name).with_suffix(".log")
+    return log_usage(library_path(name).with_suffix(".log"))
+
+
+def log_usage(log: Path) -> list[dict]:
+    """``resource_usage`` read from the build log ``log``."""
     rows, row = [], None
     for line in (log.read_text().splitlines() if log.exists() else []):
         if m := _ENTRY.search(line):

@@ -1289,6 +1289,240 @@ def test_flat_store_lookup_and_fold_make_no_sync(cuda):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
 
 
+# ---- the generated NitroGen kernel (kernels/nitrogen_codegen.py)
+NG_CONFIGS = {
+    "l2w3-binary": dict(levels=2, node_width=3),
+    "l3w1-vector": dict(levels=3, node_width=1, bottom="vector"),
+    "l2w2-css4": dict(levels=2, node_width=2, bottom="css",
+                      css_node_width=4),
+}
+
+
+def ng_keys(dtype, rng, n=20_000):
+    """Keys with a run of INT32_MIN / -0.0 that holds separators,
+    duplicates, subnormals (float32) and wide magnitudes."""
+    n_edge, n_dup = n // 4, n // 20
+    m = n - n_edge - n_dup
+    if dtype == np.int32:
+        body = rng.integers(I32.min, I32.max - 1, m, dtype=np.int64)
+        edge = np.full(n_edge, I32.min)
+    else:
+        body = rng.normal(size=m) * 10.0 ** rng.integers(-20, 20, m)
+        body[:6] = [1e-45, -1e-45, 3e-45, 1e-39, 3.4e38, -3.4e38]
+        edge = np.full(n_edge, -0.0)
+    keys = np.concatenate([body, edge, rng.choice(body, n_dup)])
+    return keys.astype(dtype)[rng.permutation(n)]
+
+
+def ng_queries(keys, rng):
+    if keys.dtype == np.int32:
+        extra = [I32.min, I32.min + 1, I32.max, I32.max - 1, 0]
+        rand = rng.integers(I32.min, I32.max, 50_000, dtype=np.int64)
+    else:
+        extra = [np.inf, -np.inf, 0.0, -0.0, np.nan, 1e-45, -1e-45, 2e-45]
+        rand = rng.normal(size=50_000) * 10.0 ** rng.integers(-20, 20,
+                                                               50_000)
+    return np.concatenate([keys, rand, extra]).astype(keys.dtype)
+
+
+def ng_case(cuda, name, dtype):
+    """(card index, CPU index, queries): a tiered top when ``name`` is a
+    page count, else a flat NitroGen index of NG_CONFIGS."""
+    from repro_torch.core import nitrogen
+    rng = np.random.default_rng(5)
+    if isinstance(name, int):
+        keys = ng_keys(dtype, rng, name * 128 - (50 if name == 37 else 0))
+        idx = [tiered.build(keys, leaf_width=128, device=d).top
+               for d in (cuda, "cpu")]
+    else:
+        keys = ng_keys(dtype, rng)
+        idx = [nitrogen.build(keys, **NG_CONFIGS[name], device=d)
+               for d in (cuda, "cpu")]
+    return idx[0], idx[1], ng_queries(keys, rng)
+
+
+def sync_free(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("name", [*NG_CONFIGS, 256, 37])
+def test_generated_nitrogen_kernel_equals_plain(cuda, name, dtype):
+    """Each index's generated kernel: one launch a search with no host
+    sync, bit for bit with the plain network and bottom on the same card
+    tensors, with the CPU build and (real queries) with numpy; the tiered
+    top's clip to the last page inside the same launch. The source holds
+    every separator as a literal."""
+    from repro_torch.core import nitrogen
+    from repro_torch.kernels import nitrogen_codegen as cg
+    idx, cpu, q = ng_case(cuda, name, dtype)
+    assert idx.kernel is not None and cpu.kernel is None
+    assert idx.library.endswith(".cubin") and idx.tree_bytes == 0
+    src = idx.kernel.source
+    assert src == nitrogen.kernel_source(cpu)
+    f = idx.node_width + 1
+    assert cg.read_literals(src, dtype).size == \
+        idx.node_width * (f**idx.levels - 1) // (f - 1)
+    clip = name - 1 if isinstance(name, int) else None
+    qd = torch.from_numpy(q).to(cuda)
+    cg.nitrogen_search.launches = 0
+    got = sync_free(lambda: nitrogen.search(idx, qd, clip=clip))
+    assert cg.nitrogen_search.launches == 1
+    fn = nitrogen.searcher(idx)
+    assert torch.equal(sync_free(lambda: fn(qd)),
+                       nitrogen.search(idx, qd))
+    want = nitrogen.search_plain(idx, qd, clip)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), nitrogen.search(cpu, q, clip=clip))
+    if clip is None:
+        real = ~np.isnan(q) if dtype == np.float32 else slice(None)
+        assert np.array_equal(got.cpu().numpy()[real],
+                              np.searchsorted(cpu.keys.numpy(), q[real]))
+    empty = nitrogen.search(idx, qd[:0])
+    assert empty.shape == (0,) and cg.nitrogen_search.launches == 3
+
+
+@pytest.mark.cuda
+def test_small_tiered_index_never_runs_the_eager_network(cuda):
+    """A tiered index of 256 pages on the card: its lookup, search_range
+    and scans go through one launch of the top's generated kernel a
+    descent, never the plain network; a specialized twin replays it and
+    the replay counts the launch."""
+    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.kernels import nitrogen_codegen as cg
+    rng = np.random.default_rng(6)
+    keys = rng.choice(1 << 30, 32_768, replace=False).astype(np.int32)
+    vals = np.arange(keys.size, dtype=np.int32)
+    args, spec = (build_index(keys, vals, IndexConfig(
+        kind="tiered", specialize=s)) for s in (False, True))
+    for idx in (args, spec):
+        assert idx.impl.top_kind == "nitrogen" and idx.impl.num_pages == 256
+
+        def boom(q):
+            raise AssertionError("the eager network ran on the card")
+        object.__setattr__(idx.impl.top, "network", boom)
+    q = torch.from_numpy(np.concatenate([
+        keys[:20_000], rng.integers(0, 1 << 30, 20_000).astype(np.int32)])
+        ).to(cuda)
+    cg.nitrogen_search.launches = 0
+    got = sync_free(lambda: args.lookup(q))
+    assert cg.nitrogen_search.launches == 1
+    srt = np.sort(keys)
+    assert np.array_equal(got.rank.cpu().numpy(),
+                          np.searchsorted(srt, q.cpu().numpy()))
+    lo, hi = q[:4096], q[:4096] + 50_000
+    cg.nitrogen_search.launches = 0
+    r_lo, r_hi, cnt = sync_free(lambda: args.search_range(lo, hi))
+    assert cg.nitrogen_search.launches == 1          # both ends at once
+    assert np.array_equal(r_hi.cpu().numpy(),
+                          np.searchsorted(srt, hi.cpu().numpy(), "right"))
+    args.scan_range(lo, hi)
+    first = sync_free(lambda: spec.lookup(q))         # warm-up and capture
+    cg.nitrogen_search.launches = 0
+    for _ in range(2):
+        assert_fields_equal(sync_free(lambda: spec.lookup(q)), got,
+                            "specialized lookup")
+    torch.cuda.synchronize()
+    assert_fields_equal(first, got, "specialized lookup (capture)")
+    assert spec.impl.captures.n == 1
+    assert cg.nitrogen_search.launches == 2          # one a replay
+
+
+@pytest.mark.cuda
+def test_generated_kernel_builds_and_launches_from_another_thread(cuda):
+    """A thread that has made no CUDA call loads a generated kernel and is
+    left with no current context; it builds an index (nvcc, the cubin
+    loaded into the card's context, one launch) and searches it; the main
+    thread's searches of it equal the thread's, and the main thread's
+    context is the one it had."""
+    import threading
+    from repro_torch.core import nitrogen
+    from repro_torch.kernels import _driver
+    from repro_torch.kernels import nitrogen_codegen as cg
+    keys = np.arange(0, 3 * 70_001, 3, dtype=np.int32)
+    q = torch.arange(-5, 3 * 70_001 + 5, 7, dtype=torch.int32, device=cuda)
+    out = {}
+    ctx = _driver.current_context()
+
+    def work():
+        try:
+            # the driver pushes the card's context for its call and pops
+            # it: the thread is left as it was, with no context
+            image = cg.compile_top(cg.generate(
+                7, dtype=np.int32, bottom="binary", n=1, block_width=1,
+                block_pad_width=1, block_pad_len=1), torch.int32)._image
+            module, _ = _driver.load_function(image, cuda.index or 0,
+                                              cg.KERNEL)
+            out["ctx"] = _driver.current_context()
+            _driver.unload({cuda.index or 0: module})
+            out["idx"] = idx = nitrogen.build(keys, levels=2, node_width=3,
+                                              device=cuda)
+            out["got"] = nitrogen.search(idx, q)
+            torch.cuda.synchronize()
+        except Exception as e:          # re-raised in the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    assert out["ctx"] is None
+    want = np.searchsorted(keys, q.cpu().numpy())
+    assert np.array_equal(out["got"].cpu().numpy(), want)
+    assert torch.equal(nitrogen.search(out["idx"], q), out["got"])
+    assert _driver.current_context() == ctx
+
+
+@pytest.mark.cuda
+def test_small_store_repack_derives_a_new_kernel(cuda):
+    """A mutable tiered store of ~40 pages on the card: a repack
+    re-derives the top into another generated kernel; lookups before and
+    after equal numpy and launch the top's kernel once. The superseded
+    kernel is released with the old top: its module unloaded, its build
+    files deleted."""
+    import weakref
+    from pathlib import Path
+    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.kernels import nitrogen_codegen as cg
+    rng = np.random.default_rng(12)
+    keys = np.unique(rng.integers(0, 10**6, 4_000).astype(np.int32))
+    store = build_index(keys, keys, IndexConfig(
+        kind="tiered", mutable=True, leaf_width=128, delta_capacity=256))
+    assert store.base.top_kind == "nitrogen"
+    lib0, pages0 = store.base.top.library, store.base.num_pages
+    old = weakref.ref(store.base.top.kernel)
+    assert Path(lib0).exists()
+    b = store.base
+    p = b.num_pages // 2
+    new = np.setdiff1d(np.arange(b.seps[p - 1] + 1, b.seps[p] + 1),
+                       keys)[:200].astype(np.int32)
+    store.insert(new, new)
+    store.flush()
+    assert store.stats["splits"] >= 1 and store.base.num_pages != pages0
+    assert store.base.top.library != lib0
+    assert old() is None and cg.release_unused() >= 1
+    assert not Path(lib0).exists()
+    assert not Path(lib0).with_suffix(".cu").exists()
+    assert Path(store.base.top.library).exists()
+    allk = np.union1d(keys, new)
+    q = np.concatenate([allk, rng.integers(0, 10**6, 5_000)]
+                       ).astype(np.int32)
+    cg.nitrogen_search.launches = 0
+    qd = torch.from_numpy(q).to(cuda)
+    got = sync_free(lambda: store.lookup(qd))
+    assert cg.nitrogen_search.launches == 1
+    found = np.isin(q, allk)
+    assert np.array_equal(got.found.cpu().numpy(), found)
+    assert np.array_equal(got.values.cpu().numpy()[found], q[found])
+
+
 def reduced_model(arch, device, seed=0):
     """A reduced model of ``arch`` with weights drawn on the CPU, and the
     same weights on ``device``."""
