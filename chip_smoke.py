@@ -424,6 +424,34 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_amortised_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Device ms of one call of `fn`, every launch counted: CUDA events
+    around the replay of a graph of `launches` back-to-back calls, divided
+    by their number (median of `reps` replays). Unlike the profiler, it
+    misses no call; unlike a per-call event time, it holds no host gap."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del g
+    return float(np.median(times))
+
+
 def device_profile(fn, top: int = 8) -> dict:
     """One call of `fn` under torch.profiler: the device time of the
     heaviest aten ops (inclusive: an op's kernels and its children's), of
@@ -5815,9 +5843,10 @@ def ng_index_row(dev, idx, q: np.ndarray, *, clip=None,
     sync, bit for bit with the plain version, again inside a graph replay
     (one launch a replay); its literals' bits against the separators of a
     fresh walk of its keys; compile cost and code bytes beside its data
-    bytes; then at each batch the kernel's event and device ms, the
-    plain version's and torch.searchsorted's over the same keys, and the
-    bound from this run's queries."""
+    bytes; then at each batch the kernel's event ms and its device ms
+    with every launch counted (graph_amortised_ms: the profiler missed
+    calls of it), the plain version's and torch.searchsorted's over the
+    same keys, and the bound from this run's queries."""
     from repro_torch.core import nitrogen
     from repro_torch.engine.capture import Captures, Specialized
     from repro_torch.kernels import nitrogen_codegen as cg
@@ -5847,10 +5876,10 @@ def ng_index_row(dev, idx, q: np.ndarray, *, clip=None,
     check(np.array_equal(got_bits, want_bits), "the source's literals are "
           "not the index's separators")
     check("seps" not in top.source, "a separator buffer in the source")
-    data = idx.keys.numel() * idx.keys.element_size() + \
-        idx.block_pad.numel() * idx.block_pad.element_size() + \
-        (0 if idx.css_dirs is None
-         else idx.css_dirs.numel() * idx.css_dirs.element_size())
+    def nbytes(t) -> int:
+        return 0 if t is None else t.numel() * t.element_size()
+    data = sum(nbytes(t) for t in (idx.keys, idx.block_pad, idx.css_dirs,
+                                   idx.stage, idx.sample))
     row = {"keys": idx.n, "levels": idx.levels, "node_width": idx.node_width,
            "bottom": idx.bottom, "separators": int(want_bits.size),
            "max_abs_err": err, "replay_max_abs_err": max_abs_err(replay,
@@ -5860,23 +5889,30 @@ def ng_index_row(dev, idx, q: np.ndarray, *, clip=None,
            "registers": [r.get("registers") for r in top.resources],
            "spill_stores": [r.get("spill_stores") for r in top.resources],
            **code_bytes(top.library), "data_bytes": int(data),
+           "stage_bytes": nbytes(idx.stage), "sample_bytes": nbytes(idx.sample),
+           "layout": {k: cg.defined(top.source, f"NG_{k.upper()}", 0)
+                      for k in ("linear", "stage_levels", "sample",
+                                "win_log2", "css_vec")},
            "cubin": os.path.basename(top.library), "batches": {}}
     ks_dev = idx.keys
     for n in batches:
         qn = q[:n]
         x = qd[:n].contiguous()
         b = idx.network(x).cpu().numpy()
-        nbytes, compares, _ = ng_work(idx, qn, b)
-        bd = bound(nbytes, compares)
+        n_bytes, compares, _ = ng_work(idx, qn, b)
+        bd = bound(n_bytes, compares)
         row["batches"][str(n)] = {
             "launches": 1,
             "ms": cuda_ms(lambda: search(x)),
-            "device_ms": device_ms(lambda: search(x), reps=5, tries=2),
             "graph_ms": cuda_ms(lambda: spec(x), reps=10),
             "plain_ms": cuda_ms(lambda: nitrogen.search_plain(idx, x, clip),
                                 reps=3, warmup=1),
             "library_ms": cuda_ms(lambda: torch.searchsorted(ks_dev, x)),
-            "bound_ms": bd[0], "bound_by": bd[1], "bytes": nbytes,
+            "graph_amortised_ms": graph_amortised_ms(lambda: search(x)),
+            "library_graph_amortised_ms": graph_amortised_ms(
+                lambda: torch.searchsorted(ks_dev, x)),
+            "launch": top.launch(dev.index or 0, n),
+            "bound_ms": bd[0], "bound_by": bd[1], "bytes": n_bytes,
             "compares": compares}
     del spec
     return row
@@ -6024,7 +6060,7 @@ def nitrogen_compiled_path(dev, keys_sorted, values_sorted,
     fk, fq = ng_float_keys(rng, NG_FLOAT_KEYS)
     fidx = build_index(fk, config=IndexConfig(
         kind="nitrogen", levels=4, compiled_node_width=3, bottom="vector"))
-    add("ng_l4_vector_f32_2^20", fidx.impl, fq)
+    add("ng_l4_vector_f32_2^20", fidx.impl, fq, batches=NG_BATCHES)
     real = ~np.isnan(fq)
     check(np.array_equal(fidx.search(fq).cpu().numpy()[real],
                          np.searchsorted(np.sort(fk), fq[real])),
@@ -6077,6 +6113,16 @@ def nitrogen_compiled_path(dev, keys_sorted, values_sorted,
     # (f) a small store's repacks
     out["repacks"] = ng_repack_path(dev, rng)
     print("phase 21: repacks " + json.dumps(out["repacks"]), flush=True)
+    # each bottom and the tiered top, every launch counted, beside
+    # searchsorted over the same keys and the bound
+    out["bottoms"] = {
+        name: {n: {k: b[k] for k in ("graph_amortised_ms",
+                                     "library_graph_amortised_ms",
+                                     "bound_ms", "bound_by", "launch")}
+               for n, b in out["indexes"][name]["batches"].items()}
+        for name in (*flat, "ng_l3_css16_2^24", "ng_l4_vector_f32_2^20",
+                     "tiered_top_32768")}
+    print("phase 21: bottoms " + json.dumps(out["bottoms"]), flush=True)
     # the main path, counted
     fq_d = torch.from_numpy(q).to(dev)
     main = ng_main_run(dev, tidx, tq_d, flat[NG_ROW_KEY], fq_d)
@@ -6096,12 +6142,16 @@ def nitrogen_compiled_path(dev, keys_sorted, values_sorted,
                               for v in out["indexes"].values()),
            "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-           "library_ms": r["library_ms"], "device_ms": r["device_ms"],
-           "graph_ms": r["graph_ms"], "cell": NG_ROW_KEY,
+           "library_ms": r["library_ms"],
+           "graph_ms": r["graph_ms"],
+           "graph_amortised_ms": r["graph_amortised_ms"], "cell": NG_ROW_KEY,
            "indexes": {k: {"max_abs_err": v["max_abs_err"],
                            "compile_s": v["compile_s"],
                            "sass_bytes": v["sass_bytes"],
                            "data_bytes": v["data_bytes"],
+                           "registers": v["registers"],
+                           "spill_stores": v["spill_stores"],
+                           "layout": v["layout"],
                            "batches": v["batches"]}
                        for k, v in out["indexes"].items()},
            "repack_ms_median": out["repacks"]["repack_ms_median"]}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The NitroGen paths of one checkout of the port, timed on the card.
 
-    python3 experiments/nitrogen_before_after.py --root DIR [--out FILE]
+    python3 experiments/nitrogen_before_after.py --root DIR [--parts abcdef]
+        [--out FILE]
 
 Imports the port (DIR/src) and DIR/chip_smoke.py's timers from the
 checkout DIR, so that two commits run the same measurements in one call:
@@ -24,6 +25,14 @@ this, earlier). On the card it measures, over seeded data:
   (e) chip_smoke.py's phase 16d (qwen3-0.6b at full width served over a
       NitroGen prefix index, mutable and wholesale, beside the tiered
       store): prefill ms and decode ms a step of each;
+  (f) the kernel alone on chip_smoke.py phase 21's indexes, one for each
+      bottom and the tiered top (NitroGen-binary and -css16 over 2^24 int32
+      keys, the vector bottom over 2^20 float32 keys in 256 blocks of
+      4,096, the 256-page top of 32,768 keys): build s and nvcc's
+      compile_s, and at 2^20 and 4,096 queries the ms of a search with
+      every launch counted (events around a CUDA graph of 20 searches,
+      divided by 20, median of 7) beside torch.searchsorted's over the
+      same keys; the tiered index's lookup ms (events);
 then prints one JSON line with the card's name and power limit (and
 writes it to FILE). Every result is checked against numpy.
 """
@@ -42,6 +51,8 @@ import numpy as np
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="the checkout to time")
+    ap.add_argument("--parts", default="abcdef",
+                    help="the parts to run, of abcdef (default: all)")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -52,6 +63,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch import IndexConfig, build_index
+    from repro_torch.core import nitrogen
     from repro_torch.engine.capture import Captures, Specialized
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -71,6 +83,7 @@ def main() -> int:
             r["graph_ms"] = cs.cuda_ms(lambda: spec(qd))
         return r
 
+    parts = set(args.parts)
     # (a) the 256-page top
     tk = rng.integers(cs.I32.min + 1, cs.I32.max - 1, 32_768
                       ).astype(np.int32)
@@ -78,7 +91,7 @@ def main() -> int:
     assert tidx.impl.top_kind == "nitrogen" and tidx.impl.num_pages == 256
     srt = np.sort(tk)
     out["top_256_pages"] = {}
-    for n in (4096, 1 << 20):
+    for n in (4096, 1 << 20) if "a" in parts else ():
         q = cs.mixed_queries(rng, srt, n)
         qd = torch.from_numpy(q).to(dev)
         pages = tidx.impl.page_of(qd).cpu().numpy()
@@ -98,7 +111,7 @@ def main() -> int:
     q = cs.mixed_queries(rng, ks, 1 << 20)
     want = cs.oracle(ks, vs, q)
     out["ng_2^24"] = {}
-    for bottom in ("binary", "css"):
+    for bottom in ("binary", "css") if "b" in parts else ():
         cfg = dict(kind="nitrogen", levels=3, compiled_node_width=3,
                    bottom=bottom, node_width=16)
         t0 = time.perf_counter()
@@ -127,7 +140,8 @@ def main() -> int:
     fk = np.unique(np.random.default_rng(7).integers(
         0, 2**31 - 2, int(16_384 * 1.1)).astype(np.int32))[:16_384]
     out["fig5_1_16384"] = {}
-    for name, bottom in (("ng-binary", "binary"), ("ng-css", "css")):
+    for name, bottom in (("ng-binary", "binary"), ("ng-css", "css")) \
+            if "c" in parts else ():
         idx = build_index(fk, config=IndexConfig(
             kind="nitrogen", levels=3, compiled_node_width=3, bottom=bottom,
             node_width=16))
@@ -139,6 +153,95 @@ def main() -> int:
             out["fig5_1_16384"][f"{name}/Q={n}"] = timed(idx.search, qd)
 
     # (d) a small store's repacks
+    if "d" in parts:
+        out["small_store"] = small_store(rng, dev, build_index, IndexConfig)
+    # (e) phase 16d
+    if "e" in parts:
+        serve, _ = cs.flat_serve_path(dev, 0)
+        out["phase_16d"] = {k: {f: v[f] for f in ("prefill_ms",
+                                                  "decode_ms_per_step")}
+                            for k, v in serve.items()}
+    # (f) the kernel alone on each bottom and the tiered top
+    if "f" in parts:
+        fk, fq = cs.ng_float_keys(rng, cs.NG_FLOAT_KEYS)
+        cases = (("ng_l3_binary_2^24", ks, dict(bottom="binary"), q, None),
+                 ("ng_l3_css16_2^24", ks, dict(bottom="css"), q, None),
+                 ("ng_l4_vector_f32_2^20", fk, dict(levels=4,
+                                                    bottom="vector"), fq,
+                  None),
+                 ("tiered_top_32768", tk, None,
+                  cs.mixed_queries(rng, srt, 1 << 20), 255))
+        out["bottoms"] = {}
+        for name, keys_, cfg, qs, clip in cases:
+            t0 = time.perf_counter()
+            if cfg is None:
+                idx = build_index(keys_, np.arange(keys_.size,
+                                                   dtype=np.int32),
+                                  IndexConfig(kind="tiered"))
+                impl = idx.impl.top
+            else:
+                idx = build_index(keys_, config=IndexConfig(**{
+                    "kind": "nitrogen", "levels": 3,
+                    "compiled_node_width": 3, "node_width": 16, **cfg}))
+                impl = idx.impl
+            torch.cuda.synchronize()
+            row = {"build_s": time.perf_counter() - t0,
+                   "compile_s": impl.kernel.compile_s}
+            qd = torch.from_numpy(qs).to(dev)
+            got = nitrogen.search(impl, qd, clip=clip).cpu().numpy()
+            real = ~np.isnan(qs)
+            want = np.searchsorted(impl.keys.cpu().numpy(), qs[real])
+            assert np.array_equal(got[real], want if clip is None
+                                  else np.minimum(want, clip)), name
+            for n in (1 << 20, 4096):
+                x = qd[:n].contiguous()
+                row[str(n)] = {
+                    "kernel_graph_ms": graph_ms(
+                        lambda: nitrogen.search(impl, x, clip=clip)),
+                    "searchsorted_graph_ms": graph_ms(
+                        lambda: torch.searchsorted(impl.keys, x))}
+            if cfg is None:
+                row["lookup_ms"] = cs.cuda_ms(lambda: idx.lookup(qd))
+            out["bottoms"][name] = row
+            del idx, impl
+            torch.cuda.empty_cache()
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Events around a CUDA graph of ``launches`` calls of ``fn``, divided
+    by their number: the median of ``reps`` replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def small_store(rng, dev, build_index, IndexConfig) -> dict:
+    """(d): a small store's build and 4 repacks, each deriving a new top."""
+    import torch
     sk = np.unique(rng.integers(0, 10**8, 40_000).astype(np.int32))[:20_000]
     t0 = time.perf_counter()
     store = build_index(sk, sk, IndexConfig(
@@ -165,19 +268,7 @@ def main() -> int:
         assert bool(res.found.all())
     rep["pages"] = store.base.num_pages
     store.close()
-    out["small_store"] = rep
-
-    # (e) phase 16d
-    serve, _ = cs.flat_serve_path(dev, 0)
-    out["phase_16d"] = {k: {f: v[f] for f in ("prefill_ms",
-                                              "decode_ms_per_step")}
-                        for k, v in serve.items()}
-    line = json.dumps(out)
-    print(line)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
-    return 0
+    return rep
 
 
 if __name__ == "__main__":

@@ -36,8 +36,8 @@ import torch
 from ..kernels import nitrogen_codegen as _codegen
 from . import css_tree
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow,
-                   numpy_dtype, pad_to, resolve_device, take, take_rows,
-                   upload_async)
+                   numpy_dtype, pad_to, resolve_device, sentinel_for, take,
+                   take_rows, upload_async)
 
 BOTTOMS = ("binary", "vector", "css")
 
@@ -63,6 +63,13 @@ class NitroGenIndex:
     css_leaf_width: int = 0
     css_dir_len: int = 0
     css_leaf_len: int = 0
+    # the generated kernel's copies of the row slots its lower bound reads
+    # first (kernels/nitrogen_codegen.layout; empty when it reads none):
+    # the first levels' (copied into shared memory) and every window's
+    # width's
+    stage: Optional[torch.Tensor] = None
+    sample: Optional[torch.Tensor] = None
+    stage_levels: int = 0
     # the generated kernel (kernels/nitrogen_codegen.CompiledTop): the top
     # and the bottom in one launch. None on the CPU.
     kernel: Any = None
@@ -164,17 +171,54 @@ def build(keys, levels: int = 3, node_width: int = 3, bottom: str = "binary",
             for b in range(num_blocks)
         ]).reshape(-1)
     tree = walk(srt, levels, node_width, block_width)
+    stage_levels, stage, sample = _samples(block_pad, bottom, num_blocks,
+                                           bw_pad)
     index = NitroGenIndex(
         keys=upload_async(srt, device),
         block_pad=upload_async(block_pad, device),
         n=int(srt.size), levels=int(levels), node_width=int(node_width),
         num_blocks=int(num_blocks), block_width=int(block_width),
         block_pad_width=int(bw_pad), bottom=bottom,
-        network=_plain_network(tree), **css,
+        network=_plain_network(tree), stage=upload_async(stage, device),
+        sample=upload_async(sample, device), stage_levels=stage_levels,
+        **css,
     )
     if device.type != "cuda":
         return index
     return _compiled(index, tree)
+
+
+def _samples(block_pad: np.ndarray, bottom: str, num_blocks: int,
+             block_pad_width: int) -> tuple:
+    """The generated kernel's staged levels and its stage and sample
+    arrays (``_codegen.layout``): the slots of every row, padded to a
+    power of two (the sentinel past the row), that the lower bound's first
+    levels probe (slot (i + 1) * 2^(levels - staged) - 1 for i < 2^staged
+    - 1, padded with the sentinel to whole 16-byte pieces), and every
+    window's width's (slot (m + 1) * window - 1); empty when the kernel
+    reads none."""
+    lay = _codegen.layout(block_pad.dtype, bottom, num_blocks,
+                          block_pad_width)
+    log2 = _codegen.row_log2(block_pad_width)
+    rows = block_pad.reshape(num_blocks, -1)
+    sent = sentinel_for(block_pad.dtype)
+
+    def every(shift: int, count: int) -> np.ndarray:
+        slots = (np.arange(1, count + 1) << shift) - 1
+        return np.where(slots < block_pad_width,
+                        rows[:, np.minimum(slots, block_pad_width - 1)],
+                        sent).reshape(-1)
+
+    stage = sample = block_pad[:0]
+    if lay["stage_levels"]:
+        lev = lay["stage_levels"]
+        stage = every(log2 - lev, 2**lev - 1)
+        stage = pad_to(stage, _codegen.stage_bytes(stage.dtype, num_blocks,
+                                                   lev) // stage.itemsize)
+    if lay["sample"]:
+        win = lay["win_log2"]
+        sample = every(win, 2 ** (log2 - win))
+    return lay["stage_levels"], stage.copy(), sample.copy()
 
 
 def kernel_source(index: NitroGenIndex, tree=None) -> str:
@@ -192,7 +236,8 @@ def kernel_source(index: NitroGenIndex, tree=None) -> str:
         css_dir_len=index.css_dir_len, css_leaf_len=index.css_leaf_len,
         css_dirs_len=0 if index.css_dirs is None
         else int(index.css_dirs.numel()),
-        css_offsets=tuple(index.css_offsets))
+        css_offsets=tuple(index.css_offsets),
+        stage_levels=index.stage_levels)
 
 
 def _compiled(index: NitroGenIndex, tree) -> NitroGenIndex:
@@ -268,7 +313,8 @@ def _launch(index: NitroGenIndex, q: torch.Tensor, clip: int):
         raise RuntimeError("this NitroGen index has no compiled kernel: it "
                            f"was built on {index.keys.device}")
     return _codegen.nitrogen_search(index.kernel, q, index.block_pad,
-                                    index.css_dirs, clip=clip)
+                                    index.css_dirs, index.stage,
+                                    index.sample, clip=clip)
 
 
 def search(index: NitroGenIndex, queries, *,

@@ -1,7 +1,7 @@
 """The part of the CUDA driver API that the generated kernels need, over
 ctypes: load a cubin into a device's primary context (the one PyTorch
-uses), find a kernel in it, launch the kernel on a stream, unload the
-module once no index uses it.
+uses), find a kernel in it, size and launch the kernel on a stream,
+unload the module once no index uses it.
 
 A generated kernel (``kernels/nitrogen_codegen.py``) is built by nvcc as a
 cubin, with no host code: that skips the host compile and the link of a
@@ -36,6 +36,10 @@ _SIGNATURES = {
     "cuModuleGetFunction": [ctypes.POINTER(ctypes.c_void_p),
                             ctypes.c_void_p, ctypes.c_char_p],
     "cuModuleUnload": [ctypes.c_void_p],
+    "cuFuncSetAttribute": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    "cuOccupancyMaxActiveBlocksPerMultiprocessor": [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_size_t],
     "cuLaunchKernel": [ctypes.c_void_p] + [ctypes.c_uint] * 7
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p],
     "cuGetErrorName": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)],
@@ -134,13 +138,40 @@ def unload(modules: dict) -> None:
                    "cuModuleUnload")
 
 
+# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES
+_MAX_DYNAMIC_SHARED = 8
+
+
+def allow_shared(fn: ctypes.c_void_p, device: int, nbytes: int) -> None:
+    """Let ``fn`` launch with ``nbytes`` of dynamic shared memory (above 48
+    KB a kernel has to ask)."""
+    lib = _lib or _cuda()
+    with _on(lib, device):
+        _check(lib.cuFuncSetAttribute(fn, _MAX_DYNAMIC_SHARED, nbytes),
+               "cuFuncSetAttribute")
+
+
+def max_active_blocks(fn: ctypes.c_void_p, device: int, block: int,
+                      shared: int) -> int:
+    """Blocks of ``block`` threads and ``shared`` bytes of dynamic shared
+    memory that one SM holds at once (registers counted too)."""
+    lib = _lib or _cuda()
+    n = ctypes.c_int()
+    with _on(lib, device):
+        _check(lib.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+            ctypes.byref(n), fn, block, shared),
+            "cuOccupancyMaxActiveBlocksPerMultiprocessor")
+    return n.value
+
+
 def launch(fn: ctypes.c_void_p, device: int, grid: int, block: int,
-           stream: int, args: list) -> None:
+           stream: int, args: list, shared: int = 0) -> None:
     """One launch of ``fn`` on ``stream`` (a ``cudaStream_t`` as an int),
-    ``args`` the kernel's arguments as ctypes values, in order."""
+    ``args`` the kernel's arguments as ctypes values, in order, with
+    ``shared`` bytes of dynamic shared memory."""
     lib = _lib or _cuda()
     params = (ctypes.c_void_p * len(args))(
         *[ctypes.addressof(a) for a in args])
     with _on(lib, device):
-        _check(lib.cuLaunchKernel(fn, grid, 1, 1, block, 1, 1, 0, stream,
-                                  params, None), "cuLaunchKernel")
+        _check(lib.cuLaunchKernel(fn, grid, 1, 1, block, 1, 1, shared,
+                                  stream, params, None), "cuLaunchKernel")

@@ -1389,6 +1389,123 @@ def test_generated_nitrogen_kernel_equals_plain(cuda, name, dtype):
     assert empty.shape == (0,) and cg.nitrogen_search.launches == 3
 
 
+# each way the kernel reads a bottom (kernels/nitrogen_codegen.layout), at
+# sizes where the lower bound reads all its arrays: (build arguments, keys)
+NG_BOTTOMS = {
+    # rows of 32,768 slots: the stage array, the sample (a level and its
+    # window), the row's window
+    "binary": (dict(levels=3, node_width=3), 1_200_000),
+    # phase 21's float pass: 256 rows of 4,096, stage, sample window, window
+    "vector-wide": (dict(levels=4, node_width=3, bottom="vector"),
+                    256 * 4096),
+    # rows of 30,001 keys (not whole 16-byte pieces): staged levels, then
+    # 4-byte probes of the row and its last slot, no window
+    "vector-odd": (dict(levels=2, node_width=2, bottom="vector"),
+                   9 * 30_001),
+    # 4-key rows (the tiered top's): counted key by key, 16 bytes a load
+    "vector-short": (dict(levels=3, node_width=3, bottom="vector"), 256),
+    # 3 directory levels of 16 keys, leaves of 17
+    "css": (dict(levels=3, node_width=3, bottom="css", css_node_width=16),
+            400_000),
+}
+NG_DTYPES = [np.int32, np.float32, np.int64, np.float64]
+
+
+def ng_wide_keys(dtype, rng, n):
+    """Keys of ``dtype`` with a run of the domain's low edge (the minimum,
+    or -0.0), duplicates across block edges and, for floats, subnormals,
+    signed zeros and wide magnitudes."""
+    dtype = np.dtype(dtype)
+    n_edge, n_dup = n // 5, n // 10
+    m = n - n_edge - n_dup
+    if dtype.kind == "i":
+        info = np.iinfo(dtype)
+        body = rng.integers(info.min, info.max - 1, m, dtype=np.int64)
+        edge = np.full(n_edge, info.min)
+    else:
+        tiny = np.finfo(dtype).smallest_subnormal
+        body = rng.normal(size=m) * 10.0 ** rng.integers(-20, 20, m)
+        body[:6] = [tiny, -tiny, 3 * tiny, 0.0, np.finfo(dtype).max,
+                    -np.finfo(dtype).max]
+        edge = np.full(n_edge, -0.0)
+    keys = np.concatenate([body, edge, np.repeat(rng.choice(body, n_dup // 5),
+                                                 5)])
+    return keys.astype(dtype)[rng.permutation(keys.size)]
+
+
+def ng_wide_queries(keys, rng, n):
+    """``n`` queries: the keys, random values of the domain, its edges and
+    the sentinel; for floats also +-inf, +-0.0, NaN and subnormals."""
+    dtype = keys.dtype
+    if dtype.kind == "i":
+        info = np.iinfo(dtype)
+        extra = [info.min, info.min + 1, info.max, info.max - 1, 0, -1]
+        rand = rng.integers(info.min, info.max, n, dtype=np.int64)
+    else:
+        tiny = np.finfo(dtype).smallest_subnormal
+        extra = [np.inf, -np.inf, 0.0, -0.0, np.nan, -np.nan, tiny, -tiny,
+                 2 * tiny, np.finfo(dtype).max]
+        rand = rng.normal(size=n) * 10.0 ** rng.integers(-20, 20, n)
+    q = np.concatenate([extra, rng.choice(keys, n // 2), rand]).astype(dtype)
+    return q[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NG_DTYPES,
+                         ids=["int32", "float32", "int64", "float64"])
+@pytest.mark.parametrize("name", list(NG_BOTTOMS))
+def test_generated_bottoms_equal_plain(cuda, name, dtype):
+    """Every bottom's read path, for each key type: the kernel equals the
+    plain network and bottom bit for bit at 1 query, at a block of threads
+    and one, and past one persistent grid's worth of queries (a staging
+    launch: every block copies the stage array into shared memory, each
+    thread takes several queries); with a clip; replayed from a CUDA
+    graph; one launch a call, no host sync; and numpy's searchsorted on
+    the queries that are not NaN."""
+    from repro_torch.core import nitrogen
+    from repro_torch.engine.capture import Captures, Specialized
+    from repro_torch.kernels import nitrogen_codegen as cg
+    cfg, n = NG_BOTTOMS[name]
+    rng = np.random.default_rng(13)
+    keys = ng_wide_keys(dtype, rng, n)
+    idx = nitrogen.build(keys, **cfg, device=cuda)
+    top, dev = idx.kernel, cuda.index or 0
+    lay = {k: cg.defined(top.source, k, -1)
+           for k in ("NG_LINEAR", "NG_STAGE_LEVELS", "NG_SAMPLE")}
+    lower_bound = name in ("binary", "vector-wide", "vector-odd")
+    assert lay["NG_LINEAR"] == (name == "vector-short")
+    assert (lay["NG_STAGE_LEVELS"] > 0) == lower_bound
+    assert lay["NG_SAMPLE"] == (name in ("binary", "vector-wide"))
+    assert top.shared == idx.stage.numel() * idx.stage.element_size()
+    blocks, threads, _, staging = top.launch(dev, 1 << 30)
+    assert staging == lower_bound
+    n_full = blocks * threads + 12_345 if staging else 100_000
+    assert top.launch(dev, n_full)[3] == staging
+    assert top.launch(dev, 257)[3] == 0
+    q = ng_wide_queries(keys, rng, n_full)
+    qd = torch.from_numpy(q).to(cuda)
+    srt = np.sort(keys)
+    real = ~np.isnan(q) if q.dtype.kind == "f" else np.ones(q.size, bool)
+    for n_q in (1, 257, q.size):
+        x = qd[:n_q]
+        cg.nitrogen_search.launches = 0
+        got = sync_free(lambda: nitrogen.search(idx, x))
+        assert cg.nitrogen_search.launches == 1
+        assert torch.equal(got, nitrogen.search_plain(idx, x)), n_q
+    assert np.array_equal(got.cpu().numpy()[real],
+                          np.searchsorted(srt, q[real]))
+    clip = idx.n // 3
+    got = nitrogen.search(idx, qd, clip=clip)
+    assert torch.equal(got, nitrogen.search_plain(idx, qd, clip))
+    spec = Specialized(lambda x: nitrogen.search(idx, x), device=cuda,
+                       captures=Captures())
+    spec(qd)                                    # warm-up and capture
+    cg.nitrogen_search.launches = 0
+    replay = sync_free(lambda: spec(qd))
+    assert cg.nitrogen_search.launches == 1
+    assert torch.equal(replay, nitrogen.search_plain(idx, qd))
+
+
 @pytest.mark.cuda
 def test_small_tiered_index_never_runs_the_eager_network(cuda):
     """A tiered index of 256 pages on the card: its lookup, search_range

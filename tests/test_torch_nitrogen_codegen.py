@@ -10,6 +10,13 @@ through ctypes and holds its ranks bit for bit to the reference's jitted
 are held to numpy instead: XLA's CPU backend flushes them to zero in its
 compares, the generated code and the port follow IEEE.
 
+Each bottom's read path (``nitrogen_codegen.layout``: a short row key by
+key, a lower bound through the stage array, the sample array and their
+windows, a CSS row 16 bytes a load) is held so at several stage budgets,
+at shapes the reference configs do not reach; the host build reports any
+16-byte load from a misaligned address. The rows are checked to be
+sorted and sentinel-padded, which the lower bound relies on.
+
 Also: the literals read back from a source equal, in order, the
 separators that the reference's network compares (its jaxpr's ``le``
 literals), the build's hash follows the separators, and a compiled
@@ -46,6 +53,24 @@ CONFIGS = {
     "l2w2-css4": dict(levels=2, node_width=2, bottom="css",
                       css_node_width=4),
 }
+# the bottoms' read paths (kernels/nitrogen_codegen.layout) at shapes the
+# reference configs do not reach: (build arguments, keys)
+BOTTOM_CASES = {
+    # 4 rows of 4,096: a lower bound with its stage, sample and windows
+    "vector-wide": (dict(levels=2, node_width=1, bottom="vector"), 4 * 4096),
+    # rows of 261 keys, not whole 16-byte pieces: no window, the last slot
+    "vector-odd": (dict(levels=2, node_width=2, bottom="vector"), 2345),
+    # 64 rows of 32, the last holding one key and 31 of padding
+    "vector-tail": (dict(levels=3, node_width=3, bottom="vector"), 2017),
+    "binary-tail": (dict(levels=3, node_width=3), 2017),
+    # 16-key directory rows (16-byte loads), leaves of 17, the last block
+    # mostly padding
+    "css16-tail": (dict(levels=3, node_width=3, bottom="css",
+                        css_node_width=16), 2017),
+}
+# stage budgets (bytes): the default, none, and two that stage some levels
+# and leave others to the sample and the row
+STAGE_BUDGETS = [None, 0, 64, 1024]
 DTYPES = [np.int32, np.float32]
 TIERED_PAGES = [256, 37]         # tiered tops: a full 256 and a partial 37
 N_KEYS = 2345
@@ -59,35 +84,60 @@ def cxx():
     return found
 
 
-def host_kernel(cxx, source: str, path):
-    """The generated source built for the host: (q, block_pad, css_dirs,
-    clip) -> int32 ranks, numpy in and out."""
-    src = path.with_suffix(".cpp")
-    src.write_text(source)
-    lib_path = path.with_suffix(".so")
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
-                    "-I", str(_build.CSRC), "-o", str(lib_path), str(src)],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).nitrogen_search_host
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-    fn.restype = ctypes.c_int
+def host_kernels(cxx, sources: list, path) -> list:
+    """Generated sources built for the host, by g++ processes started all
+    at once: for each, (q, block_pad, css_dirs, stage, sample, clip) ->
+    int32 ranks, numpy in and out; every 16-byte load the card would make
+    is checked to be aligned."""
+    builds = []
+    for i, source in enumerate(sources):
+        src = path.with_name(f"{path.name}{i}.cpp")
+        src.write_text(source)
+        lib_path = src.with_suffix(".so")
+        builds.append((lib_path, subprocess.Popen(
+            [cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+             "-I", str(_build.CSRC), "-o", str(lib_path), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    runs = []
+    for lib_path, proc in builds:
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, log.decode()
+        fn = ctypes.CDLL(str(lib_path)).nitrogen_search_host
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        runs.append(_host_run(fn))
+    return runs
 
-    def run(q, block_pad, css_dirs, clip):
+
+def _host_run(fn):
+    def run(q, block_pad, css_dirs, stage, sample, clip):
         q = np.ascontiguousarray(q)
         out = np.full(q.size, -1, np.int32)
-        fn(q.ctypes.data, block_pad.ctypes.data,
-           None if css_dirs is None else css_dirs.ctypes.data,
-           out.ctypes.data, q.size, clip)
+        misaligned = fn(q.ctypes.data, block_pad.ctypes.data,
+                        None if css_dirs is None else css_dirs.ctypes.data,
+                        stage.ctypes.data, sample.ctypes.data,
+                        out.ctypes.data, q.size, clip)
+        assert misaligned == 0, "a 16-byte load from a misaligned address"
         return out
     return run
+
+
+def host_kernel(cxx, source: str, path):
+    """One generated source built for the host (``host_kernels``)."""
+    return host_kernels(cxx, [source], path)[0]
+
+
+def index_args(idx, clip=None) -> tuple:
+    """A port index's arrays as its host kernel takes them, with the clip."""
+    css = None if idx.css_dirs is None else idx.css_dirs.numpy()
+    return (idx.block_pad.numpy(), css, idx.stage.numpy(), idx.sample.numpy(),
+            idx.n if clip is None else clip)
 
 
 def run_index(cxx, idx, q, tmp_path, clip=None):
     """The port index's generated code on the host, over its arrays."""
     run = host_kernel(cxx, pt_nitrogen.kernel_source(idx), tmp_path / "ng")
-    css = None if idx.css_dirs is None else idx.css_dirs.numpy()
-    return run(q, idx.block_pad.numpy(), css,
-               idx.n if clip is None else clip)
+    return run(q, *index_args(idx, clip))
 
 
 def keys_for(dtype, rng, n=N_KEYS):
@@ -187,6 +237,89 @@ def test_generated_tiered_top_equals_the_reference(cxx, tmp_path, pages,
                                   .numpy())
 
 
+def sample_queries(keys, rng):
+    """queries_for's edges and values, with a sample of the keys in place
+    of all of them (the reference's vector bottom gathers a row a query)."""
+    return queries_for(rng.choice(keys, 1500), rng)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["int32", "float32"])
+@pytest.mark.parametrize("name", list(BOTTOM_CASES))
+def test_redesigned_bottoms_equal_the_reference(cxx, tmp_path, monkeypatch,
+                                                name, dtype):
+    """Each bottom's read path on the host, at each stage budget (levels
+    read from the stage array, the sample array and its window, the row
+    and its window, or the row's last slot): bit for bit with the
+    reference's jitted search, the port's plain version and, for the
+    queries that are not NaN, numpy."""
+    cfg, n = BOTTOM_CASES[name]
+    rng = np.random.default_rng(len(name) + n)
+    keys = keys_for(dtype, rng, n)
+    q = sample_queries(keys, rng)
+    want = np.asarray(ref_nitrogen.searcher(ref_nitrogen.build(keys, **cfg))(q))
+    real = ~np.isnan(q) if dtype == np.float32 else slice(None)
+    np.testing.assert_array_equal(
+        want[real], np.searchsorted(np.sort(keys), q[real], "left"))
+    indexes, paths = [], set()
+    for budget in STAGE_BUDGETS:
+        if budget is not None:
+            monkeypatch.setattr(cg, "STAGE_BYTES", budget)
+        indexes.append(pt_nitrogen.build(keys, **cfg, device="cpu"))
+    sources = [pt_nitrogen.kernel_source(pt) for pt in indexes]
+    runs = host_kernels(cxx, sources, tmp_path / "ng")
+    for budget, pt, src, run in zip(STAGE_BUDGETS, indexes, sources, runs):
+        paths.add(tuple(cg.defined(src, k, 0) for k in (
+            "NG_LINEAR", "NG_STAGE_LEVELS", "NG_SAMPLE", "NG_WIN_LOG2")))
+        got = run(q, *index_args(pt))
+        np.testing.assert_array_equal(got, want, err_msg=f"budget {budget}")
+        np.testing.assert_array_equal(got, pt_nitrogen.search(pt, q).numpy())
+    if name == "vector-wide":       # every lower-bound path was taken
+        assert {p[2] for p in paths} == {0, 1}
+        assert min(p[1] for p in paths) == 0 < max(p[1] for p in paths)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["int32", "float32"])
+@pytest.mark.parametrize("name", [*CONFIGS, *BOTTOM_CASES])
+def test_rows_are_sorted_and_sentinel_padded(monkeypatch, name, dtype):
+    """What the lower bound and the windows rely on: every bottom row (and
+    every CSS directory row) is nondecreasing, the padding past a block's
+    keys is the sentinel, and the stage and sample arrays hold the row
+    slots that their levels probe (the sentinel past a row)."""
+    monkeypatch.setattr(cg, "STAGE_BYTES", 64)
+    cfg, n = BOTTOM_CASES.get(name, (CONFIGS.get(name), N_KEYS))
+    keys = keys_for(dtype, np.random.default_rng(5), n)
+    idx = pt_nitrogen.build(keys, **cfg, device="cpu")
+    srt = np.sort(keys, kind="stable")
+    sent = np.iinfo(dtype).max if dtype == np.int32 else np.inf
+    rows = idx.block_pad.numpy().reshape(idx.num_blocks, -1)
+    for b, row in enumerate(rows):
+        real = srt[b * idx.block_width:(b + 1) * idx.block_width]
+        same_bits(row[:real.size], real, f"block {b}")
+        assert (row[real.size:] == sent).all(), f"block {b}'s padding"
+        assert (row[1:] >= row[:-1]).all(), f"block {b} unsorted"
+    if idx.bottom == "css":
+        dirs = idx.css_dirs.numpy().reshape(-1, idx.css_w)
+        assert (dirs[:, 1:] >= dirs[:, :-1]).all()
+        return
+    src = pt_nitrogen.kernel_source(idx)
+    log2 = cg.row_log2(idx.block_pad_width)
+    width = np.concatenate([rows, np.full((rows.shape[0], 2**log2
+                                           - rows.shape[1]), sent,
+                                          rows.dtype)], 1)
+    lev = cg.defined(src, "NG_STAGE_LEVELS", 0)
+    stage = idx.stage.numpy()
+    slots = (np.arange(1, 2**lev) << (log2 - lev)) - 1
+    same_bits(stage[:slots.size * idx.num_blocks],
+              width[:, slots].reshape(-1), "stage")
+    assert (stage[slots.size * idx.num_blocks:] == sent).all()
+    win = cg.defined(src, "NG_WIN_LOG2", 0)
+    if cg.defined(src, "NG_SAMPLE", 0):
+        same_bits(idx.sample.numpy(),
+                  width[:, (1 << win) - 1::1 << win].reshape(-1), "sample")
+    else:
+        assert idx.sample.numel() == 0
+
+
 def literal_cases():
     for name in CONFIGS:
         for dtype in DTYPES:
@@ -244,23 +377,30 @@ def test_hash_follows_the_separators():
     assert diff.sum() == 1
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_subnormals_follow_ieee(cxx, tmp_path, name):
+@pytest.mark.parametrize("name", [*CONFIGS, *BOTTOM_CASES])
+def test_subnormals_follow_ieee(cxx, tmp_path, monkeypatch, name):
     """Subnormal keys and queries, and both zeros: the generated code
     equals numpy and the port's plain version (the reference's CPU
-    backend flushes subnormals, so it is not the yardstick here)."""
+    backend flushes subnormals, so it is not the yardstick here), at the
+    default stage budget and at one that leaves levels to the sample."""
     rng = np.random.default_rng(11)
     tiny = np.float32(1e-45) * np.arange(-200, 201, dtype=np.float32)
     keys = np.concatenate([tiny, [0.0, -0.0, 1e-38, -1e-38, 1.2e-38],
                            rng.normal(size=400) * 1e-30,
                            rng.normal(size=400)]).astype(np.float32)
-    pt = pt_nitrogen.build(keys, **CONFIGS[name], device="cpu")
+    cfg = CONFIGS[name] if name in CONFIGS else BOTTOM_CASES[name][0]
+    indexes = [pt_nitrogen.build(keys, **cfg, device="cpu")]
+    monkeypatch.setattr(cg, "STAGE_BYTES", 64)
+    indexes.append(pt_nitrogen.build(keys, **cfg, device="cpu"))
     q = np.concatenate([tiny + np.float32(1e-45) / 2, tiny, keys,
                         [0.0, -0.0, 2e-45, -2e-45, 1.1e-38]]
                        ).astype(np.float32)
-    got = run_index(cxx, pt, q, tmp_path)
-    np.testing.assert_array_equal(got, np.searchsorted(np.sort(keys), q))
-    np.testing.assert_array_equal(got, pt_nitrogen.search(pt, q).numpy())
+    runs = host_kernels(cxx, [pt_nitrogen.kernel_source(pt)
+                              for pt in indexes], tmp_path / "ng")
+    for pt, run in zip(indexes, runs):
+        got = run(q, *index_args(pt))
+        np.testing.assert_array_equal(got, np.searchsorted(np.sort(keys), q))
+        np.testing.assert_array_equal(got, pt_nitrogen.search(pt, q).numpy())
     lits = cg.read_literals(pt_nitrogen.kernel_source(pt), np.float32)
     assert (np.abs(lits) < np.finfo(np.float32).tiny).any()
 
