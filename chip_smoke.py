@@ -194,15 +194,23 @@ Phases, in order; any failure exits non-zero with its traceback:
      css 16); build s, device bytes, tree_bytes, one lookup of 2^20
      queries (half hits) and one search_range of 2^18 ranges (phase 7's
      generator) under set_sync_debug_mode("error"), rank, found, values and
-     counts against numpy; lookup / search_range ms, the lookup's launches,
-     torch.searchsorted beside them; ops.kary_search refused on the 2^24-key
-     tree by the reference's VMEM guard. Then CSBTree over 2^20 of the keys
-     (w = 8), 4,096 inserts, a 2^20-query search against np.isin; a float32
-     pass over 2^20 keys for every kind (and the vector bottom at 4,096
-     keys a block) against numpy.
+     counts against numpy, each one kernel launch a search (the counters
+     set to 0 before and read after); lookup / search_range ms, the
+     lookup's launches, torch.searchsorted beside them; ops.kary_search
+     refused on the 2^24-key tree by the reference's VMEM guard. Each flat
+     kind's kernel (kernels/flat_search.py; also css w128 / w16 with
+     intra="binary" and fast w127) on the 2^20 queries: one launch with no
+     host sync, == the plain composition and numpy (FAST's leaf_page_of
+     too), its event ms, graph_amortised_ms, profiler device ms, the plain
+     version's ms and the bound from these queries beside
+     torch.searchsorted's. Then CSBTree over 2^20 of the keys (w = 8),
+     4,096 inserts, a 2^20-query search against np.isin (its kernel the
+     same, beside torch.isin); a float32 pass over 2^20 keys for every
+     kind (and the vector bottom at 4,096 keys a block) against numpy.
      b. ops.fast_page_search on the fast index with the 2^20 queries (one
-        page-kernel launch, == the plain version on its operands and
-        numpy; descent, host plan, operands and kernel ms apart) and
+        page-kernel launch and one descent-kernel launch, == the plain
+        version on its operands and numpy; descent, host plan, operands
+        and kernel ms apart) and
         ops.kary_search at the largest trees the guard admits (node_width
         127 over 16,383 keys; 7 over 262,143 with lane 8, tile_rows 2):
         one k-ary launch on 2^20 queries, == plain and numpy;
@@ -212,11 +220,12 @@ Phases, in order; any failure exits non-zero with its traceback:
         the two-phase ops.fast_page_search at 1,048,576 keys): each run's
         CUDA-event ms, the host's launch calls, the device's kernel ms
         (profiler), the ms of one CUDA-graph replay of the same call and
-        the thesis' speedups from each, torch.searchsorted beside them;
-        every run checked against numpy, and each NitroGen index's
-        generated kernel against its plain version on every query set.
-        Binary and css are eager PyTorch compositions; NitroGen is the
-        thesis' generated code (phase 21). The phase prints its wall time;
+        the thesis' speedups from each, the port's kernels each call
+        launched, torch.searchsorted beside them; every run checked
+        against numpy, and each NitroGen index's generated kernel against
+        its plain version on every query set. Binary, css, kary and fast
+        run kernels/flat_search.py's kernels; NitroGen is the thesis'
+        generated code (phase 21). The phase prints its wall time;
  16. the flat kinds under the rest of the API, over phase 4's keys and
      values, one kind of phase 15 at a time, under
      set_sync_debug_mode("error") against numpy:
@@ -238,6 +247,8 @@ Phases, in order; any failure exits non-zero with its traceback:
         wholesale) beside the tiered store: two rounds of 8 sampled steps
         through the decode queue; reuse and store counts as phase 9's,
         tokens equal the tiered store's, one CDF launch a step;
+     the flat kinds' kernels' launches in 16a-b, 16c and 16d (16a-b and
+     16c must launch them), and the phase's wall time;
  17. the rest of the serving stack at full width, weights from the seed,
      one model at a time (its memory freed before the next), depth cut
      only where 80 GB forces it: mixtral-8x7b at 2 layers and
@@ -371,7 +382,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      their launches, error, times and bound on every rank of phase 19a
      and at its world 1, for kernels 1, 2 and 5 their launches in each
      example of phase 20c, and the generated NitroGen kernel's row (phase
-     21, with its launches in phases 5, 15, 16 and 20c); the last line
+     21, with its launches in phases 5, 15, 16 and 20c), and the flat
+     kinds' three kernels (phase 15: each configuration's times, error and
+     bound; their launches in phases 15a, 15b, 16 and 20c); the last line
      {"ok": true, "device": {...}}.
 
 Without a CUDA card the script exits non-zero at once and prints no
@@ -3300,9 +3313,10 @@ def replayed_kernels_vs_plain(calls, what: str) -> dict:
     return out
 
 
-def reset_launches() -> list:
+def reset_launches(ws: list | None = None) -> list:
+    """Set the counters of ``ws`` (default: every kernel wrapper) to 0."""
     from repro_torch.engine.capture import kernel_wrappers
-    ws = kernel_wrappers()
+    ws = kernel_wrappers() if ws is None else ws
     for w in ws:
         w.launches = 0
         if hasattr(w, "mode_launches"):
@@ -3312,6 +3326,24 @@ def reset_launches() -> list:
 
 def read_launches(ws) -> dict:
     return {w.__name__: w.launches for w in ws if w.launches}
+
+
+def launches_during(fn) -> tuple:
+    """fn()'s result and the kernel launches it made, by wrapper: the rise
+    of every wrapper's counter, which zeroes none, so a phase's own count
+    (the NitroGen kernel's in phase 15) keeps running across it."""
+    from repro_torch.engine.capture import kernel_wrappers
+    ws = kernel_wrappers()
+    before = [w.launches for w in ws]
+    out = fn()
+    return out, {w.__name__: w.launches - b for w, b in zip(ws, before)
+                 if w.launches != b}
+
+
+def flat_wrappers() -> list:
+    """The flat kinds' kernel wrappers (kernels/flat_search.py)."""
+    from repro_torch.kernels import flat_search as fs
+    return [fs.flat_binary, fs.flat_descent, fs.csb_search]
 
 
 def same_fields(a, b, what: str) -> None:
@@ -3491,7 +3523,8 @@ def spec_scan_path(dev, rng, args_idx, spec_idx, ks) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     launches = read_launches(ws)
     mode_launches = {w.__name__: dict(w.mode_launches) for w in ws
-                     if hasattr(w, "mode_launches")}
+                     if w.__name__.startswith("page_")
+                     and hasattr(w, "mode_launches")}
     torch.cuda.synchronize()
     check(all(v > 0 for m in mode_launches.values() for v in m.values())
           and launches.get("kary_search_levels", 0) > 0,
@@ -3765,6 +3798,24 @@ FIG51_VARIANTS = (
                        bottom="binary")),
     ("ng-css", dict(kind="nitrogen", levels=3, compiled_node_width=3,
                     bottom="css", node_width=16)))
+# the flat kinds' kernels (kernels/flat_search.py) beyond KIND_CONFIGS,
+# each built at phase 15's size: the other intra, FAST at w 127
+FLAT_EXTRA_CONFIGS = (
+    ("css_w128_binary", "css", dict(node_width=128, intra="binary")),
+    ("css_w16_binary", "css", dict(node_width=16, intra="binary")),
+    ("fast_w127_pd2", "fast", dict(node_width=127, page_depth=2)))
+FLAT_MODULES = {"binary": "sorted_array", "css": "css_tree", "kary": "kary",
+                "fast": "fast_tree"}
+# each flat kernel's row of the kernels line: (wrapper, the configuration
+# whose times head it, the reference searcher it twins)
+FLAT_ROWS = (
+    ("flat_binary", "binary_c1", "src/repro/core/sorted_array.py:53 "
+     "(_search_pad under jax.jit; no pallas_call)"),
+    ("flat_descent", "css_w128", "src/repro/core/css_tree.py:112, "
+     "kary.py:78, fast_tree.py:109 (_search / _descend under jax.jit; no "
+     "pallas_call)"),
+    ("csb_search", "csb", "src/repro/core/csb_tree.py:213 (_search under "
+     "jax.jit; no pallas_call)"))
 FIG53_KEYS = 1_048_576
 FIG53_LADDER = (
     ("scalar-binary", dict(kind="binary")),
@@ -3814,9 +3865,19 @@ def kind_run(dev, name, cfg, keys_sorted, values_sorted, q_dev, want,
     row = {"build_s": time.perf_counter() - t0,
            "device_bytes": torch.cuda.memory_allocated() - base,
            "tree_bytes": idx.tree_bytes}
-    check_lookup(no_sync(lambda: idx.lookup(q_dev)), want, f"{name} lookup")
-    check_ranges(no_sync(lambda: idx.search_range(lo_d, hi_d)),
-                 keys_sorted, lo, hi, f"{name} search_range")
+    got, row["lookup_launches"] = launches_during(
+        lambda: no_sync(lambda: idx.lookup(q_dev)))
+    check_lookup(got, want, f"{name} lookup")
+    got, row["search_range_launches"] = launches_during(
+        lambda: no_sync(lambda: idx.search_range(lo_d, hi_d)))
+    check_ranges(got, keys_sorted, lo, hi, f"{name} search_range")
+    kernel = {"binary": "flat_binary", "css": "flat_descent",
+              "kary": "flat_descent", "fast": "flat_descent",
+              "nitrogen": "nitrogen_search"}[cfg["kind"]]
+    check(row["lookup_launches"] == {kernel: 1}
+          and row["search_range_launches"] == {kernel: 2},
+          f"{name}: a lookup and a search_range launched "
+          f"{row['lookup_launches']} and {row['search_range_launches']}")
     if timed:
         row["lookup_ms"] = cuda_ms(lambda: idx.lookup(q_dev), reps=5,
                                    warmup=1)
@@ -3827,6 +3888,124 @@ def kind_run(dev, name, cfg, keys_sorted, values_sorted, q_dev, want,
         row["lookup_device_kernels"] = prof["device_kernels"]
         row["lookup_device_ms"] = prof["kernels_ms"]
     return row, idx
+
+
+def flat_work(mod, impl, qd: torch.Tensor) -> tuple[int, int]:
+    """(bytes, compares) that one search of ``qd`` needs on a flat kind:
+    each query read and each rank written once, each key slot the search
+    reads read once (its probes replayed on the card: the binary probes and
+    the cutoff's blocks, or each level's node rows and the leaf blocks), and
+    for each query a binary search's compares in each sorted row it
+    reads."""
+    from repro_torch.core.util import take, take_rows
+    q_n, item = qd.shape[0], qd.element_size()
+    if mod.__name__.endswith("sorted_array"):
+        cut = impl.linear_cutoff
+        pos = torch.zeros(q_n, dtype=torch.int32, device=qd.device)
+        probed, step = [], impl.n_pad // 2
+        while step >= cut:
+            at = (pos + step - 1).clamp(0, impl.n_pad - 1)
+            probed.append(at)
+            pos = torch.where(take(impl.keys_pad, at) < qd, pos + step, pos)
+            step //= 2
+        slots = int(torch.unique(torch.cat(probed)).numel()) if probed else 0
+        compares = q_n * len(probed)
+        if cut > 1:
+            slots += int(torch.unique(pos).numel()) * cut
+            compares += q_n * sorted_count_compares(cut)
+    else:
+        d = mod.descent_args(impl)
+        nodes = impl.tree if d.kind == "kary" else (
+            impl.pages if d.kind == "fast" else impl.dir_keys)
+        w, n_rows = d.node_width, nodes.numel() // d.node_width
+        j = torch.zeros(q_n, dtype=torch.int32, device=qd.device)
+        j_local, page, rows = torch.zeros_like(j), torch.zeros_like(j), []
+        for lev in range(d.depth):
+            if d.starts >> lev & 1:
+                page, j_local = d.page_row[lev] + j * d.page_rows[lev], 0 * j
+            r = (page + d.level_row[lev] + j_local).clamp(0, n_rows - 1)
+            rows.append(r)
+            c = torch.zeros_like(j)
+            for s in range(0, q_n, 1 << 18):       # [chunk, w] blocks
+                c[s:s + (1 << 18)] = (take_rows(nodes, w, r[s:s + (1 << 18)])
+                                      < qd[s:s + (1 << 18), None]).sum(
+                    -1, dtype=torch.int32)
+            j, j_local = j * d.fanout + c, j_local * d.fanout + c
+        slots = int(torch.unique(torch.cat(rows)).numel()) * w if rows else 0
+        compares = q_n * d.depth * sorted_count_compares(w)
+        if d.kind != "kary":
+            lw = impl.leaf_width
+            blocks = j.clamp(0, impl.leaf_pad.numel() // lw - 1)
+            slots += int(torch.unique(blocks).numel()) * lw
+            compares += q_n * sorted_count_compares(lw)
+    return q_n * item + q_n * 4 + slots * item, compares
+
+
+def flat_kernel_run(name, kind, impl, qd, want_rank, library: dict) -> dict:
+    """A flat kind's kernel at phase 15's size: its search one launch with
+    no host sync, bit for bit with the kind's plain composition and with
+    numpy (FAST's leaf_page_of too); the kernel's event ms a call, its ms
+    with every launch counted (graph_amortised_ms) and its profiler device
+    ms, the plain version's ms, the bound from these queries, and
+    torch.searchsorted's (``library``) beside them."""
+    from repro_torch import core
+    mod = getattr(core, FLAT_MODULES[kind])
+    wrapper = "flat_binary" if kind == "binary" else "flat_descent"
+    got, launches = launches_during(lambda: no_sync(
+        lambda: mod.search(impl, qd)))
+    check(launches == {wrapper: 1}, f"{name}: a search launched {launches}")
+    plain = mod.search_plain(impl, qd)
+    err, same = max_abs_err(got, plain), torch.equal(got, plain)
+    check(same, f"{name}: kernel != plain")
+    check(np.array_equal(got.cpu().numpy(), want_rank),
+          f"{name}: kernel != np.searchsorted")
+    b = bound(*flat_work(mod, impl, qd))
+    row = {"wrapper": wrapper, "launches": launches[wrapper],
+           "kernel_vs_plain": same, "max_abs_err": err,
+           "ms": cuda_ms(lambda: mod.search(impl, qd)),
+           "graph_amortised_ms": graph_amortised_ms(
+               lambda: mod.search(impl, qd)),
+           "device_ms": device_ms(lambda: mod.search(impl, qd), reps=5),
+           "plain_ms": cuda_ms(lambda: mod.search_plain(impl, qd), reps=3,
+                               warmup=1),
+           "bound_ms": b[0], "bound_by": b[1], **library}
+    if kind == "fast":
+        page, launches = launches_during(lambda: no_sync(
+            lambda: mod.leaf_page_of(impl, qd)))
+        check(launches == {wrapper: 1},
+              f"{name}: leaf_page_of launched {launches}")
+        same = torch.equal(page, mod.leaf_page_of_plain(impl, qd))
+        check(same, f"{name}: leaf_page_of kernel != plain")
+        row["leaf_page_of"] = {
+            "launches": launches[wrapper], "kernel_vs_plain": same,
+            "ms": cuda_ms(lambda: mod.leaf_page_of(impl, qd)),
+            "graph_amortised_ms": graph_amortised_ms(
+                lambda: mod.leaf_page_of(impl, qd)),
+            "plain_ms": cuda_ms(lambda: mod.leaf_page_of_plain(impl, qd),
+                                reps=3, warmup=1)}
+    return row
+
+
+def csb_work(snap, qd: torch.Tensor) -> tuple[int, int]:
+    """(bytes, compares) of one CSB+ search of ``qd``: each query read and
+    each flag written once, each node row, child id and leaf row the
+    searches read read once (replayed on the card), and a binary search's
+    compares in each sorted row."""
+    from repro_torch.core.util import take
+    keys, child, leaf_keys, root, height = snap
+    q_n, item, w = qd.shape[0], qd.element_size(), keys.shape[1]
+    nid = torch.full((q_n,), root, dtype=torch.int32, device=qd.device)
+    rows = []
+    for _ in range(height - 1):
+        r = nid.clamp(0, keys.shape[0] - 1)
+        rows.append(r)
+        c = (take(keys, r) < qd[:, None]).sum(-1, dtype=torch.int32)
+        base = take(child, r)
+        nid = torch.where(base < 0, nid, base + c)
+    inner = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    leaves = int(torch.unique(nid.clamp(0, keys.shape[0] - 1)).numel())
+    return (q_n * item + q_n + inner * (w * item + 4) + leaves * w * item,
+            q_n * height * sorted_count_compares(w))
 
 
 def fast_wrapper_path(dev, fidx, q_dev, ks: np.ndarray, q: np.ndarray):
@@ -3842,11 +4021,12 @@ def fast_wrapper_path(dev, fidx, q_dev, ks: np.ndarray, q: np.ndarray):
     pages = ops.fast_leaf_pages(fidx)
     torch.cuda.synchronize()
     layout_ms = (time.perf_counter() - t0) * 1e3
-    pk.page_search_bucketed.launches = 0
-    got = ops.fast_page_search(fidx, q_dev)
-    launches = pk.page_search_bucketed.launches
-    check(launches == 1, f"fast_page_search launched the page kernel "
-          f"{launches} times")
+    got, by_kernel = launches_during(lambda: ops.fast_page_search(fidx,
+                                                                  q_dev))
+    launches = by_kernel.get("page_search_bucketed", 0)
+    check(by_kernel == {"page_search_bucketed": 1, "flat_descent": 1},
+          f"fast_page_search launched {by_kernel}: want the descent kernel "
+          "and the page kernel once each")
     check(np.array_equal(got.cpu().numpy(), np.searchsorted(ks, q)),
           "fast_page_search != np.searchsorted")
     page_of = leaf_page_of(fidx, q_dev).cpu().numpy()
@@ -3865,7 +4045,8 @@ def fast_wrapper_path(dev, fidx, q_dev, ks: np.ndarray, q: np.ndarray):
     b = bound(lanes * 4 * 2 + used * 4 + touched * lw_pad * 4,
               lanes * sorted_count_compares(lw_pad))
     return {
-        "launches": launches, "max_abs_err": err,
+        "launches": launches, "launches_by_kernel": by_kernel,
+        "max_abs_err": err,
         "ms": cuda_ms(lambda: pk.page_search_bucketed(*k_args, stride=lw)),
         "plain_ms": cuda_ms(lambda: pk.page_search_plain(*k_args,
                                                          stride=lw),
@@ -3899,10 +4080,11 @@ def kary_wrapper_path(dev, rng, keys_sorted) -> dict:
         q = mixed_queries(rng, keys, N_QUERIES)
         q_dev = torch.from_numpy(q).to(dev)
         kw = dict(lane=lane, tile_rows=tile_rows)
-        kk.kary_search_levels.launches = 0
-        got = ops.kary_search(idx, q_dev, **kw)
-        launches = kk.kary_search_levels.launches
-        check(launches == 1, f"kary_search {name}: {launches} launches")
+        got, by_kernel = launches_during(lambda: ops.kary_search(
+            idx, q_dev, **kw))
+        launches = by_kernel.get("kary_search_levels", 0)
+        check(by_kernel == {"kary_search_levels": 1},
+              f"kary_search {name}: launched {by_kernel}")
         flat, offsets, wpad = idx.kernel_operands[("kary_levels", lane)]
         k_kw = dict(fanout=w + 1, wpad=wpad)
         plain = kk.kary_search_plain(q_dev, flat, offsets, **k_kw)
@@ -3913,7 +4095,8 @@ def kary_wrapper_path(dev, rng, keys_sorted) -> dict:
         b = bound(2 * N_QUERIES * 4 + flat.numel() * 4,
                   N_QUERIES * len(offsets) * sorted_count_compares(wpad))
         out[name] = {
-            "launches": launches, "max_abs_err": err, "depth": idx.depth,
+            "launches": launches, "launches_by_kernel": by_kernel,
+            "max_abs_err": err, "depth": idx.depth,
             "wpad": wpad,
             "ms": cuda_ms(lambda: kk.kary_search_levels(q_dev, flat, offsets,
                                                         **k_kw)),
@@ -3931,7 +4114,8 @@ def kary_wrapper_path(dev, rng, keys_sorted) -> dict:
 def csb_path(dev, rng, keys_sorted) -> dict:
     """CSBTree.build over 2^20 of phase 4's keys (w = 8), 4,096 inserts of
     new keys, then a search of 2^20 queries under sync-debug "error"
-    against np.isin."""
+    against np.isin: one csb_search launch, equal to the plain version;
+    its times beside torch.isin's."""
     from repro_torch.core import CSBTree
     sub = np.sort(rng.choice(keys_sorted, N_CSB_KEYS, replace=False))
     t0 = time.perf_counter()
@@ -3952,15 +4136,39 @@ def csb_path(dev, rng, keys_sorted) -> dict:
     q = rng.permutation(np.concatenate([
         mixed_queries(rng, sub, N_QUERIES - new.size), new]))
     q_dev = torch.from_numpy(q).to(dev)
-    found = no_sync(lambda: tree.search(q_dev))
+    found, launches = launches_during(lambda: no_sync(
+        lambda: tree.search(q_dev)))
+    check(launches == {"csb_search": 1},
+          f"CSBTree.search launched {launches}")
     check(np.array_equal(found.cpu().numpy(), np.isin(q, allk)),
           "CSBTree.search != np.isin")
+    snap = tree.snapshot()
+    plain = tree.search_plain(q_dev)
+    same = torch.equal(found, plain)
+    check(same, "csb_search kernel != plain")
+    all_d = torch.from_numpy(allk).to(dev)
+    b = bound(*csb_work(snap, q_dev))
     return {"keys": N_CSB_KEYS, "inserts": int(new.size),
             "height": tree.height, "nodes": tree._n_nodes,
             "build_s": build_s, "insert_us": insert_us,
             "snapshot_upload_ms": upload_ms,
             "search_ms": cuda_ms(lambda: tree.search(q_dev), reps=5),
-            "hits": int(found.sum())}
+            "hits": int(found.sum()),
+            "kernel": {
+                "wrapper": "csb_search", "launches": launches["csb_search"],
+                "kernel_vs_plain": same, "max_abs_err": max_abs_err(found,
+                                                                    plain),
+                "ms": cuda_ms(lambda: tree.search(q_dev)),
+                "graph_amortised_ms": graph_amortised_ms(
+                    lambda: tree.search(q_dev)),
+                "device_ms": device_ms(lambda: tree.search(q_dev), reps=5),
+                "plain_ms": cuda_ms(lambda: tree.search_plain(q_dev),
+                                    reps=3, warmup=1),
+                "bound_ms": b[0], "bound_by": b[1],
+                # membership of every query in the keys: torch.isin (it
+                # syncs, so no graph holds it)
+                "library_ms": cuda_ms(lambda: torch.isin(q_dev, all_d)),
+                "library_graph_amortised_ms": None}}
 
 
 def float_kinds_path(dev, rng) -> dict:
@@ -4009,16 +4217,18 @@ def uniform_queries(lo: int, hi: int, n: int, seed: int = 0) -> np.ndarray:
 
 
 def fig_run(fn, qd: torch.Tensor, graph: bool = True) -> dict:
-    """CUDA-event ms of fn(qd), the host's launch calls and device
-    kernels of one call and the device's summed kernel ms a call over five
+    """CUDA-event ms of fn(qd), the port's kernels one call launched, the
+    host's launch calls and device kernels of one call and the device's
+    summed kernel ms a call over five
     (profiler; None if it saw no device event), and with ``graph`` the event
     ms of the same call replayed from one CUDA graph
     (engine/capture.Specialized: the queries copied in, the result out)."""
     from repro_torch.engine.capture import Captures, Specialized
     q_n = qd.shape[0]
     ms = cuda_ms(lambda: fn(qd), reps=10, warmup=2)
+    _, launches = launches_during(lambda: fn(qd))
     prof = launch_profile(lambda: fn(qd))
-    out = {"ms": ms, "ns_per_query": ms * 1e6 / q_n,
+    out = {"ms": ms, "ns_per_query": ms * 1e6 / q_n, "launches": launches,
            "host_launch_calls": prof["host_launches"],
            "device_kernels": prof["device_kernels"],
            "device_ms": device_ms(lambda: fn(qd), reps=5)}
@@ -4124,8 +4334,11 @@ def fig53_path(dev) -> dict:
 
 
 def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
-    """Phase 15: the paper's index kinds at full size, the two kernel
-    wrappers, the CSB+-tree, a float32 pass and Figs. 5.1 / 5.3."""
+    """Phase 15: the paper's index kinds at full size with the flat kinds'
+    kernels, the two kernel wrappers, the CSB+-tree, a float32 pass and
+    Figs. 5.1 / 5.3. Returns (the phase's results, the 15b rows of
+    ops.fast_page_search and ops.kary_search, the flat kernels' rows)."""
+    from repro_torch import core
     from repro_torch.kernels import ops
     t_phase = time.perf_counter()
     rng = np.random.default_rng(15)
@@ -4140,10 +4353,21 @@ def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
            "searchsorted_range_ms": cuda_ms(lambda: (
                torch.searchsorted(ks_dev, lo_d),
                torch.searchsorted(ks_dev, hi_d, right=True)))}
-    fast_row = None
+    library = {"library_ms": out["searchsorted_ms"],
+               "library_graph_amortised_ms": graph_amortised_ms(
+                   lambda: torch.searchsorted(ks_dev, q_dev))}
+    fast_row, kernels = None, {}
+    path = dict.fromkeys(("flat_binary", "flat_descent"), 0)
     for name, cfg in KIND_CONFIGS:
         row, idx = kind_run(dev, name, cfg, keys_sorted, values_sorted,
                             q_dev, want, lo_d, hi_d, lo, hi)
+        if cfg["kind"] in FLAT_MODULES:       # the path's launches, counted
+            for counts in (row["lookup_launches"],
+                           row["search_range_launches"]):
+                for k, v in counts.items():
+                    path[k] += v
+            row["kernel"] = kernels[name] = flat_kernel_run(
+                name, cfg["kind"], idx.impl, q_dev, want[0], library)
         if name == "fast_w15_pd2":
             fast_row = fast_wrapper_path(dev, idx.impl, q_dev, keys_sorted, q)
         if name == "kary_w127":       # the guard refuses it, as the reference's
@@ -4157,6 +4381,15 @@ def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
         torch.cuda.empty_cache()
         out[name] = row
         print(f"phase 15a: {name} " + json.dumps(row), flush=True)
+    for name, kind, kw in FLAT_EXTRA_CONFIGS:
+        impl = getattr(core, FLAT_MODULES[kind]).build(keys_sorted, **kw,
+                                                        device=dev)
+        kernels[name] = flat_kernel_run(name, kind, impl, q_dev, want[0],
+                                        library)
+        del impl
+        torch.cuda.empty_cache()
+        out[name] = {"kernel": kernels[name]}
+        print(f"phase 15a: {name} " + json.dumps(out[name]), flush=True)
     out["csb"] = csb_path(dev, rng, keys_sorted)
     out["float32"] = float_kinds_path(dev, rng)
     kary_rows = kary_wrapper_path(dev, rng, keys_sorted)
@@ -4172,7 +4405,33 @@ def kinds_path(dev, keys_sorted, values_sorted) -> tuple:
         for cell, runs in cells.items()
         for name, r in runs.items() if name.startswith("ng-")}
     out["wall_s"] = time.perf_counter() - t_phase
-    return out, fast_row, kary_rows
+    path["csb_search"] = out["csb"]["kernel"]["launches"]
+    kernels["csb"] = out["csb"]["kernel"]
+    return out, fast_row, kary_rows, flat_rows(kernels, path)
+
+
+def flat_rows(kernels: dict, path: dict) -> list:
+    """The kernels line's rows of the three flat kernels: each headed by
+    one configuration's times (FLAT_ROWS), every configuration it ran in
+    beside them; ``launches`` is what phase 15a's checked lookups and
+    search_ranges launched (and the CSB+ search)."""
+    out = []
+    for wrapper, head, replaces in FLAT_ROWS:
+        runs = {k: v for k, v in kernels.items() if v["wrapper"] == wrapper}
+        h = runs[head]
+        keys = N_CSB_KEYS if head == "csb" else N_KEYS
+        out.append({
+            "name": wrapper, "route": "cuda",
+            "source": "src/repro_torch/csrc/flat_search.cu "
+                      "(+ sorted_row.cuh)",
+            "replaces": replaces, "launches": path[wrapper],
+            "max_abs_err": max(v["max_abs_err"] for v in runs.values()),
+            **{k: h[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "graph_amortised_ms",
+                                 "device_ms", "library_graph_amortised_ms")},
+            "cell": f"{head}_2^{keys.bit_length() - 1}",
+            "configs": runs})
+    return out
 
 
 # --------------------------------------------------------------- phase 16
@@ -6266,25 +6525,40 @@ def main() -> int:
     print("phase 14e: autotune " + json.dumps(spec_autotune_path(dev)),
           flush=True)
     ng.nitrogen_search.launches = 0
-    kinds15, fast_row, kary_rows = kinds_path(dev, keys_sorted,
-                                              values_sorted)
+    kinds15, fast_row, kary_rows, flat_kernel_rows = kinds_path(
+        dev, keys_sorted, values_sorted)
     print("phase 15: index kinds " + json.dumps(kinds15), flush=True)
+    print(f"phase 15: {kinds15['wall_s']:.1f} s", flush=True)
     ng_launches["phase_15"] = ng.nitrogen_search.launches
+    check(ng_launches["phase_15"] > 0,
+          "phase 15 ran the nitrogen kind without its kernel")
     t16 = time.perf_counter()
     ng.nitrogen_search.launches = 0
+    flat_ws = reset_launches(flat_wrappers())
+    flat_launches = {}                   # the flat kernels' a phase
     flat16 = flat_kinds_path(dev, keys_sorted, values_sorted, scan_main)
     print("phase 16b: specialized / base lookup_ms " + json.dumps(
         {k: v for k, v in flat16.items() if "/" in k}), flush=True)
+    flat_launches["phase_16ab"] = read_launches(flat_ws)
+    reset_launches(flat_ws)
     print("phase 16c: flat store " + json.dumps(flat_store_path(
         dev, np.random.default_rng(args.seed + 16), keys_sorted,
         values_sorted)), flush=True)
+    flat_launches["phase_16c"] = read_launches(flat_ws)
+    reset_launches(flat_ws)
     ng_launches["phase_16ab"] = ng.nitrogen_search.launches
     ng.nitrogen_search.launches = 0
     serve16, cdf16 = flat_serve_path(dev, args.seed)
     print("phase 16d: serving over nitrogen " + json.dumps(serve16),
           flush=True)
     ng_launches["phase_16d"] = ng.nitrogen_search.launches
-    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    flat_launches["phase_16d"] = read_launches(flat_ws)
+    check(all(flat_launches["phase_16ab"].get(w.__name__, 0) > 0
+              for w in flat_ws[:2])
+          and flat_launches["phase_16c"].get("flat_descent", 0) > 0,
+          f"phase 16 ran a flat kind without its kernel: {flat_launches}")
+    print(f"phase 16: flat kernels launched {json.dumps(flat_launches)}; "
+          f"{time.perf_counter() - t16:.1f} s", flush=True)
     del imm_idx
     fam17, cdf17, page17 = families_path(dev, args.seed)
     print("phase 17: families " + json.dumps(fam17), flush=True)
@@ -6307,6 +6581,14 @@ def main() -> int:
     ng_row["examples_launches"] = {
         k: v["launches"].get("nitrogen_search", 0)
         for k, v in tools20["examples"].items()}
+    for row in flat_kernel_rows:         # phases 15b, 16, 20c
+        row["phase_launches"] = {
+            "phase_15b_fast_page_search": fast_row["launches_by_kernel"].get(
+                row["name"], 0),
+            **{k: v.get(row["name"], 0) for k, v in flat_launches.items()}}
+        row["examples_launches"] = {
+            k: v["launches"].get(row["name"], 0)
+            for k, v in tools20["examples"].items()}
     rows[0]["ops_fast_page_search"] = fast_row     # kernel 1 (phase 15b)
     rows[1]["ops_kary_search"] = kary_rows          # kernel 2 (phase 15b)
     for row, key in zip(rows, ("page", "kary")):
@@ -6357,7 +6639,8 @@ def main() -> int:
         row["examples_launches"] = {
             k: v["launches"].get(row["name"], 0)
             for k, v in tools20["examples"].items()}
-    print(json.dumps({"kernels": rows + scan_rows + [cdf_row, ng_row]}))
+    print(json.dumps({"kernels": rows + scan_rows + [cdf_row, ng_row]
+                      + flat_kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,9 @@ Layout (host numpy arrays, as the reference keeps them):
 The build and the updates are host-side and structural, as in the
 reference. ``search`` runs on the tree's device: the snapshot of the live
 nodes is uploaded once after a build or an insert, never by a search, so a
-search makes no host sync.
+search makes no host sync. On the card a search is one launch of
+``kernels/flat_search.py``'s ``csb_search``; on the CPU it runs
+``search_plain``, a PyTorch composition, over slices of the batch.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .util import as_queries, by_chunks, resolve_device, sentinel_for, take, \
-    upload_async
+from ..kernels import flat_search
+from .util import as_queries, by_chunks, resolve_device, sentinel_for, \
+    take, upload_async
 
 
 @dataclass
@@ -216,6 +219,15 @@ class CSBTree:
     def search(self, queries) -> torch.Tensor:
         """Batched membership search -> found, bool [Q]. Alg 3.2: child
         address = group base + offset arithmetic (one stored reference)."""
+        keys, child, leaf_keys, root, height = self.snapshot()
+        q = as_queries(queries, keys)
+        if q.device.type == "cpu":
+            return self.search_plain(q)
+        return flat_search.csb_search(q, keys, child, leaf_keys, root=root,
+                                      height=height)
+
+    def search_plain(self, queries) -> torch.Tensor:
+        """The PyTorch composition of ``search`` on the tree's device."""
         keys, child, leaf_keys, root, height = self.snapshot()
         q = as_queries(queries, keys)
         return by_chunks(self.w, lambda qq: _search(

@@ -9,9 +9,11 @@ separators below the query in one wide compare; ``intra='binary'`` is the
 paper's binary range search (``log2 w`` dependent steps). Both read the
 same node and give the same child.
 
-Search gathers a ``[Q, w]`` node a level and a ``[Q, leaf_width]`` leaf
-block as row gathers (``util.take_rows``), over slices of the batch
-(``util.by_chunks``), with no host sync.
+On the card ``search`` is one launch of ``kernels/flat_search.py``'s
+``flat_descent`` (the level table from ``descent_args``). On the CPU it
+runs ``search_plain``, which gathers a ``[Q, w]`` node a level and a
+``[Q, leaf_width]`` leaf block as row gathers (``util.take_rows``), over
+slices of the batch (``util.by_chunks``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels import flat_search
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
                    resolve_device, sentinel_for, take_rows, upload_async)
 
@@ -129,9 +132,25 @@ def _search(index: CSSTreeIndex, q: torch.Tensor) -> torch.Tensor:
     return leaf_rank(index.leaf_pad, j, q, index.leaf_width)
 
 
-def search(index: CSSTreeIndex, queries) -> torch.Tensor:
-    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
-    q = as_queries(queries, index.keys)
+def search_plain(index: CSSTreeIndex, q: torch.Tensor) -> torch.Tensor:
+    """The PyTorch composition of ``search`` on the queries' device."""
     width = max(index.node_width, index.leaf_width)
     return by_chunks(width, lambda qq: _search(index, qq), q) \
         .clamp_max(index.n)
+
+
+def descent_args(index: CSSTreeIndex) -> flat_search.Descent:
+    """The directory's level table for ``flat_descent`` (cached)."""
+    return flat_search.level_descent("css", index.level_offsets,
+                                     index.node_width, index.intra)
+
+
+def search(index: CSSTreeIndex, queries) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]. On the
+    card one ``flat_descent`` launch, on the CPU ``search_plain``."""
+    q = as_queries(queries, index.keys)
+    if q.device.type == "cpu":
+        return search_plain(index, q)
+    return flat_search.flat_descent(q, index.dir_keys, descent_args(index),
+                                    index.leaf_pad, index.leaf_width,
+                                    ending="leaf", n=index.n)

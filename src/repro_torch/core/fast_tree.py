@@ -11,6 +11,9 @@ page per ``page_depth`` levels.
 
 ``leaf_page_of`` is the directory descent alone; ``kernels/ops.py::
 fast_page_search`` feeds it to the leaf-page kernel (two-phase search).
+On the card ``search`` and ``leaf_page_of`` are each one launch of
+``kernels/flat_search.py``'s ``flat_descent``; on the CPU they run
+``search_plain`` and ``leaf_page_of_plain``, PyTorch compositions.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels import flat_search
 from .css_tree import _directory, leaf_rank
 from .util import (as_queries, as_sorted_numpy, by_chunks, pad_to,
                    resolve_device, take_rows, upload_async)
@@ -124,10 +128,8 @@ def _descend(index: FastTreeIndex, q: torch.Tensor) -> torch.Tensor:
     return j
 
 
-def search(index: FastTreeIndex, queries) -> torch.Tensor:
-    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
-    q = as_queries(queries, index.keys)
-
+def search_plain(index: FastTreeIndex, q: torch.Tensor) -> torch.Tensor:
+    """The PyTorch composition of ``search`` on the queries' device."""
     def run(qq):
         return leaf_rank(index.leaf_pad, _descend(index, qq), qq,
                          index.leaf_width)
@@ -136,8 +138,35 @@ def search(index: FastTreeIndex, queries) -> torch.Tensor:
     return by_chunks(width, run, q).clamp_max(index.n)
 
 
+def leaf_page_of_plain(index: FastTreeIndex, q: torch.Tensor
+                       ) -> torch.Tensor:
+    """The PyTorch composition of ``leaf_page_of``."""
+    return by_chunks(index.node_width, lambda qq: _descend(index, qq), q)
+
+
+def descent_args(index: FastTreeIndex) -> flat_search.Descent:
+    """The paged directory's level table for ``flat_descent`` (cached)."""
+    return flat_search.page_descent(index.group_offsets, index.group_depths,
+                                    index.node_width)
+
+
+def search(index: FastTreeIndex, queries) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]. On the
+    card one ``flat_descent`` launch, on the CPU ``search_plain``."""
+    q = as_queries(queries, index.keys)
+    if q.device.type == "cpu":
+        return search_plain(index, q)
+    return flat_search.flat_descent(q, index.pages, descent_args(index),
+                                    index.leaf_pad, index.leaf_width,
+                                    ending="leaf", n=index.n)
+
+
 def leaf_page_of(index: FastTreeIndex, queries) -> torch.Tensor:
     """Leaf-block id per query (the directory descent only): the first
-    phase of the two-phase page-kernel search."""
+    phase of the two-phase page-kernel search. On the card one
+    ``flat_descent`` launch, on the CPU ``leaf_page_of_plain``."""
     q = as_queries(queries, index.keys)
-    return by_chunks(index.node_width, lambda qq: _descend(index, qq), q)
+    if q.device.type == "cpu":
+        return leaf_page_of_plain(index, q)
+    return flat_search.flat_descent(q, index.pages, descent_args(index),
+                                    ending="descent")

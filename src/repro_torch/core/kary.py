@@ -4,10 +4,12 @@ of ``repro/core/kary.py``.
 The linearized tree is a *permutation* of the sorted keys: every key
 appears exactly once, placed so each node's k-1 keys are contiguous. The
 rank accumulates digit by digit (rank = rank*f + c), so no back-pointers or
-final permutation inversion are needed. ``search`` here is a PyTorch
-composition (a ``[Q, w]`` row gather a level, over slices of the batch); the
-tiered engine's top tier and ``kernels/ops.py::kary_search`` descend the
-same tree with the CUDA kernel in ``kernels/kary_search.py``.
+final permutation inversion are needed. On the card ``search`` is one
+launch of ``kernels/flat_search.py``'s ``flat_descent``; on the CPU it runs
+``search_plain``, a PyTorch composition (a ``[Q, w]`` row gather a level,
+over slices of the batch). The tiered engine's top tier and
+``kernels/ops.py::kary_search`` descend the same tree, lane-padded, with
+the kernel in ``kernels/kary_search.py``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels import flat_search
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
                    resolve_device, take_rows, upload_async)
 
@@ -89,8 +92,23 @@ def _search(index: KaryTreeIndex, q: torch.Tensor) -> torch.Tensor:
     return j
 
 
-def search(index: KaryTreeIndex, queries) -> torch.Tensor:
-    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
-    q = as_queries(queries, index.keys)
+def search_plain(index: KaryTreeIndex, q: torch.Tensor) -> torch.Tensor:
+    """The PyTorch composition of ``search`` on the queries' device."""
     return by_chunks(index.node_width, lambda qq: _search(index, qq), q) \
         .clamp_max(index.n)
+
+
+def descent_args(index: KaryTreeIndex) -> flat_search.Descent:
+    """The tree's level table for ``flat_descent`` (cached)."""
+    return flat_search.level_descent("kary", index.level_offsets,
+                                     index.node_width)
+
+
+def search(index: KaryTreeIndex, queries) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]. On the
+    card one ``flat_descent`` launch, on the CPU ``search_plain``."""
+    q = as_queries(queries, index.keys)
+    if q.device.type == "cpu":
+        return search_plain(index, q)
+    return flat_search.flat_descent(q, index.tree, descent_args(index),
+                                    ending="rank", n=index.n)

@@ -9,6 +9,10 @@ equality becomes the final equality check of ``Index.lookup``).
 With ``linear_cutoff=c`` the last ``log2(c)`` halving steps are replaced by
 one vectorised compare over the remaining block of ``c`` keys — the thesis'
 "switch to linear search below a threshold", tuned for a vector unit.
+
+On the card ``search`` is one launch of ``kernels/flat_search.py``'s
+``flat_binary``; on the CPU it runs ``search_plain``, the same search as a
+PyTorch composition.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels import flat_search
 from .util import (as_queries, as_sorted_numpy, by_chunks, next_pow, pad_to,
                    resolve_device, take, upload_async)
 
@@ -66,13 +71,22 @@ def _search_pad(keys_pad: torch.Tensor, q: torch.Tensor, n_pad: int,
     return pos
 
 
-def search(index: SortedArrayIndex, queries) -> torch.Tensor:
-    """searchsorted-left rank of each query, in [0, n]; int32 [Q]."""
-    q = as_queries(queries, index.keys)
+def search_plain(index: SortedArrayIndex, q: torch.Tensor) -> torch.Tensor:
+    """The PyTorch composition of ``search`` on the queries' device:
+    ``_search_pad`` over slices of the batch, clamped to n."""
     cutoff = index.linear_cutoff
-    rank = by_chunks(cutoff, lambda qq: _search_pad(
-        index.keys_pad, qq, index.n_pad, cutoff), q)
-    return rank.clamp_max(index.n)
+    return by_chunks(cutoff, lambda qq: _search_pad(
+        index.keys_pad, qq, index.n_pad, cutoff), q).clamp_max(index.n)
+
+
+def search(index: SortedArrayIndex, queries) -> torch.Tensor:
+    """searchsorted-left rank of each query, in [0, n]; int32 [Q]. On the
+    card one ``flat_binary`` launch, on the CPU ``search_plain``."""
+    q = as_queries(queries, index.keys)
+    if q.device.type == "cpu":
+        return search_plain(index, q)
+    return flat_search.flat_binary(index.keys_pad, q, n_pad=index.n_pad,
+                                   cutoff=index.linear_cutoff, n=index.n)
 
 
 def reference_rank(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:

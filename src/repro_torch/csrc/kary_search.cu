@@ -42,8 +42,12 @@
 #include <stdint.h>
 
 #include "persistent.cuh"
+#include "sorted_row.cuh"
 
 namespace {
+
+using sorted_row::lower_bound;
+using sorted_row::padded_stride;
 
 constexpr int kMaxDepth = 8;
 constexpr int kThreads = 1024;
@@ -62,37 +66,6 @@ template <> __device__ __forceinline__ int32_t from_word<int32_t>(int w) {
 }
 template <> __device__ __forceinline__ float from_word<float>(int w) {
   return __int_as_float(w);
-}
-
-// Entry i of a staged row: shared rows hold one pad entry after every 32
-// (see kary_search_kernel); rows in device memory are read as they are,
-// through the read-only path.
-template <bool kGlobal, typename T>
-__device__ __forceinline__ T entry(const T* row, int i) {
-  return kGlobal ? __ldg(row + i) : row[i + (i >> 5)];
-}
-
-// #{i < n : row[i] < q} on a nondecreasing row of n >= 1 entries: the
-// answer lies in [base, base + n]; each step halves n without a branch.
-template <bool kGlobal, typename T>
-__device__ __forceinline__ int lower_bound(const T* row, int n, const T q) {
-  int base = 0;
-  while (n > 1) {
-    const int half = n >> 1;
-    base = entry<kGlobal>(row, base + half) < q ? base + half : base;
-    n -= half;
-  }
-  return base + (entry<kGlobal>(row, base) < q);
-}
-
-// Shared rows: one pad entry after every 32, and rows
-// wpad + wpad / 32 + 1 apart. The binary searches of a warp read, at one
-// step, entries 2^m (2t + 1) of one row (level 0) or the same entry of
-// different rows (level 1); unpadded, both fall in one bank and the warp
-// serialises up to 32 ways. Padded, entry i of row r sits in bank
-// (r * stride + i + i / 32) mod 32, which spreads both.
-__host__ __device__ __forceinline__ int padded_stride(int wpad) {
-  return wpad + (wpad >> 5) + 1;
 }
 
 template <typename T>

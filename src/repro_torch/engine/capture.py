@@ -70,12 +70,13 @@ class Captures:
 def kernel_wrappers() -> list:
     """The kernel wrappers whose launch counters a replay raises: each
     one's ``launches`` and, where it has them, its ``mode_launches``."""
-    from ..kernels import (cdf_search, kary_search, nitrogen_codegen,
-                           page_scan, page_search)
+    from ..kernels import (cdf_search, flat_search, kary_search,
+                           nitrogen_codegen, page_scan, page_search)
     return [page_search.page_search_bucketed,
             kary_search.kary_search_levels, page_scan.page_scan_bucketed,
             page_scan.page_prefix_bucketed, cdf_search.cdf_search,
-            nitrogen_codegen.nitrogen_search]
+            nitrogen_codegen.nitrogen_search, flat_search.flat_binary,
+            flat_search.flat_descent, flat_search.csb_search]
 
 
 def _counts(wrappers) -> list:

@@ -6,6 +6,7 @@ package, so it runs where only the port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import functools
 import types
 
 import numpy as np
@@ -1287,6 +1288,207 @@ def test_flat_store_lookup_and_fold_make_no_sync(cuda):
     for f in ("count", "r_lo", "r_hi_excl", "vsum", "vmin", "vmax", "ranks",
               "values", "overflow"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+# ---- the flat kinds' search kernels (kernels/flat_search.py)
+FLAT_KERNELS = {   # name: (core module, build kwargs)
+    "binary_c1": ("sorted_array", dict(linear_cutoff=1)),
+    "binary_c8": ("sorted_array", dict(linear_cutoff=8)),
+    "css_w128": ("css_tree", dict(node_width=128)),
+    "css_w128_binary": ("css_tree", dict(node_width=128, intra="binary")),
+    "css_w16": ("css_tree", dict(node_width=16)),
+    "css_w16_binary": ("css_tree", dict(node_width=16, intra="binary")),
+    "kary_w127": ("kary", dict(node_width=127)),
+    "fast_w15_pd2": ("fast_tree", dict(node_width=15, page_depth=2)),
+    "fast_w127_pd2": ("fast_tree", dict(node_width=127, page_depth=2)),
+}
+
+
+@functools.lru_cache(maxsize=4)
+def flat_edge_case(dtype, n_keys: int, n_q: int, seed: int = 29):
+    """Sorted keys with duplicate runs and the ends of the key domain
+    (INT32_MIN, INT32_MAX - 1; float32: +-0.0, subnormals, +-3.4e38) and
+    queries over the domain, every third key, the sentinel, NaN, +-0.0 and
+    subnormals. Cached: callers read the arrays, never write them."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        keys = np.concatenate([[I32.min, I32.min, I32.min + 1, I32.max - 1,
+                                I32.max - 1],
+                               rng.integers(I32.min, I32.max - 1,
+                                            n_keys - 5)])
+        rand = rng.integers(I32.min, I32.max, n_q)
+        edge = [I32.min, I32.min + 1, I32.max - 2, I32.max - 1, I32.max, 0]
+    else:
+        keys = np.concatenate([[0.0, -0.0, 1e-45, -1e-45, 3e-45, -3.4e38,
+                                3.4e38],
+                               rng.normal(size=n_keys - 7) * 10.0
+                               ** rng.integers(-40, 30, n_keys - 7)])
+        rand = rng.normal(size=n_q) * 10.0 ** rng.integers(-40, 30, n_q)
+        edge = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 2e-45]
+    keys = np.sort(keys.astype(dtype))
+    keys[1::7] = keys[::7][:keys[1::7].size]                # duplicate runs
+    keys = np.sort(keys)
+    q = np.concatenate([rand, keys[::3][:n_q], edge]).astype(dtype)
+    return keys, q
+
+
+def flat_rank(keys, q) -> np.ndarray:
+    """searchsorted-left, a NaN query at 0 (no key is below it)."""
+    return np.where(np.isnan(q.astype(np.float64)), 0,
+                    np.searchsorted(keys, q)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [4096, 1 << 24])      # in and past L2
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("name", list(FLAT_KERNELS))
+def test_flat_kernel_equals_plain(cuda, name, dtype, n_keys, monkeypatch):
+    """Each flat kind's search on the card: one launch of its kernel with
+    no host sync, bit for bit with the kind's plain composition on the same
+    card tensors, with the wrapper's plain version (the kernel's loop over
+    the level table) and with numpy; FAST's leaf_page_of too. A CUDA tensor
+    never reaches a plain version."""
+    from repro_torch import core
+    from repro_torch.kernels import flat_search as fs
+    mod_name, kw = FLAT_KERNELS[name]
+    mod = getattr(core, mod_name)
+    keys, q = flat_edge_case(dtype, n_keys, 1 << 18 if n_keys > 4096
+                             else 20_000)
+    idx = mod.build(keys, **kw, device=cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    plain = mod.search_plain(idx, qd)
+    want_page = mod.leaf_page_of_plain(idx, qd) if mod_name == "fast_tree" \
+        else None
+    if mod_name == "sorted_array":
+        emulated = fs.flat_binary_plain(idx.keys_pad, qd, n_pad=idx.n_pad,
+                                        cutoff=idx.linear_cutoff, n=idx.n)
+    else:
+        nodes = getattr(idx, {"css_tree": "dir_keys", "kary": "tree",
+                              "fast_tree": "pages"}[mod_name])
+        leaf = (idx.leaf_pad, idx.leaf_width) if mod_name != "kary" else ()
+        emulated = fs.flat_descent_plain(
+            qd, nodes, mod.descent_args(idx), *leaf,
+            ending="leaf" if leaf else "rank", n=idx.n)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for m, f in ((mod, "search_plain"), (mod, "leaf_page_of_plain"),
+                 (fs, "flat_binary_plain"), (fs, "flat_descent_plain")):
+        if hasattr(m, f):
+            monkeypatch.setattr(m, f, refuse)
+    wrapper = fs.flat_binary if mod_name == "sorted_array" \
+        else fs.flat_descent
+    wrapper.launches = 0
+    got = sync_free(lambda: mod.search(idx, qd))
+    assert wrapper.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert torch.equal(got, emulated)
+    assert np.array_equal(got.cpu().numpy(), flat_rank(keys, q))
+    if want_page is not None:
+        page = sync_free(lambda: mod.leaf_page_of(idx, qd))
+        assert wrapper.launches == 2
+        assert fs.flat_descent.mode_launches["fast_descent"] >= 1
+        assert torch.equal(page, want_page)
+    launched = wrapper.launches
+    assert mod.search(idx, qd[:0]).shape == (0,)
+    assert wrapper.launches == launched                 # Q = 0: no launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n_keys", [4096, 1 << 20])
+def test_csb_kernel_equals_plain_through_splits(cuda, dtype, n_keys,
+                                                monkeypatch):
+    """CSBTree.search on the card: one csb_search launch with no host sync,
+    equal to the plain composition and to the wrapper's plain version on
+    the same snapshot and to np.isin, from a root leaf through its split
+    and on a large tree after inserts."""
+    from repro_torch.core import CSBTree, csb_tree
+    from repro_torch.kernels import flat_search as fs
+    keys, q = flat_edge_case(dtype, n_keys, 20_000, seed=30)
+    keys = np.unique(keys)
+    real = q != (I32.max if dtype == np.int32 else np.inf)
+    rng = np.random.default_rng(31)
+    tree = CSBTree.build(keys[:4], w=8)
+    stages = [keys[4:9], rng.choice(keys, 4000 if n_keys > 4096 else 500)]
+    for new in stages:
+        for k in new:
+            tree.insert(k)
+        snap = tree.snapshot()
+        qd = torch.from_numpy(q).to(cuda)
+        plain = tree.search_plain(qd)
+        emulated = fs.csb_search_plain(qd, *snap[:3], root=snap[3],
+                                       height=snap[4])
+        with monkeypatch.context() as mp:
+            mp.setattr(csb_tree, "_search", None)     # never reached
+            mp.setattr(fs, "csb_search_plain", None)
+            fs.csb_search.launches = 0
+            got = sync_free(lambda: tree.search(qd))
+            assert fs.csb_search.launches == 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain) and torch.equal(got, emulated)
+        assert np.array_equal(got.cpu().numpy()[real],
+                              np.isin(q, tree.iter_keys())[real])
+    assert tree.height > 2
+    big = CSBTree.build(keys, w=8)
+    for k in rng.choice(keys, 2000):
+        big.insert(k + (1 if dtype == np.int32 else 0.5))
+    qd = torch.from_numpy(q).to(cuda)
+    got = sync_free(lambda: big.search(qd))
+    assert torch.equal(got, fs.csb_search_plain(
+        qd, *big.snapshot()[:3], root=big.root, height=big.height))
+    assert big.search(qd[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    dict(kind="binary"), dict(kind="css", node_width=16, intra="binary"),
+    dict(kind="css"), dict(kind="kary", node_width=127),
+    dict(kind="fast", node_width=15)],
+    ids=lambda c: "-".join(map(str, c.values())))
+def test_flat_kernel_inside_a_graph(cuda, cfg):
+    """specialize=True: the capture records the kind's one kernel launch,
+    each replay counts one, and replays equal the args posture."""
+    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.kernels import flat_search as fs
+    keys, q = flat_edge_case(np.int32, 300_000, 50_000, seed=32)
+    args = build_index(keys, config=IndexConfig(**cfg))
+    spec = build_index(keys, config=IndexConfig(**cfg, specialize=True))
+    qd = torch.from_numpy(q).to(cuda)
+    wrapper = fs.flat_binary if cfg["kind"] == "binary" else fs.flat_descent
+    sync_free(lambda: spec.search(qd))                  # capture
+    wrapper.launches = 0
+    got = [sync_free(lambda: spec.search(qd)) for _ in range(2)]
+    assert wrapper.launches == 2 and spec.captures.n == 1
+    want = args.search(qd)
+    assert all(torch.equal(g, want) for g in got)
+    assert np.array_equal(want.cpu().numpy(), flat_rank(np.sort(keys), q))
+
+
+@pytest.mark.cuda
+def test_flat_kernels_refuse_what_they_cannot_take(cuda):
+    from repro_torch.core import css_tree, sorted_array
+    from repro_torch.kernels import flat_search as fs
+    keys = np.arange(0, 3000, 3, dtype=np.int32)
+    c = css_tree.build(keys, node_width=16, device=cuda)
+    d = css_tree.descent_args(c)
+    q16 = torch.zeros(4, dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError, match="int32, float32"):
+        fs.flat_descent(q16, c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                        ending="leaf", n=c.n)
+    qf = torch.zeros(4, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        fs.flat_descent(qf, c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                        ending="leaf", n=c.n)
+    b = sorted_array.build(keys, device=cuda)
+    on_cpu = sorted_array.build(keys, device="cpu")
+    with pytest.raises(ValueError, match="contiguous on the queries'"):
+        fs.flat_binary(on_cpu.keys_pad, qf.int(), n_pad=b.n_pad, cutoff=1,
+                       n=b.n)
+    qd = torch.from_numpy(keys[::2].copy()).to(cuda)
+    strided = sorted_array.search(b, torch.from_numpy(keys).to(cuda)[::2])
+    assert torch.equal(strided, sorted_array.search(b, qd))
 
 
 # ---- the generated NitroGen kernel (kernels/nitrogen_codegen.py)

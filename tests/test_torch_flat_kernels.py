@@ -1,0 +1,268 @@
+"""The flat kinds' search kernels (``kernels/flat_search.py``) held to the
+reference's jitted searchers through their packed arguments.
+
+A CUDA kernel cannot run here, so each wrapper's plain version stands for
+it: ``flat_descent_plain`` re-states the kernel's per-query loop and reads
+only what the wrapper hands the kernel (the level table of
+``level_descent`` / ``page_descent``, the ending, n), ``flat_binary_plain``
+and ``csb_search_plain`` the arguments of theirs. The same numpy keys and
+queries (seeded) go through the reference's searcher (jitted, as its
+``search`` runs it) and through those plain versions on the CPU: ranks and
+found flags must be bit-identical, and equal numpy. Shapes are
+``chip_smoke.py``'s phase 15 configurations at a few thousand keys, with
+both intra-node searches, cutoffs 1 and 8, page depths 1-3 and a CSB+-tree
+through a root split. Subnormal floats stay out of the JAX comparisons
+(XLA's CPU backend flushes them in compares) and are held to numpy."""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import csb_tree as ref_csb
+from repro.core import css_tree as ref_css
+from repro.core import fast_tree as ref_fast
+from repro.core import kary as ref_kary
+from repro.core import sorted_array as ref_sorted
+
+from repro_torch.core import csb_tree as pt_csb
+from repro_torch.core import css_tree as pt_css
+from repro_torch.core import fast_tree as pt_fast
+from repro_torch.core import kary as pt_kary
+from repro_torch.core import sorted_array as pt_sorted
+from repro_torch.kernels import flat_search as fs
+
+torch.set_num_threads(1)
+
+I32 = np.iinfo(np.int32)
+N_KEYS, N_Q = 3_000, 1_024        # one query shape: one reference jit a kind
+
+
+def int_data(rng):
+    """Keys with duplicate runs and both ends of int32 (INT32_MIN up to the
+    sentinel's neighbour INT32_MAX - 1); queries over the whole domain,
+    every tenth key, the sentinel and its neighbours."""
+    keys = np.concatenate([[I32.min, I32.min, I32.min + 1, I32.max - 1,
+                            I32.max - 1],
+                           rng.integers(-50_000, 50_000, N_KEYS - 5)])
+    keys = np.sort(keys.astype(np.int32))
+    keys[1::7] = keys[::7][:keys[1::7].size]            # duplicate runs
+    keys = np.sort(keys)
+    edge = [I32.min, I32.min + 1, I32.max - 2, I32.max - 1, I32.max, 0, -1]
+    q = np.concatenate([rng.integers(-60_000, 60_000, N_Q - 600 - len(edge)),
+                        rng.integers(I32.min, I32.max, 600 // 2),
+                        keys[:: 2 * N_KEYS // 600][:600 // 2], edge])
+    return keys, q.astype(np.int32)
+
+
+def float_data(rng):
+    """Keys with signed zeros, duplicate runs and +-3.4e38; queries with
+    +-0.0, +-inf and NaN (below nothing: rank 0)."""
+    keys = np.concatenate([[0.0, -0.0, 0.0, -3.4e38, 3.4e38],
+                           rng.normal(size=N_KEYS - 5) * 1e3])
+    keys = np.sort(keys.astype(np.float32))
+    keys[1::7] = keys[::7][:keys[1::7].size]
+    keys = np.sort(keys)
+    edge = [0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38, -3.4e38]
+    q = np.concatenate([rng.normal(size=N_Q - 300 - len(edge)) * 1e3,
+                        keys[:: N_KEYS // 300][:300], edge])
+    return keys, q.astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=["int32", "float32"])
+def data(request):
+    rng = np.random.default_rng(29)
+    keys, q = (int_data if request.param == "int32" else float_data)(rng)
+    return keys, q, torch.from_numpy(q)
+
+
+def same(got: torch.Tensor, want, what=""):
+    want = np.asarray(want)
+    assert got.numpy().dtype == want.dtype, what
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
+
+
+def rank_of(keys, q) -> np.ndarray:
+    """numpy's searchsorted-left, NaN queries at 0 as a count of keys < q
+    gives them (numpy sorts NaN past every key)."""
+    return np.where(np.isnan(q.astype(np.float64)), 0,
+                    np.searchsorted(keys, q)).astype(np.int32)
+
+
+# ---------------------------------------------------------------- binary
+@pytest.mark.parametrize("cutoff", [1, 8])
+def test_flat_binary_args_match_the_reference(data, cutoff):
+    keys, q, qt = data
+    ref = ref_sorted.build(keys, linear_cutoff=cutoff)
+    pt = pt_sorted.build(keys, linear_cutoff=cutoff, device="cpu")
+    got = fs.flat_binary(pt.keys_pad, qt, n_pad=pt.n_pad,
+                         cutoff=pt.linear_cutoff, n=pt.n)
+    same(got, ref_sorted.search(ref, q))
+    same(got, rank_of(keys, q))
+    same(pt_sorted.search(pt, q), got)
+
+
+# -------------------------------------------------------- css, kary, fast
+CSS = [(128, "vector"), (128, "binary"), (16, "vector"), (16, "binary")]
+
+
+@pytest.mark.parametrize("w,intra", CSS, ids=[f"w{w}-{i}" for w, i in CSS])
+def test_css_descent_args_match_the_reference(data, w, intra):
+    keys, q, qt = data
+    ref = ref_css.build(keys, node_width=w, intra=intra)
+    pt = pt_css.build(keys, node_width=w, intra=intra, device="cpu")
+    d = pt_css.descent_args(pt)
+    assert d.page_row == tuple(o // w for o in pt.level_offsets)
+    assert d.page_rows == (1,) * pt.depth and d.level_row == (0,) * pt.depth
+    assert d.starts == 2**pt.depth - 1 and d.intra == intra
+    assert d.group == (1 if intra == "binary" else 4)
+    got = fs.flat_descent(qt, pt.dir_keys, d, pt.leaf_pad, pt.leaf_width,
+                          ending="leaf", n=pt.n)
+    same(got, ref_css.search(ref, q))
+    same(got, rank_of(keys, q))
+    same(pt_css.search(pt, q), got)
+
+
+def test_kary_descent_args_match_the_reference(data):
+    keys, q, qt = data
+    ref = ref_kary.build(keys, node_width=127)
+    pt = pt_kary.build(keys, node_width=127, device="cpu")
+    d = pt_kary.descent_args(pt)
+    assert pt.depth == 2 and d.page_row == (0, 1) and d.starts == 0b11
+    got = fs.flat_descent(qt, pt.tree, d, ending="rank", n=pt.n)
+    same(got, ref_kary.search(ref, q))
+    same(got, rank_of(keys, q))
+
+
+FAST = [(15, 1), (15, 2), (15, 3), (127, 2), (3, 2)]
+
+
+@pytest.mark.parametrize("w,pd", FAST, ids=[f"w{w}-pd{p}" for w, p in FAST])
+def test_fast_descent_args_match_the_reference(data, w, pd):
+    """Search and leaf_page_of; the level table against FAST's page
+    arithmetic (core.fast_tree._page_size)."""
+    keys, q, qt = data
+    ref = ref_fast.build(keys, node_width=w, page_depth=pd)
+    pt = pt_fast.build(keys, node_width=w, page_depth=pd, device="cpu")
+    d = pt_fast.descent_args(pt)
+    lvl = 0
+    for g, gd in enumerate(pt.group_depths):
+        assert d.starts >> lvl & 1
+        assert d.page_row[lvl] == pt.group_offsets[g] // w
+        assert d.page_rows[lvl] == pt_fast._page_size(w, gd) // w
+        for dl in range(gd):
+            assert d.level_row[lvl + dl] == pt_fast._page_size(w, dl) // w
+            assert (d.starts >> (lvl + dl) & 1) == (dl == 0)
+        lvl += gd
+    assert d.depth == pt.depth
+    got = fs.flat_descent(qt, pt.pages, d, pt.leaf_pad, pt.leaf_width,
+                          ending="leaf", n=pt.n)
+    same(got, ref_fast.search(ref, q))
+    same(got, rank_of(keys, q))
+    page = fs.flat_descent(qt, pt.pages, d, ending="descent")
+    same(page, ref_fast.leaf_page_of(ref, q))
+    same(pt_fast.leaf_page_of(pt, q), page)
+
+
+# ------------------------------------------------------------------- CSB+
+def test_csb_search_args_match_the_reference_through_a_root_split():
+    """A root leaf split into a root over two leaves, then inserts that
+    split leaves, grow the root and fall back to a rebuild: after each
+    stage the snapshot the wrapper takes answers as the reference's tree
+    (its root, height and node arrays too). A query equal to the sentinel
+    reads as found where its leaf has a free slot, in both packages, so
+    numpy checks the others."""
+    rng = np.random.default_rng(8)
+    keys = np.arange(0, 20, 5, dtype=np.int32)    # a half-full root leaf
+    ref, pt = ref_csb.CSBTree.build(keys, w=8), \
+        pt_csb.CSBTree.build(keys, w=8, device="cpu")
+    assert pt.height == 1
+    q = np.concatenate([np.arange(-3, 2_050, 2), [I32.min, I32.max - 1,
+                                                  I32.max]])[:N_Q]
+    q = q.astype(np.int32)
+    stages = [np.array([1, 2, 3, 4, 6], np.int32),    # fill it, split it
+              rng.integers(0, 2_000, 60).astype(np.int32),
+              rng.integers(0, 2_000, 400).astype(np.int32)]
+    heights = []
+    for new in stages:
+        for k in new:
+            assert ref.insert(k) == pt.insert(k)
+        keys_d, child, leaf_keys, root, height = pt.snapshot()
+        assert (root, height) == ref.snapshot()[3:]
+        for mine, theirs in zip((keys_d, child, leaf_keys), ref.snapshot()):
+            same(mine, theirs)
+        heights.append(height)
+        got = fs.csb_search(torch.from_numpy(q), keys_d, child, leaf_keys,
+                            root=root, height=height)
+        same(got, ref.search(q))
+        real = q != I32.max
+        same(got[real], np.isin(q, pt.iter_keys())[real])
+        same(pt.search(q), got)
+    assert heights[0] == 2 and heights[-1] > heights[0]
+
+
+# ----------------------------------------------------- subnormals, numpy
+def test_subnormals_follow_ieee():
+    """Subnormal keys and queries, against numpy (IEEE, as the kernels
+    compare): XLA's CPU backend flushes them, so no reference here."""
+    keys = np.sort(np.array([-3e-45, -1e-45, -0.0, 0.0, 1e-45, 2e-45, 3e-45,
+                             1e-40, 1.2e-38, 1.0], np.float32))
+    q = np.array([-2e-45, -1e-45, -0.0, 0.0, 1e-45, 1.5e-45, 2e-45, 5e-41,
+                  1e-40, 2e-38, np.nan], np.float32)
+    qt, want = torch.from_numpy(q), rank_of(keys, q)
+    b = pt_sorted.build(keys, linear_cutoff=8, device="cpu")
+    same(fs.flat_binary(b.keys_pad, qt, n_pad=b.n_pad, cutoff=8, n=b.n), want)
+    for intra in ("vector", "binary"):
+        c = pt_css.build(keys, node_width=2, intra=intra, device="cpu")
+        same(fs.flat_descent(qt, c.dir_keys, pt_css.descent_args(c),
+                             c.leaf_pad, c.leaf_width, ending="leaf", n=c.n),
+             want)
+    k = pt_kary.build(keys, node_width=3, device="cpu")
+    same(fs.flat_descent(qt, k.tree, pt_kary.descent_args(k), ending="rank",
+                         n=k.n), want)
+    f = pt_fast.build(keys, node_width=1, page_depth=2, device="cpu")
+    same(fs.flat_descent(qt, f.pages, pt_fast.descent_args(f), f.leaf_pad,
+                         f.leaf_width, ending="leaf", n=f.n), want)
+    t = pt_csb.CSBTree.build(keys, w=2, device="cpu")
+    same(fs.csb_search(qt, *t.snapshot()[:3], root=t.root, height=t.height),
+         np.isin(q, keys))
+
+
+# -------------------------------------------------------- wrapper surface
+def test_group_lanes_and_tables_are_cached():
+    assert [fs.group_lanes(w) for w in (1, 4, 5, 8, 9, 16, 127, 129,
+                                        500)] == [1, 1, 2, 2, 4, 4, 4, 4, 4]
+    a = fs.level_descent("css", (0, 128, 16_640), 128)
+    assert a is fs.level_descent("css", (0, 128, 16_640), 128)
+    assert all(x.dtype == np.int32 and x.flags.c_contiguous
+               for x in a.arrays)
+    assert [list(x) for x in a.arrays] == [[0, 1, 130], [1, 1, 1], [0, 0, 0]]
+    with pytest.raises(ValueError, match="multiple of w"):
+        fs.level_descent("kary", (0, 5), 4)
+    with pytest.raises(ValueError, match="levels"):
+        fs.level_descent("kary", tuple(range(0, 65 * 4, 4)), 4)
+
+
+def test_wrappers_take_zero_queries_and_refuse_other_devices():
+    keys = np.arange(0, 300, 3, dtype=np.int32)
+    c = pt_css.build(keys, node_width=4, device="cpu")
+    d = pt_css.descent_args(c)
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert fs.flat_descent(empty, c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                           ending="leaf", n=c.n).shape == (0,)
+    b = pt_sorted.build(keys, device="cpu")
+    assert fs.flat_binary(b.keys_pad, empty, n_pad=b.n_pad, cutoff=1,
+                          n=b.n).shape == (0,)
+    t = pt_csb.CSBTree.build(keys, device="cpu")
+    assert t.search(empty).dtype == torch.bool
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fs.flat_descent(meta, c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                        ending="leaf", n=c.n)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fs.flat_binary(b.keys_pad, meta, n_pad=b.n_pad, cutoff=1, n=b.n)
+    with pytest.raises(ValueError, match="unknown ending"):
+        fs.flat_descent(empty, c.dir_keys, d, ending="bogus")
+    before = (fs.flat_binary.launches, fs.flat_descent.launches,
+              fs.csb_search.launches)
+    pt_css.search(c, keys)                  # the CPU runs the plain version
+    assert (fs.flat_binary.launches, fs.flat_descent.launches,
+            fs.csb_search.launches) == before
