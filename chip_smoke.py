@@ -197,12 +197,16 @@ Phases, in order; any failure exits non-zero with its traceback:
      counts against numpy, each one kernel launch a search (the counters
      set to 0 before and read after); lookup / search_range ms, the
      lookup's launches, torch.searchsorted beside them; ops.kary_search
-     refused on the 2^24-key tree by the reference's VMEM guard. Each flat
-     kind's kernel (kernels/flat_search.py; also css w128 / w16 with
-     intra="binary" and fast w127) on the 2^20 queries: one launch with no
-     host sync, == the plain composition and numpy (FAST's leaf_page_of
-     too), its event ms, graph_amortised_ms, profiler device ms, the plain
-     version's ms and the bound from these queries beside
+     refused on the 2^24-key tree by the reference's VMEM guard; each
+     flat kind's row also gives the bytes of its kernel's stage and
+     samples (stage_bytes: device_bytes less it is the index without
+     them). Each flat kind's kernel (kernels/flat_search.py; also css
+     w128 / w16 with intra="binary" and fast w127) on the 2^20 queries
+     (a batch that fills the kernels' persistent grid, which stages the
+     first levels in shared memory): one launch with no host sync, == the
+     plain composition and numpy, a CUDA-graph replay == the call (FAST's
+     leaf_page_of too, with its own bound), its event ms, graph_amortised_ms, profiler device ms, the
+     plain version's ms and the bound from these queries beside
      torch.searchsorted's. Then CSBTree over 2^20 of the keys (w = 8),
      4,096 inserts, a 2^20-query search against np.isin (its kernel the
      same, beside torch.isin); a float32 pass over 2^20 keys for every
@@ -3865,6 +3869,8 @@ def kind_run(dev, name, cfg, keys_sorted, values_sorted, q_dev, want,
     row = {"build_s": time.perf_counter() - t0,
            "device_bytes": torch.cuda.memory_allocated() - base,
            "tree_bytes": idx.tree_bytes}
+    if cfg["kind"] in FLAT_MODULES:      # its kernel's stage and samples
+        row["stage_bytes"] = idx.impl.stage.nbytes
     got, row["lookup_launches"] = launches_during(
         lambda: no_sync(lambda: idx.lookup(q_dev)))
     check_lookup(got, want, f"{name} lookup")
@@ -3890,14 +3896,20 @@ def kind_run(dev, name, cfg, keys_sorted, values_sorted, q_dev, want,
     return row, idx
 
 
-def flat_work(mod, impl, qd: torch.Tensor) -> tuple[int, int]:
+def flat_work(mod, impl, qd: torch.Tensor,
+              leaf: bool = True) -> tuple[int, int]:
     """(bytes, compares) that one search of ``qd`` needs on a flat kind:
-    each query read and each rank written once, each key slot the search
-    reads read once (its probes replayed on the card: the binary probes and
-    the cutoff's blocks, or each level's node rows and the leaf blocks), and
-    for each query a binary search's compares in each sorted row it
-    reads."""
-    from repro_torch.core.util import take, take_rows
+    each query read and each rank written once, each key the search needs
+    read once, replayed on the card from these queries, and for each query
+    a binary search's compares in each sorted row it reads. The binary
+    kind needs its probes and the cutoff's blocks. A descent needs, at each
+    level (and at the leaf block, with ``leaf``), nothing of a node past
+    its level's live nodes or of a leaf block past n; of any other row, as
+    the kernel reads it: a row wider than ``whole_keys`` its sample row and
+    the one block that holds the bound, a narrower one whole, and under
+    ``intra="binary"`` the keys its lower bound probes."""
+    from repro_torch.core.util import take
+    from repro_torch.kernels import flat_search as fs
     q_n, item = qd.shape[0], qd.element_size()
     if mod.__name__.endswith("sorted_array"):
         cut = impl.linear_cutoff
@@ -3913,32 +3925,70 @@ def flat_work(mod, impl, qd: torch.Tensor) -> tuple[int, int]:
         if cut > 1:
             slots += int(torch.unique(pos).numel()) * cut
             compares += q_n * sorted_count_compares(cut)
-    else:
-        d = mod.descent_args(impl)
-        nodes = impl.tree if d.kind == "kary" else (
-            impl.pages if d.kind == "fast" else impl.dir_keys)
-        w, n_rows = d.node_width, nodes.numel() // d.node_width
-        j = torch.zeros(q_n, dtype=torch.int32, device=qd.device)
-        j_local, page, rows = torch.zeros_like(j), torch.zeros_like(j), []
-        for lev in range(d.depth):
-            if d.starts >> lev & 1:
-                page, j_local = d.page_row[lev] + j * d.page_rows[lev], 0 * j
-            r = (page + d.level_row[lev] + j_local).clamp(0, n_rows - 1)
-            rows.append(r)
-            c = torch.zeros_like(j)
-            for s in range(0, q_n, 1 << 18):       # [chunk, w] blocks
-                c[s:s + (1 << 18)] = (take_rows(nodes, w, r[s:s + (1 << 18)])
-                                      < qd[s:s + (1 << 18), None]).sum(
-                    -1, dtype=torch.int32)
-            j, j_local = j * d.fanout + c, j_local * d.fanout + c
-        slots = int(torch.unique(torch.cat(rows)).numel()) * w if rows else 0
-        compares = q_n * d.depth * sorted_count_compares(w)
-        if d.kind != "kary":
-            lw = impl.leaf_width
-            blocks = j.clamp(0, impl.leaf_pad.numel() // lw - 1)
-            slots += int(torch.unique(blocks).numel()) * lw
-            compares += q_n * sorted_count_compares(lw)
-    return q_n * item + q_n * 4 + slots * item, compares
+        return q_n * item + q_n * 4 + slots * item, compares
+    d, st = mod.descent_args(impl), impl.stage
+    nodes = impl.tree if d.kind == "kary" else (
+        impl.pages if d.kind == "fast" else impl.dir_keys)
+    dtype = np.dtype(str(qd.dtype).split(".")[-1])
+    blk, binary = fs.block_keys(dtype), d.intra == "binary"
+
+    def count_rows(a, width, row, on, sample_at, sample_width):
+        """(the keys below each query in its row ``row`` of ``a``, the
+        keys read: unique over the batch)."""
+        c, chunk = torch.zeros_like(row), 1 << 16
+        for s in range(0, q_n, chunk):              # [chunk, w] blocks
+            rows = a.view(-1, width)[row[s:s + chunk].long()]
+            c[s:s + chunk] = (rows < qd[s:s + chunk, None]).sum(
+                -1, dtype=torch.int32)
+        row, c_on = row.long()[on], c.long()[on]
+        if binary:                    # the probes of sorted_row::lower_bound
+            base, m, probes = torch.zeros_like(row), width, []
+            while m > 1:
+                half = m >> 1
+                probes.append(row * width + base + half)
+                base = torch.where(base + half < c_on, base + half, base)
+                m -= half
+            probes.append(row * width + base)
+            return c, int(torch.unique(torch.cat(probes)).numel())
+        if width <= fs.whole_keys(dtype):
+            return c, int(torch.unique(row).numel()) * width
+        b = torch.clamp(c_on // blk, max=-(-width // blk) - 1)
+        smp = int(torch.unique(sample_at[on].long()).numel()) * sample_width
+        start = torch.unique(row * width + b * blk)
+        ends = torch.minimum(start + blk, (start // width + 1) * width)
+        return c, smp + int((ends - start).sum())
+
+    w, n_rows = d.node_width, nodes.numel() // d.node_width
+    j = torch.zeros(q_n, dtype=torch.int32, device=qd.device)
+    j_local, page, keys = torch.zeros_like(j), torch.zeros_like(j), 0
+    for lev in range(d.depth):
+        if d.starts >> lev & 1:
+            page, j_local = d.page_row[lev] + j * d.page_rows[lev], 0 * j
+        r = (page + d.level_row[lev] + j_local).clamp(0, n_rows - 1)
+        on = j < st.live[lev]
+        c, got = count_rows(nodes, w, r, on, st.sample_row[lev] + j,
+                            st.sample_width)
+        c = torch.where(on, c, 0)
+        keys += got
+        j, j_local = j * d.fanout + c, j_local * d.fanout + c
+    compares = q_n * d.depth * sorted_count_compares(w)
+    if d.kind != "kary" and leaf:
+        lw = impl.leaf_width
+        on = j.long() * lw < impl.n
+        blocks = j.clamp(0, impl.leaf_pad.numel() // lw - 1)
+        keys += count_rows(impl.leaf_pad, lw, blocks, on, j,
+                           st.leaf_sample_width)[1]
+        compares += q_n * sorted_count_compares(lw)
+    return q_n * item + q_n * 4 + keys * item, compares
+
+
+def replay_equals(fn, qd: torch.Tensor, want: torch.Tensor) -> bool:
+    """fn(qd) replayed from a CUDA graph (engine/capture.Specialized: the
+    first call captures) equals ``want``, the call's result."""
+    from repro_torch.engine.capture import Captures, Specialized
+    spec = Specialized(fn, device=qd.device, captures=Captures())
+    spec(qd)
+    return torch.equal(spec(qd), want)
 
 
 def flat_kernel_run(name, kind, impl, qd, want_rank, library: dict) -> dict:
@@ -3959,9 +4009,12 @@ def flat_kernel_run(name, kind, impl, qd, want_rank, library: dict) -> dict:
     check(same, f"{name}: kernel != plain")
     check(np.array_equal(got.cpu().numpy(), want_rank),
           f"{name}: kernel != np.searchsorted")
+    replay = replay_equals(lambda x: mod.search(impl, x), qd, got)
+    check(replay, f"{name}: a graph replay != the call")
     b = bound(*flat_work(mod, impl, qd))
     row = {"wrapper": wrapper, "launches": launches[wrapper],
            "kernel_vs_plain": same, "max_abs_err": err,
+           "graph_replay_equal": replay, "stage_bytes": impl.stage.nbytes,
            "ms": cuda_ms(lambda: mod.search(impl, qd)),
            "graph_amortised_ms": graph_amortised_ms(
                lambda: mod.search(impl, qd)),
@@ -3976,7 +4029,11 @@ def flat_kernel_run(name, kind, impl, qd, want_rank, library: dict) -> dict:
               f"{name}: leaf_page_of launched {launches}")
         same = torch.equal(page, mod.leaf_page_of_plain(impl, qd))
         check(same, f"{name}: leaf_page_of kernel != plain")
+        replay = replay_equals(lambda x: mod.leaf_page_of(impl, x), qd, page)
+        check(replay, f"{name}: a leaf_page_of replay != the call")
+        b = bound(*flat_work(mod, impl, qd, leaf=False))
         row["leaf_page_of"] = {
+            "graph_replay_equal": replay, "bound_ms": b[0], "bound_by": b[1],
             "launches": launches[wrapper], "kernel_vs_plain": same,
             "ms": cuda_ms(lambda: mod.leaf_page_of(impl, qd)),
             "graph_amortised_ms": graph_amortised_ms(
@@ -4423,7 +4480,7 @@ def flat_rows(kernels: dict, path: dict) -> list:
         out.append({
             "name": wrapper, "route": "cuda",
             "source": "src/repro_torch/csrc/flat_search.cu "
-                      "(+ sorted_row.cuh)",
+                      "(+ sorted_row.cuh, persistent.cuh)",
             "replaces": replaces, "launches": path[wrapper],
             "max_abs_err": max(v["max_abs_err"] for v in runs.values()),
             **{k: h[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

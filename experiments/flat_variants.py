@@ -1,37 +1,32 @@
 #!/usr/bin/env python3
-"""The flat kinds' kernels (kernels/flat_search.py) at other lane groups,
+"""The flat kinds' kernels (kernels/flat_search.py) at other stage budgets,
 timed on one card.
 
     python3 experiments/flat_variants.py [--out FILE]
 
-Builds chip_smoke.py phase 15's flat indexes over 2^24 int32 keys (css
-w128 and w16, kary w127, FAST w15 and w127 at page depth 2) and its
+Builds chip_smoke.py phase 15's flat indexes over 2^24 int32 keys (binary
+at cutoffs 1 and 8, css w128 and w16 with both intra-node searches, kary
+w127, FAST w15 and w127 at page depth 2, FAST's descent alone) and its
 CSB+-tree over 2^20 of them (w 8), draws 2^20 queries (half hits), and
-times each kernel's search under each rule for the lanes a query
-(``flat_search.group_lanes``, patched for the run):
+times each kernel's search with its index's stage rebuilt at a budget of
+B bytes (``flat_search.STAGE_BYTES``, patched for the build; flat_descent:
+0, nothing staged, every level read in place, 4, 16 and 96 KB, the port's;
+flat_binary: 0, 16, 48 and 96 KB). (The kernel's queries a thread and
+lanes a query were chosen the same way, with instances since removed:
+PERF.md §6.)
 
-  port      the port's rule: a power of two near w / 4 (so that the
-            kernel's four rounds of loads in flight cover a node), at
-            most 4 lanes: a wider node takes several batches of rounds;
-  quarter   the power of two near w / 4, at most a warp (w 128: 32);
-  whole     the width rounded up to a power of two, at most a warp: a
-            round covers a node, four times fewer queries in flight;
-  capC      the quarter rule capped at C lanes (C = 2, 8, 16; 4 is the
-            port's): C lanes a query keep 32 / C queries a warp in
-            flight;
-
-and css at intra="binary" (one thread a query, a lower bound in each
-node and leaf block) beside them. Each search is held to the kind's plain
-composition bit for bit first. Times are events around a CUDA graph of
-20 back-to-back calls, divided by their number (median of 7 replays,
-chip_smoke.graph_amortised_ms), in turns: each rule once, then
-again in reverse order; torch.searchsorted over the same keys beside them.
-The result is the last line of the output, with the card's name and power
-limit.
+Each search is held to the kind's plain composition bit for bit first.
+Times are events around a CUDA graph of 20 back-to-back calls, divided by
+their number (median of 7 replays, chip_smoke.graph_amortised_ms), in
+turns: each variant once, then again in reverse order; torch.searchsorted
+over the same keys beside them, and csb_search (kernel 9, unchanged) at
+its own rule. The result is the last line of the output, with the card's
+name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,44 +40,72 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.core import CSBTree, css_tree, fast_tree, kary  # noqa: E402
+from repro_torch.core import (CSBTree, css_tree, fast_tree, kary,  # noqa: E402
+                              sorted_array)
 from repro_torch.kernels import flat_search as fs  # noqa: E402
 
-PORT = fs.group_lanes
-
-
-def quarter(w: int) -> int:
-    return min(32, 1 << max(-(-int(w) // fs.ROUNDS) - 1, 0).bit_length())
-
-
-RULES = {
-    "port": PORT,
-    "quarter": quarter,
-    "whole": lambda w: min(32, 1 << max(int(w) - 1, 0).bit_length()),
-    **{f"cap{c}": (lambda w, c=c: min(c, quarter(w))) for c in (2, 8, 16)},
-}
+BUDGETS = (0, 4 * 1024, 16 * 1024, 96 * 1024)
+BINARY_BUDGETS = (0, 16 * 1024, 48 * 1024, 96 * 1024)
 CONFIGS = (
     ("css_w128", css_tree, dict(node_width=128)),
+    ("css_w128_binary", css_tree, dict(node_width=128, intra="binary")),
     ("css_w16", css_tree, dict(node_width=16)),
+    ("css_w16_binary", css_tree, dict(node_width=16, intra="binary")),
     ("kary_w127", kary, dict(node_width=127)),
     ("fast_w15_pd2", fast_tree, dict(node_width=15, page_depth=2)),
     ("fast_w127_pd2", fast_tree, dict(node_width=127, page_depth=2)),
 )
-BINARY = (("css_w128_binary", dict(node_width=128, intra="binary")),
-          ("css_w16_binary", dict(node_width=16, intra="binary")))
+BINARY = (("binary_c1", dict(linear_cutoff=1)),
+          ("binary_c8", dict(linear_cutoff=8)))
 
 
-def timed_rules(search, plain) -> dict:
-    """Each rule's graph-amortised ms, in turns (each once, then again in
-    reverse order)."""
-    want = plain()
-    out = {k: [] for k in RULES}
-    for name in [*RULES, *reversed(RULES)]:
-        fs.group_lanes = RULES[name]
+def in_turns(names, setup, search, want) -> dict:
+    """Each variant's graph-amortised ms, in turns (each once, then again
+    in reverse order); ``setup(name)`` switches to a variant."""
+    out = {k: [] for k in names}
+    for name in [*names, *reversed(names)]:
+        setup(name)
         cs.check(torch.equal(search(), want), f"{name}: kernel != plain")
         out[name].append(cs.graph_amortised_ms(search))
-    fs.group_lanes = PORT
     return out
+
+
+def restaged(mod, idx, budget: int):
+    """``idx`` with its stage rebuilt at a budget of ``budget`` bytes."""
+    port = fs.STAGE_BYTES
+    fs.STAGE_BYTES = budget
+    try:
+        if mod is sorted_array:
+            st = fs.binary_stage(idx.keys_pad, idx.n_pad, idx.linear_cutoff,
+                                 device=idx.keys_pad.device)
+        else:
+            nodes = {css_tree: "dir_keys", kary: "tree",
+                     fast_tree: "pages"}[mod]
+            leaf = (idx.leaf_pad, idx.leaf_width) if mod is not kary \
+                else ()
+            st = fs.descent_stage(getattr(idx, nodes),
+                                  mod.descent_args(idx), *leaf, n=idx.n,
+                                  device=idx.keys.device)
+    finally:
+        fs.STAGE_BYTES = port
+    return dataclasses.replace(idx, stage=st)
+
+
+def variants(name, mod, idx, qd, search, plain) -> dict:
+    """Each stage budget in turns."""
+    want = plain(idx)
+    budgets = BINARY_BUDGETS if mod is sorted_array else BUDGETS
+    staged = {b: restaged(mod, idx, b) for b in budgets}
+    cur = {}
+
+    def use(v):
+        cur["idx"] = staged[int(v)]
+    res = {"ms": in_turns([str(b) for b in budgets], use,
+                          lambda: search(cur["idx"]), want)}
+    res["stage_levels"] = {
+        str(b): getattr(s.stage, "levels", None) or getattr(
+            s.stage, "stage_levels", 0) for b, s in staged.items()}
+    return res
 
 
 def main() -> int:
@@ -104,33 +127,40 @@ def main() -> int:
     qd = torch.from_numpy(q).to(dev)
     ks = torch.from_numpy(keys).to(dev)
     res = {"card": smi, "keys": cs.N_KEYS, "queries": cs.N_QUERIES,
+           "STAGE_BYTES": fs.STAGE_BYTES,
            "searchsorted_ms": cs.graph_amortised_ms(
                lambda: torch.searchsorted(ks, qd))}
-    for name, mod, kw in CONFIGS:
-        idx = mod.build(keys, **kw, device=dev)
-        res[name] = timed_rules(lambda: mod.search(idx, qd),
-                                lambda: mod.search_plain(idx, qd))
+    for name, kw in BINARY:
+        idx = sorted_array.build(keys, **kw, device=dev)
+        res[name] = variants(name, sorted_array, idx, qd,
+                             lambda i: sorted_array.search(i, qd),
+                             lambda i: sorted_array.search_plain(i, qd))
         print(name, json.dumps(res[name]), flush=True)
         del idx
         torch.cuda.empty_cache()
-    for name, kw in BINARY:
-        idx = css_tree.build(keys, **kw, device=dev)
-        want = css_tree.search_plain(idx, qd)
-        cs.check(torch.equal(css_tree.search(idx, qd), want),
-                 f"{name}: kernel != plain")
-        res[name] = [cs.graph_amortised_ms(lambda: css_tree.search(idx, qd))
-                     for _ in range(2)]
+    for name, mod, kw in CONFIGS:
+        idx = mod.build(keys, **kw, device=dev)
+        res[name] = variants(name, mod, idx, qd,
+                             lambda i, mod=mod: mod.search(i, qd),
+                             lambda i, mod=mod: mod.search_plain(i, qd))
         print(name, json.dumps(res[name]), flush=True)
+        if mod is fast_tree:
+            res[name + "_descent"] = variants(
+                name, mod, idx, qd, lambda i: fast_tree.leaf_page_of(i, qd),
+                lambda i: fast_tree.leaf_page_of_plain(i, qd))
+            print(name + "_descent", json.dumps(res[name + "_descent"]),
+                  flush=True)
         del idx
         torch.cuda.empty_cache()
     sub = np.sort(rng.choice(keys, cs.N_CSB_KEYS, replace=False))
     tree = CSBTree.build(sub, w=8)
     cq = torch.from_numpy(cs.mixed_queries(rng, sub, cs.N_QUERIES)).to(dev)
     snap = tree.snapshot()
-    res["csb_w8"] = timed_rules(
-        lambda: tree.search(cq),
-        lambda: fs.csb_search_plain(cq, *snap[:3], root=tree.root,
-                                    height=tree.height))
+    want = fs.csb_search_plain(cq, *snap[:3], root=tree.root,
+                               height=tree.height)
+    cs.check(torch.equal(tree.search(cq), want), "csb: kernel != plain")
+    res["csb_w8"] = [cs.graph_amortised_ms(lambda: tree.search(cq))
+                     for _ in range(2)]
     line = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

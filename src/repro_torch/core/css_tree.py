@@ -17,7 +17,7 @@ slices of the batch (``util.by_chunks``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -41,6 +41,10 @@ class CSSTreeIndex:
     leaf_width: int
     depth: int                # number of directory levels (D)
     intra: str = "vector"     # 'vector' | 'binary'
+    # flat_descent's stage and samples (kernels/flat_search.py), held by
+    # an index on the card (None on the CPU: search runs search_plain)
+    stage: flat_search.DescentStage | None = field(
+        default=None, compare=False, repr=False)
 
     @property
     def fanout(self) -> int:
@@ -89,12 +93,19 @@ def build(keys, node_width: int = 128, leaf_width: int | None = None,
     dir_keys, offsets, depth = _directory(srt, node_width, leaf_width)
     num_leaves = (node_width + 1) ** depth
     leaf_pad = pad_to(srt, num_leaves * leaf_width)
+    stage = None
+    if device.type == "cuda":           # on the CPU search runs search_plain
+        stage = flat_search.descent_stage(
+            dir_keys, flat_search.level_descent("css", offsets,
+                                                int(node_width), intra),
+            leaf_pad, int(leaf_width), n=int(srt.size), device=device)
     return CSSTreeIndex(
         keys=upload_async(srt, device),
         leaf_pad=upload_async(leaf_pad, device),
         dir_keys=upload_async(dir_keys, device),
         level_offsets=offsets, n=int(srt.size), node_width=int(node_width),
         leaf_width=int(leaf_width), depth=int(depth), intra=intra,
+        stage=stage,
     )
 
 
@@ -153,4 +164,5 @@ def search(index: CSSTreeIndex, queries) -> torch.Tensor:
         return search_plain(index, q)
     return flat_search.flat_descent(q, index.dir_keys, descent_args(index),
                                     index.leaf_pad, index.leaf_width,
-                                    ending="leaf", n=index.n)
+                                    ending="leaf", n=index.n,
+                                    stage=index.stage)

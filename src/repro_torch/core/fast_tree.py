@@ -43,6 +43,10 @@ class FastTreeIndex:
     # operands that kernels/ops.py lays out once per index (leaf pages)
     kernel_operands: dict = field(default_factory=dict, compare=False,
                                   repr=False)
+    # flat_descent's stage and samples (kernels/flat_search.py), held by
+    # an index on the card (None on the CPU: search runs search_plain)
+    stage: flat_search.DescentStage | None = field(
+        default=None, compare=False, repr=False)
 
     @property
     def fanout(self) -> int:
@@ -99,6 +103,13 @@ def build(keys, node_width: int = 128, leaf_width: int | None = None,
         lvl += d
     pages = np.concatenate(chunks) if chunks else np.empty(0, dtype=srt.dtype)
     leaf_pad = pad_to(srt, f**depth * leaf_width)
+    stage = None
+    if device.type == "cuda":           # on the CPU search runs search_plain
+        stage = flat_search.descent_stage(
+            pages, flat_search.page_descent(tuple(group_offsets),
+                                            tuple(group_depths),
+                                            int(node_width)),
+            leaf_pad, int(leaf_width), n=int(srt.size), device=device)
     return FastTreeIndex(
         keys=upload_async(srt, device),
         leaf_pad=upload_async(leaf_pad, device),
@@ -106,6 +117,7 @@ def build(keys, node_width: int = 128, leaf_width: int | None = None,
         group_offsets=tuple(group_offsets), group_depths=tuple(group_depths),
         n=int(srt.size), node_width=int(node_width),
         leaf_width=int(leaf_width), depth=int(depth),
+        stage=stage,
     )
 
 
@@ -158,7 +170,8 @@ def search(index: FastTreeIndex, queries) -> torch.Tensor:
         return search_plain(index, q)
     return flat_search.flat_descent(q, index.pages, descent_args(index),
                                     index.leaf_pad, index.leaf_width,
-                                    ending="leaf", n=index.n)
+                                    ending="leaf", n=index.n,
+                                    stage=index.stage)
 
 
 def leaf_page_of(index: FastTreeIndex, queries) -> torch.Tensor:
@@ -169,4 +182,5 @@ def leaf_page_of(index: FastTreeIndex, queries) -> torch.Tensor:
     if q.device.type == "cpu":
         return leaf_page_of_plain(index, q)
     return flat_search.flat_descent(q, index.pages, descent_args(index),
-                                    ending="descent")
+                                    ending="descent", n=index.n,
+                                    stage=index.stage)

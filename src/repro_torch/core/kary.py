@@ -35,6 +35,10 @@ class KaryTreeIndex:
     # operands that kernels/ops.py lays out once per index (flat levels)
     kernel_operands: dict = field(default_factory=dict, compare=False,
                                   repr=False)
+    # flat_descent's stage and samples (kernels/flat_search.py), held by
+    # an index on the card (None on the CPU: search runs search_plain)
+    stage: flat_search.DescentStage | None = field(
+        default=None, compare=False, repr=False)
 
     @property
     def fanout(self) -> int:
@@ -77,7 +81,19 @@ def build(keys, node_width: int = 128, *, device=None) -> KaryTreeIndex:
         tree=upload_async(tree, device),
         level_offsets=tuple(offsets), n=int(srt.size),
         node_width=int(node_width), depth=int(depth),
+        stage=kernel_stage(tree, offsets, node_width, srt.size, device),
     )
+
+
+def kernel_stage(tree: np.ndarray, level_offsets, node_width: int, n: int,
+                 device: torch.device):
+    """flat_descent's stage of a k-ary tree (its host array) for an index
+    on ``device``: None on the CPU, whose search runs ``search_plain``."""
+    if device.type != "cuda":
+        return None
+    d = flat_search.level_descent("kary", tuple(level_offsets),
+                                  int(node_width))
+    return flat_search.descent_stage(tree, d, n=int(n), device=device)
 
 
 def _search(index: KaryTreeIndex, q: torch.Tensor) -> torch.Tensor:
@@ -111,4 +127,5 @@ def search(index: KaryTreeIndex, queries) -> torch.Tensor:
     if q.device.type == "cpu":
         return search_plain(index, q)
     return flat_search.flat_descent(q, index.tree, descent_args(index),
-                                    ending="rank", n=index.n)
+                                    ending="rank", n=index.n,
+                                    stage=index.stage)

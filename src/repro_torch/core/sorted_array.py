@@ -16,7 +16,7 @@ PyTorch composition.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -34,6 +34,10 @@ class SortedArrayIndex:
     n_pad: int
     linear_cutoff: int = 1     # 1 => pure binary; >1 => vectorised tail scan
     tree_bytes: int = 0        # extra index storage beyond data
+    # flat_binary's probe keys and sample (kernels/flat_search.py), held
+    # by an index on the card (None on the CPU: search runs search_plain)
+    stage: flat_search.BinaryStage | None = field(
+        default=None, compare=False, repr=False)
 
 
 def build(keys, linear_cutoff: int = 1, *, device=None) -> SortedArrayIndex:
@@ -43,11 +47,15 @@ def build(keys, linear_cutoff: int = 1, *, device=None) -> SortedArrayIndex:
     # lower_bound returns at most n_pad-1, so rank == n must hit a sentinel
     levels = next_pow(2, srt.size + 1)
     n_pad = max(1 << levels, max(linear_cutoff, 1))
+    cutoff = int(max(linear_cutoff, 1))
+    keys_pad = pad_to(srt, n_pad)
     return SortedArrayIndex(
         keys=upload_async(srt, device),
-        keys_pad=upload_async(pad_to(srt, n_pad), device),
-        n=int(srt.size), n_pad=int(n_pad),
-        linear_cutoff=int(max(linear_cutoff, 1)),
+        keys_pad=upload_async(keys_pad, device),
+        n=int(srt.size), n_pad=int(n_pad), linear_cutoff=cutoff,
+        stage=(flat_search.binary_stage(keys_pad, int(n_pad), cutoff,
+                                        device=device)
+               if device.type == "cuda" else None),
     )
 
 
@@ -86,7 +94,8 @@ def search(index: SortedArrayIndex, queries) -> torch.Tensor:
     if q.device.type == "cpu":
         return search_plain(index, q)
     return flat_search.flat_binary(index.keys_pad, q, n_pad=index.n_pad,
-                                   cutoff=index.linear_cutoff, n=index.n)
+                                   cutoff=index.linear_cutoff, n=index.n,
+                                   stage=index.stage)
 
 
 def reference_rank(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:

@@ -70,6 +70,8 @@
 
 #include <string.h>
 
+#include "staged_bound.cuh"
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define NG_FN __host__ __device__ __forceinline__
@@ -201,42 +203,38 @@ NG_FN int ng_count_window(const NG_KEY* p, NG_KEY q, int len, int limit) {
 // windows).
 NG_FN int ng_lower_bound(NG_KEY q, const NG_KEY* row, const NG_KEY* staged,
                          const NG_KEY* sample) {
-  int pos = 0;
-#if NG_STAGE_LEVELS > 0
-  int i = 0;
-#pragma unroll
-  for (int k = NG_STAGE_LEVELS - 1; k >= 0; --k)
-    i += staged[i + (1 << k) - 1] < q ? 1 << k : 0;
-  pos = i << (NG_ROW_LOG2 - NG_STAGE_LEVELS);
-#else
-  (void)staged;
-#endif
+  // the steps are staged_bound.cuh's, shared with flat_search.cu
+  constexpr int kShift = NG_ROW_LOG2 - NG_STAGE_LEVELS;
+  unsigned pos = staged_bound::sample_levels(
+      0u, NG_ROW_LOG2 - 1, kShift, kShift,
+      [&](unsigned m) { return staged[m] < q; });
 #if NG_SAMPLE
   // slot pos + 2^k - 1 is the sample's entry (pos + 2^k) / window - 1
-#pragma unroll
-  for (int k = NG_ROW_LOG2 - NG_STAGE_LEVELS - 1; k >= 2 * NG_WIN_LOG2; --k)
-    pos += ng_load(sample + ((pos + (1 << k)) >> NG_WIN_LOG2) - 1) < q
-               ? 1 << k : 0;
+  pos = staged_bound::sample_levels(
+      pos, kShift - 1, 2 * NG_WIN_LOG2, NG_WIN_LOG2,
+      [&](unsigned m) { return ng_load(sample + m) < q; });
   // a window of the sample: the search at this level reads all but its
   // last entry
-  pos += ng_count_window(sample + (pos >> NG_WIN_LOG2), q,
-                         (1 << NG_WIN_LOG2) - 1, 1 << NG_WIN_LOG2)
-         << NG_WIN_LOG2;
+  pos = staged_bound::sample_window<NG_WIN_LOG2>(
+      pos, 2 * NG_WIN_LOG2 - 1, NG_WIN_LOG2, [&](unsigned first, int len) {
+        return ng_count_window(sample + first, q, len, 1 << NG_WIN_LOG2);
+      });
 #else
   (void)sample;
-#pragma unroll
-  for (int k = NG_ROW_LOG2 - NG_STAGE_LEVELS - 1; k >= NG_WIN_LOG2; --k)
-    pos += ng_slot_below(row, pos + (1 << k) - 1, q) ? 1 << k : 0;
+  pos = staged_bound::sample_levels(
+      pos, kShift - 1, NG_WIN_LOG2, 0,
+      [&](unsigned m) { return ng_slot_below(row, static_cast<int>(m), q); });
 #endif
 #if NG_WIN_LOG2 > 0
   // the last levels: a window of the row, counted whole (its last slot,
   // unread by the search above it, is the one slot not known to be >= q
   // only in the row's last window); pieces past the row are not read
-  return pos + ng_count_window(row + pos, q, 1 << NG_WIN_LOG2,
-                               NG_BLOCK_PAD_WIDTH - pos);
+  const int at = static_cast<int>(pos);
+  return at + ng_count_window(row + at, q, 1 << NG_WIN_LOG2,
+                              NG_BLOCK_PAD_WIDTH - at);
 #else
-  return pos == NG_ROW_SLOTS - 1 && ng_slot_below(row, pos, q) ? pos + 1
-                                                               : pos;
+  const int at = static_cast<int>(pos);
+  return at == NG_ROW_SLOTS - 1 && ng_slot_below(row, at, q) ? at + 1 : at;
 #endif
 }
 

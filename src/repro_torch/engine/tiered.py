@@ -255,11 +255,13 @@ def from_reference_arrays(state: dict, *, device,
     top_kind = str(state["top_kind"])
     if top_kind == "kary":
         offsets = tuple(int(o) for o in state["top_level_offsets"])
+        tree = np.array(state["top_tree"])
         top_idx = kary.KaryTreeIndex(
             keys=torch.from_numpy(np.sort(seps, kind="stable")).to(device),
-            tree=torch.from_numpy(np.array(state["top_tree"])).to(device),
+            tree=torch.from_numpy(tree).to(device),
             level_offsets=offsets, n=int(seps.size), node_width=127,
-            depth=len(offsets))
+            depth=len(offsets),
+            stage=kary.kernel_stage(tree, offsets, 127, seps.size, device))
     else:                   # 'nitrogen', or 'trivial' for a single page
         top_kind, top_idx = build_top(seps, top="nitrogen", device=device)
     return _assemble(pages, seps, n=int(state["n"]),

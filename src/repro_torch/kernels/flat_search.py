@@ -28,6 +28,19 @@ on the CPU, this module's wrapper on the card. Each wrapper counts its
 launches (``launches``; ``flat_descent.mode_launches`` by kind and
 ending).
 
+The kernels read each index through a stage built once an index
+(``binary_stage``, ``descent_stage``, held by the index beside its
+arrays): ``flat_binary`` the probe keys of its first levels in Eytzinger
+order and a sample of every 32-byte window's last key (read through
+``csrc/staged_bound.cuh``'s steps, as kernel 6 reads its own);
+``flat_descent``
+the number of levels whose rows it copies into shared memory, each
+level's live nodes (past them a node is all sentinel and counts 0) and,
+for each live node and live leaf block wider than ``whole_keys``, the
+last key of each of its 64-byte blocks. The plain versions read the same
+arrays through the same windows, so that the CPU tests hold them to the
+reference.
+
 The key types are int32, float32, int64 and float64; ranks are int32.
 """
 from __future__ import annotations
@@ -40,7 +53,8 @@ import numpy as np
 import torch
 
 from . import _build
-from ..core.util import by_chunks, take, take_rows
+from ..core.util import (by_chunks, numpy_dtype, sentinel_for, take,
+                         take_rows, upload_async)
 
 _SUFFIX = {torch.int32: "i32", torch.float32: "f32", torch.int64: "i64",
            torch.float64: "f64"}
@@ -49,11 +63,17 @@ INTRAS = ("vector", "binary")
 ENDINGS = {"rank": 0, "leaf": 1, "descent": 2}
 _I32_MAX = 2**31 - 1
 
+# Shared memory a persistent block may stage: the first levels of
+# flat_descent's rows, padded as sorted_row::padded_stride pads them, or
+# flat_binary's probe keys (experiments/flat_variants.py times others)
+STAGE_BYTES = 96 * 1024
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "flat_binary": [_P, _LL, _P, _I, _I, _I, _I, _P, _P],
-    "flat_descent": [_P, _LL, _P, _I, _I, _I, _I, _P, _P, _P,
-                     ctypes.c_ulonglong, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "flat_binary": [_P, _LL, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "flat_descent": [_P, _LL, _P, _I, _I, _I, _I, _P, ctypes.c_ulonglong,
+                     _I, _I, _I, _P, _LL, _I, _P, _I, _I, _LL, _I, _I, _I,
+                     _P, _P],
     "csb_search": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
@@ -71,12 +91,11 @@ MAX_GROUP = 4
 
 
 def group_lanes(width: int) -> int:
-    """Lanes that read a node of ``width`` keys together: the power of two
-    that covers the node in ``ROUNDS`` rounds of loads (which the kernel
-    keeps in flight at once), at most ``MAX_GROUP`` (w <= 4: 1; w 5-8: 2;
-    wider: 4). A wider node takes several batches of rounds: fewer lanes
-    a query keep more queries in flight, which set the time on the H100
-    (``experiments/flat_variants.py``)."""
+    """``csb_search``'s lanes that read a node of ``width`` keys together:
+    the power of two that covers the node in ``ROUNDS`` rounds of loads
+    (which the kernel keeps in flight at once), at most ``MAX_GROUP``
+    (w <= 4: 1; w 5-8: 2; wider: 4). Fewer lanes a query keep more
+    queries in flight, which set the time on the H100."""
     quarter = 1 << max(-(-int(width) // ROUNDS) - 1, 0).bit_length()
     return min(MAX_GROUP, quarter)
 
@@ -105,14 +124,10 @@ class Descent:
     def depth(self) -> int:
         return len(self.level_row)
 
-    @property
-    def group(self) -> int:
-        """Lanes a query: one for the binary range search."""
-        return 1 if self.intra == "binary" else group_lanes(self.node_width)
-
     @functools.cached_property
     def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The table as the int32 host arrays the C entry point copies."""
+        """The table as int32 host arrays (the first three of the table
+        the C entry point copies, ``DescentStage.table``)."""
         return tuple(np.ascontiguousarray(x, np.int32) for x in
                      (self.page_row, self.page_rows, self.level_row))
 
@@ -173,6 +188,231 @@ def page_descent(group_offsets: tuple[int, ...],
                             level_row=tuple(level_row), starts=starts))
 
 
+def block_keys(dtype) -> int:
+    """Keys of a sampled block: 64 bytes (16 of 4 bytes, 8 of 8)."""
+    return 64 // np.dtype(dtype).itemsize
+
+
+def whole_keys(dtype) -> int:
+    """The widest row the kernel counts whole, in one round of five 16-byte
+    loads (a block and a key, at any alignment); a wider row is read
+    through its sample."""
+    return block_keys(dtype) + 1
+
+
+def window_keys(dtype) -> int:
+    """Keys of flat_binary's window: 32 bytes."""
+    return 32 // np.dtype(dtype).itemsize
+
+
+def dead(keys: np.ndarray) -> np.ndarray:
+    """Keys below no query: the int max, or +inf and NaN. A sorted row
+    whose first key is dead is dead whole and counts 0."""
+    if np.issubdtype(keys.dtype, np.floating):
+        return ~(keys < np.inf)
+    return keys == sentinel_for(keys.dtype)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _sample_rows(rows: np.ndarray, width: int) -> tuple[np.ndarray, int]:
+    """The sample of ``rows`` [R, width]: each block's last key but the
+    last block's (a block of ``block_keys``), padded with the sentinel to
+    a whole number of 16-byte pieces. Returns (rows' samples, width)."""
+    blk = block_keys(rows.dtype)
+    s = -(-width // blk) - 1
+    sw = 1 << max(s - 1, 0).bit_length()
+    sw = max(sw, 16 // rows.dtype.itemsize)
+    out = np.full((rows.shape[0], sw), sentinel_for(rows.dtype), rows.dtype)
+    out[:, :s] = rows[:, blk - 1: s * blk: blk]
+    return out, sw
+
+
+def stride_bytes(width: int, itemsize: int) -> int:
+    """Bytes of a staged row: sorted_row::padded_stride keys."""
+    return (width + (width >> 5) + 1) * itemsize
+
+
+@dataclass(frozen=True, eq=False)
+class DescentStage:
+    """What ``flat_descent`` reads of one index beyond its arrays.
+    ``table`` is the kernel's level table, 5 x depth int32: the
+    ``Descent``'s page_row, page_rows and level_row, each level's live
+    nodes (node j of level l counts 0 unless j < live[l]) and its first
+    row of ``sample``. ``sample`` holds the directory's sample rows
+    (``sample_width`` keys a live node, level after level; none when
+    w <= a block or the intra-node search is binary), then the leaf
+    blocks' (``leaf_sample_width`` keys a block j with j * leaf_width < n,
+    from key ``leaf_sample_at``). The first ``stage_levels`` levels lie in
+    the first ``stage_rows`` rows, which a persistent block stages."""
+    table: np.ndarray
+    sample: torch.Tensor
+    sample_width: int
+    leaf_sample_at: int
+    leaf_sample_width: int
+    stage_levels: int
+    stage_rows: int
+    n: int
+
+    @property
+    def live(self) -> tuple[int, ...]:
+        d = self.table.size // 5
+        return tuple(int(x) for x in self.table[3 * d: 4 * d])
+
+    @property
+    def sample_row(self) -> tuple[int, ...]:
+        d = self.table.size // 5
+        return tuple(int(x) for x in self.table[4 * d:])
+
+    @property
+    def nbytes(self) -> int:
+        return self.sample.numel() * self.sample.element_size()
+
+
+def _level_rows(d: Descent, level: int, j: np.ndarray) -> np.ndarray:
+    """The rows of ``nodes`` that nodes ``j`` (int64) of ``level`` read, by
+    the level table (clamped as the kernel clamps them is the caller's)."""
+    start = max((s for s in range(level + 1) if d.starts >> s & 1),
+                default=-1)
+    if start < 0:
+        return d.level_row[level] + j
+    span = d.fanout ** (level - start)
+    return (d.page_row[start] + (j // span) * d.page_rows[start]
+            + d.level_row[level] + j % span)
+
+
+def _live_nodes(rows: np.ndarray, d: Descent, level: int) -> int:
+    """The live nodes of ``level``: a level's first keys rise with the node
+    index (its rows are sorted and cover the keys in order), so the dead
+    ones (first key dead) are a suffix, found by bisection."""
+    lo, hi = 0, d.fanout ** level
+    while lo < hi:
+        mid = (lo + hi) // 2
+        r = int(np.clip(_level_rows(d, level, np.int64(mid)), 0,
+                        rows.shape[0] - 1))
+        if dead(rows[r, :1])[0]:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def descent_stage(nodes, d: Descent, leaves=None, leaf_width: int = 0, *,
+                  n: int, device) -> DescentStage:
+    """``flat_descent``'s stage of one index, from its ``nodes`` (and its
+    leaf blocks ``leaves`` of ``leaf_width`` keys, for a leaf count) and
+    its level table ``d``, on ``device``: built once, when an index is
+    built on the card, from host arrays (uploaded without a host sync)."""
+    nodes = _host(nodes)
+    w, f = d.node_width, d.fanout
+    n_rows = nodes.size // w
+    rows = nodes.reshape(n_rows, w) if n_rows else nodes.reshape(0, w)
+    vector = d.intra == "vector" and w > whole_keys(nodes.dtype)
+    live, first, samples, at = [], [], [], 0
+    for lev in range(d.depth):
+        if f ** lev > _I32_MAX:
+            raise ValueError("a level past 2^31 nodes")
+        k = _live_nodes(rows, d, lev) if n_rows else 0
+        live.append(k)
+        first.append(at)
+        if vector:
+            r = np.clip(_level_rows(d, lev, np.arange(k, dtype=np.int64)),
+                        0, n_rows - 1)
+            smp, sw = _sample_rows(rows[r], w)
+            samples.append(smp.reshape(-1))
+            at += k
+    sw = _sample_rows(rows[:0], w)[1] if vector else 0
+    leaf_at, lsw = at * sw, 0
+    if leaves is not None and d.intra == "vector" \
+            and leaf_width > whole_keys(nodes.dtype):
+        leaves = _host(leaves)
+        n_leaves = leaves.size // leaf_width
+        m = -(-n // leaf_width)         # the blocks that hold keys
+        blocks = leaves[:min(m, n_leaves) * leaf_width].reshape(-1,
+                                                                leaf_width)
+        if m > n_leaves:                # clamped as the kernel clamps
+            blocks = blocks[np.clip(np.arange(m), 0, n_leaves - 1)]
+        smp, lsw = _sample_rows(blocks, leaf_width)
+        samples.append(smp.reshape(-1))
+    # the largest prefix of rows that holds whole levels (or FAST's whole
+    # page groups) within the budget
+    stage_levels = stage_rows = 0
+    row_bytes = stride_bytes(w, nodes.dtype.itemsize)
+    for lev in range(d.depth, 0, -1):
+        if lev < d.depth and not d.starts >> lev & 1:
+            continue
+        r = n_rows if lev == d.depth else d.page_row[lev]
+        if 0 < r <= n_rows and r * row_bytes <= STAGE_BYTES:
+            stage_levels, stage_rows = lev, r
+            break
+    sample = np.concatenate(samples) if samples \
+        else np.zeros(0, nodes.dtype)
+    table = np.concatenate([*d.arrays, np.asarray(live, np.int32),
+                            np.asarray(first, np.int32)])
+    return DescentStage(
+        table=np.ascontiguousarray(table, np.int32),
+        sample=upload_async(sample, torch.device(device)),
+        sample_width=sw, leaf_sample_at=leaf_at, leaf_sample_width=lsw,
+        stage_levels=stage_levels, stage_rows=stage_rows, n=int(n))
+
+
+@dataclass(frozen=True, eq=False)
+class BinaryStage:
+    """What ``flat_binary`` reads of one padded array beyond it. Its
+    levels are k = top .. last (steps 2^k; none when top < last); the
+    first ``levels`` of them read ``stage`` (their probe keys in
+    Eytzinger order: entry h - 1 is heap node h), the rest ``sample``
+    (keys_pad's last key of every window of ``window_keys``, up to its
+    first dead key) and a window of keys_pad."""
+    stage: torch.Tensor
+    sample: torch.Tensor
+    levels: int
+    top: int
+    last: int
+    n_pad: int
+    cutoff: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.stage, self.sample))
+
+
+def binary_stage(keys_pad, n_pad: int, cutoff: int, *,
+                 device) -> BinaryStage:
+    """``flat_binary``'s stage of a padded array (``sorted_array.build``'s
+    ``keys_pad``) searched with ``cutoff``, on ``device``."""
+    keys = _host(keys_pad)
+    if keys.size != n_pad or cutoff < 1 or cutoff > n_pad:
+        raise ValueError("keys_pad must hold n_pad keys and the cutoff be "
+                         "in [1, n_pad]")
+    power = n_pad & (n_pad - 1) == 0
+    if not power and n_pad // 2 >= cutoff:
+        raise ValueError("n_pad must be a power of two below the cutoff")
+    top = n_pad.bit_length() - 2 if power else -1
+    last = (cutoff - 1).bit_length()
+    most = 0
+    while (2 ** (most + 1) - 1) * keys.itemsize <= STAGE_BYTES:
+        most += 1
+    levels = min(max(top - last + 1, 0), most)
+    stage = np.empty(2 ** levels - 1, keys.dtype)
+    for s in range(levels):
+        t = np.arange(2 ** s, dtype=np.int64)
+        stage[2 ** s - 1 + t] = keys[((2 * t + 1) << (top - s)) - 1]
+    win = window_keys(keys.dtype)
+    # keys_pad is sorted: its dead keys (the sentinel; +inf, NaN) end it
+    n_live = int(np.searchsorted(keys, sentinel_for(keys.dtype)))
+    sample = keys[win - 1: (n_live // win) * win: win]
+    return BinaryStage(
+        stage=upload_async(stage, torch.device(device)),
+        sample=upload_async(sample, torch.device(device)),
+        levels=levels, top=top, last=last, n_pad=int(n_pad),
+        cutoff=int(cutoff))
+
+
 def _device_args(q: torch.Tensor, *arrays: torch.Tensor):
     """What every kernel checks: a 1-D CUDA query tensor of a key type the
     kernel takes, and index arrays contiguous on its device, each of fewer
@@ -207,55 +447,139 @@ def _lower_bound(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return base + (last < q).to(torch.int32)
 
 
-def _row_count(rows: torch.Tensor, q: torch.Tensor,
-               binary: bool) -> torch.Tensor:
-    """The keys of each query's row below it: one lane's lower bound
-    (``binary``) or the group's count of the whole row."""
-    if binary:
-        return _lower_bound(rows, q)
-    return (rows < q[:, None]).sum(-1, dtype=torch.int32)
+def _count_range(a: torch.Tensor, start: torch.Tensor, stop: torch.Tensor,
+                 most: int, q: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``count_range``: #{x in [start, stop) : a[x] < q} for
+    each query (int64 bounds, ranges of at most ``most`` keys), read as
+    the aligned 16-byte pieces that cover the range, masked to it and to
+    the array."""
+    if a.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    v = 16 // a.element_size()
+    pieces = (most + 2 * v - 2) // v
+    at = (start - start % v)[:, None] + torch.arange(
+        pieces * v, dtype=torch.int64, device=q.device)
+    keep = (at >= start[:, None]) & (at < stop[:, None]) & (at < a.numel())
+    keys = a[at.clamp(0, a.numel() - 1)]
+    return ((keys < q[:, None]) & keep).sum(-1, dtype=torch.int32)
+
+
+def _row_count(a: torch.Tensor, row: torch.Tensor, width: int,
+               sample: torch.Tensor, samp: torch.Tensor, sample_width: int,
+               q: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``row_count`` of the sorted rows of ``width`` keys at
+    ``row`` (int64 key offsets): through the sample row at ``samp`` when
+    the row is wider than ``whole_keys`` (its count b picks block b, which
+    is counted next), else the row whole."""
+    dtype = numpy_dtype(a.dtype)
+    blk = block_keys(dtype)
+    if width <= whole_keys(dtype):
+        return _count_range(a, row, row + width, width, q)
+    b = _count_range(sample, samp, samp + sample_width, sample_width, q)
+    start = row + b.long() * blk
+    stop = torch.minimum(start + blk, row + width)
+    return b * blk + _count_range(a, start, stop, blk, q)
 
 
 def flat_binary_plain(keys_pad: torch.Tensor, q: torch.Tensor, *,
-                      n_pad: int, cutoff: int, n: int) -> torch.Tensor:
+                      n_pad: int, cutoff: int, n: int,
+                      stage: BinaryStage) -> torch.Tensor:
     """Plain version: the kernel's loop in PyTorch, over slices of the
-    batch: probes ``pos + step - 1`` (clamped) for steps ``n_pad / 2`` down
-    to ``cutoff``, counts the ``cutoff``-key block at ``pos`` when the
-    cutoff is above 1, clamps to n."""
-    def run(qq):
-        pos = torch.zeros(qq.shape, dtype=torch.int32, device=qq.device)
-        step = n_pad // 2
-        while step >= cutoff:
-            pos = torch.where(take(keys_pad, pos + (step - 1)) < qq,
-                              pos + step, pos)
-            step //= 2
-        if cutoff > 1:
-            blk = take(keys_pad, pos[:, None] + torch.arange(
-                cutoff, dtype=torch.int32, device=qq.device))
-            pos = pos + (blk < qq[:, None]).sum(-1, dtype=torch.int32)
-        return pos.clamp_max(n)
+    batch: the staged levels through ``stage.stage`` (Eytzinger order),
+    one ``stage.sample`` entry a level down to a step of 2 windows, one
+    window of the sample, then one window of keys_pad for the levels left
+    and the cutoff's tail (a wider tail: its ``cutoff`` keys), clamped to
+    n. The same ranks as ``sorted_array._search_pad`` over keys_pad."""
+    _check_binary(stage, keys_pad, n_pad, cutoff)
+    win = window_keys(numpy_dtype(keys_pad.dtype))
+    wl = win.bit_length() - 1
+    top, last, levels = stage.top, stage.last, stage.levels
+    n_sample = stage.sample.numel()
 
-    return by_chunks(cutoff, run, q)
+    def sample_levels(pos, hi, lo, shift, below):
+        """staged_bound::sample_levels: levels hi .. lo, the probe of
+        level k at entry (pos + 2^k) / 2^shift - 1 of a sample."""
+        for k in range(hi, lo - 1, -1):
+            m = ((pos + (1 << k)) >> shift) - 1
+            pos = pos + below(m).long() * (1 << k)
+        return pos
+
+    def run(qq):
+        pos = torch.zeros(qq.shape, dtype=torch.int64, device=qq.device)
+        k = top
+        if levels:
+            h = torch.ones_like(pos)
+            for _ in range(levels):
+                h = 2 * h + (stage.stage[h - 1] < qq).long()
+            pos = (h - (1 << levels)) << (top + 1 - levels)
+            k = top - levels
+        single = max(2 * wl, last)
+        pos = sample_levels(pos, k, single, wl, lambda m: (
+            m < n_sample) & (take(stage.sample, m) < qq) if n_sample
+            else torch.zeros_like(m, dtype=torch.bool))
+        k = min(k, single - 1)
+        lo = max(wl, last)
+        if k >= lo:
+            span = 1 << (k + 1 - wl)
+            first = pos >> wl
+            c = _count_range(stage.sample, first, first + span - 1, span, qq)
+            pos = pos + ((c.long() >> (lo - wl)) << lo)
+            k = lo - 1
+        if k >= last:
+            span = 1 << (k + 1)
+            c = _count_range(keys_pad, pos, pos + span, win, qq).long()
+            p = pos + ((c >> last).clamp_max((span >> last) - 1) << last)
+            pos = p + (c - (p - pos)).clamp_max(cutoff) if cutoff > 1 else p
+        elif cutoff > 1:
+            pos = pos + _count_range(keys_pad, pos, pos + cutoff, cutoff,
+                                     qq).long()
+        return pos.clamp_max(n).to(torch.int32)
+
+    return by_chunks(max(cutoff, win), run, q)
+
+
+_NO_BINARY_STAGE = ("flat_binary needs the array's BinaryStage "
+                    "(binary_stage: an index built on the card holds it) "
+                    "for its n_pad and cutoff")
+_NO_DESCENT_STAGE = ("flat_descent needs the index's DescentStage "
+                     "(descent_stage: an index built on the card holds it) "
+                     "for its level table")
+
+
+def _check_binary(stage: BinaryStage, keys_pad: torch.Tensor, n_pad: int,
+                  cutoff: int) -> None:
+    if not isinstance(stage, BinaryStage) or stage.n_pad != n_pad \
+            or stage.cutoff != cutoff or keys_pad.numel() != n_pad:
+        raise ValueError(_NO_BINARY_STAGE)
+    if stage.sample.device != keys_pad.device \
+            or stage.sample.dtype != keys_pad.dtype:
+        raise ValueError("the stage must lie on keys_pad's device in its "
+                         "dtype")
 
 
 def flat_binary(keys_pad: torch.Tensor, q: torch.Tensor, *, n_pad: int,
-                cutoff: int, n: int) -> torch.Tensor:
+                cutoff: int, n: int, stage: BinaryStage) -> torch.Tensor:
     """searchsorted-left ranks [Q] (int32) over the power-of-two padded
     ``keys_pad`` of n keys: the lower bound in steps ``n_pad / 2`` down to
-    ``cutoff``, then the ``cutoff``-key block counted, clamped to n."""
+    ``cutoff``, then the ``cutoff``-key block counted, clamped to n.
+    ``stage`` is the array's ``binary_stage``."""
     if q.device.type == "cpu":
         return flat_binary_plain(keys_pad, q, n_pad=n_pad, cutoff=cutoff,
-                                 n=n)
-    q = _device_args(q, keys_pad)
-    if keys_pad.dtype != q.dtype or keys_pad.numel() < 1 or cutoff < 1:
-        raise ValueError("keys_pad must be non-empty in the queries' dtype "
-                         "and the cutoff at least 1")
+                                 n=n, stage=stage)
+    if not isinstance(stage, BinaryStage):
+        raise ValueError(_NO_BINARY_STAGE)
+    q = _device_args(q, keys_pad, stage.stage, stage.sample)
+    if keys_pad.dtype != q.dtype:
+        raise ValueError("keys_pad must be in the queries' dtype")
+    _check_binary(stage, keys_pad, n_pad, cutoff)
     out = torch.empty(q.shape, dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:
         return out
     err = _fn("flat_binary", q.dtype)(
-        q.data_ptr(), q.shape[0], keys_pad.data_ptr(), keys_pad.numel(),
-        n_pad, cutoff, n, out.data_ptr(),
+        q.data_ptr(), q.shape[0], keys_pad.data_ptr(), n_pad,
+        stage.stage.data_ptr(), stage.levels, stage.sample.data_ptr(),
+        stage.sample.numel(), stage.top, stage.last, cutoff, n,
+        out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flat_binary")
     flat_binary.launches += 1
@@ -265,29 +589,64 @@ def flat_binary(keys_pad: torch.Tensor, q: torch.Tensor, *, n_pad: int,
 flat_binary.launches = 0
 
 
+def _check_descent(stage: DescentStage, d: Descent, nodes: torch.Tensor,
+                   n: int, leaf: bool) -> None:
+    if not isinstance(stage, DescentStage) or stage.table.size != 5 * d.depth \
+            or stage.stage_rows > nodes.numel() // d.node_width:
+        raise ValueError(_NO_DESCENT_STAGE)
+    if leaf and stage.n != n:
+        raise ValueError(f"the stage was built for n = {stage.n}, not {n}")
+    if stage.sample.device != nodes.device \
+            or stage.sample.dtype != nodes.dtype:
+        raise ValueError("the stage must lie on the nodes' device in their "
+                         "dtype")
+
+
 def flat_descent_plain(q: torch.Tensor, nodes: torch.Tensor, d: Descent,
                        leaves: torch.Tensor | None = None,
-                       leaf_width: int = 0, *, ending: str,
-                       n: int = 0) -> torch.Tensor:
+                       leaf_width: int = 0, *, ending: str, n: int = 0,
+                       stage: DescentStage) -> torch.Tensor:
     """Plain version: the kernel's per-query loop over the level table, in
     PyTorch (int32 index arithmetic, rows clamped as ``util.take`` clamps
-    them): each node and leaf block counted whole (``intra="vector"``) or
-    by one lane's lower bound (``"binary"``)."""
+    them): a node past its level's live nodes counts 0; the others, and
+    the leaf block j while j * leaf_width < n (else the rank is n), are
+    counted through their sample rows and one block (``intra="vector"``)
+    or by one lane's lower bound (``"binary"``)."""
+    leaf = ending == "leaf"
+    _check_descent(stage, d, nodes, n, leaf)
     w, f, binary = d.node_width, d.fanout, d.intra == "binary"
+    live, first = stage.live, stage.sample_row
+    n_rows = nodes.numel() // w
+    sw, lsw = stage.sample_width, stage.leaf_sample_width
 
     def run(qq):
         j = torch.zeros(qq.shape, dtype=torch.int32, device=qq.device)
         j_local, page = torch.zeros_like(j), torch.zeros_like(j)
-        for l in range(d.depth):
-            if d.starts >> l & 1:
-                page = d.page_row[l] + j * d.page_rows[l]
+        for lev in range(d.depth):
+            if d.starts >> lev & 1:
+                page = d.page_row[lev] + j * d.page_rows[lev]
                 j_local = torch.zeros_like(j)
-            node = take_rows(nodes, w, page + d.level_row[l] + j_local)
-            c = _row_count(node, qq, binary)
+            r = (page + d.level_row[lev] + j_local).clamp(0, n_rows - 1)
+            on = j < live[lev]
+            if binary:
+                c = _lower_bound(take_rows(nodes, w, r), qq)
+            else:
+                samp = (first[lev] + torch.where(on, j, 0).long()) * sw
+                c = _row_count(nodes, r.long() * w, w, stage.sample, samp,
+                               sw, qq)
+            c = torch.where(on, c, 0)
             j, j_local = j * f + c, j_local * f + c
-        if ending == "leaf":
-            blk = take_rows(leaves, leaf_width, j)
-            j = j * leaf_width + _row_count(blk, qq, binary)
+        if leaf:
+            on = j.long() * leaf_width < n
+            r = j.clamp(0, leaves.numel() // leaf_width - 1)
+            if binary:
+                c = _lower_bound(take_rows(leaves, leaf_width, r), qq)
+            else:
+                samp = stage.leaf_sample_at + torch.where(on, j, 0).long() \
+                    * lsw
+                c = _row_count(leaves, r.long() * leaf_width, leaf_width,
+                               stage.sample, samp, lsw, qq)
+            j = torch.where(on, j * leaf_width + c, n)
         return j
 
     rank = by_chunks(max(w, leaf_width), run, q)
@@ -296,38 +655,44 @@ def flat_descent_plain(q: torch.Tensor, nodes: torch.Tensor, d: Descent,
 
 def flat_descent(q: torch.Tensor, nodes: torch.Tensor, d: Descent,
                  leaves: torch.Tensor | None = None, leaf_width: int = 0, *,
-                 ending: str, n: int = 0) -> torch.Tensor:
+                 ending: str, n: int = 0,
+                 stage: DescentStage) -> torch.Tensor:
     """The descent of ``d`` over ``nodes`` for each query, int32 [Q]. The
     ending: ``"rank"`` j clamped to n (k-ary), ``"leaf"`` j * leaf_width
     plus the keys below q in leaf block j of ``leaves``, clamped to n (css,
-    FAST), ``"descent"`` j itself (FAST's ``leaf_page_of``)."""
+    FAST), ``"descent"`` j itself (FAST's ``leaf_page_of``). ``stage`` is
+    the index's ``descent_stage``."""
     if ending not in ENDINGS:
         raise ValueError(f"unknown ending {ending!r}; want one of "
                          f"{tuple(ENDINGS)}")
     if q.device.type == "cpu":
         return flat_descent_plain(q, nodes, d, leaves, leaf_width,
-                                  ending=ending, n=n)
+                                  ending=ending, n=n, stage=stage)
     leaf = ending == "leaf"
     if leaf and (leaves is None or leaf_width < 1
                  or leaves.numel() < leaf_width):
         raise ValueError("a leaf count needs leaf blocks of leaf_width >= 1")
-    q = _device_args(q, nodes, *([leaves] if leaf else []))
+    if not isinstance(stage, DescentStage):
+        raise ValueError(_NO_DESCENT_STAGE)
+    q = _device_args(q, nodes, stage.sample, *([leaves] if leaf else []))
     if nodes.dtype != q.dtype or (leaf and leaves.dtype != q.dtype):
         raise TypeError(f"nodes and leaves must be {q.dtype}")
     if nodes.numel() % d.node_width or (d.depth and nodes.numel() == 0):
         raise ValueError("nodes must be whole rows of node_width keys")
+    _check_descent(stage, d, nodes, n, leaf)
     out = torch.empty(q.shape, dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:
         return out
-    page_row, page_rows, level_row = d.arrays
     err = _fn("flat_descent", q.dtype)(
         q.data_ptr(), q.shape[0], nodes.data_ptr(),
         nodes.numel() // d.node_width, d.node_width, d.fanout, d.depth,
-        page_row.ctypes.data, page_rows.ctypes.data, level_row.ctypes.data,
-        d.starts, int(d.intra == "binary"), d.group,
+        stage.table.ctypes.data, d.starts, stage.stage_levels,
+        stage.stage_rows, int(d.intra == "binary"),
+        stage.sample.data_ptr(), stage.sample.numel(), stage.sample_width,
         leaves.data_ptr() if leaf else None,
         leaves.numel() // leaf_width if leaf else 0,
-        leaf_width if leaf else 0, ENDINGS[ending], n, out.data_ptr(),
+        leaf_width if leaf else 0, stage.leaf_sample_at,
+        stage.leaf_sample_width, ENDINGS[ending], n, out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flat_descent")
     flat_descent.launches += 1

@@ -1338,6 +1338,23 @@ def flat_rank(keys, q) -> np.ndarray:
                     np.searchsorted(keys, q)).astype(np.int32)
 
 
+def flat_nodes(mod_name: str, idx):
+    return getattr(idx, {"css_tree": "dir_keys", "kary": "tree",
+                         "fast_tree": "pages"}[mod_name])
+
+
+def flat_emulated(fs, mod, mod_name: str, idx, qd):
+    """The wrapper's plain version over the index's arrays and stage."""
+    if mod_name == "sorted_array":
+        return fs.flat_binary_plain(idx.keys_pad, qd, n_pad=idx.n_pad,
+                                    cutoff=idx.linear_cutoff, n=idx.n,
+                                    stage=idx.stage)
+    leaf = (idx.leaf_pad, idx.leaf_width) if mod_name != "kary" else ()
+    return fs.flat_descent_plain(
+        qd, flat_nodes(mod_name, idx), mod.descent_args(idx), *leaf,
+        ending="leaf" if leaf else "rank", n=idx.n, stage=idx.stage)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_keys", [4096, 1 << 24])      # in and past L2
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -1346,29 +1363,22 @@ def test_flat_kernel_equals_plain(cuda, name, dtype, n_keys, monkeypatch):
     """Each flat kind's search on the card: one launch of its kernel with
     no host sync, bit for bit with the kind's plain composition on the same
     card tensors, with the wrapper's plain version (the kernel's loop over
-    the level table) and with numpy; FAST's leaf_page_of too. A CUDA tensor
+    the level table, the stage and the samples) and with numpy; FAST's
+    leaf_page_of too. 20,000 queries are too few to fill the persistent
+    grid (the staged levels read in place), 2^20 fill it. A CUDA tensor
     never reaches a plain version."""
     from repro_torch import core
     from repro_torch.kernels import flat_search as fs
     mod_name, kw = FLAT_KERNELS[name]
     mod = getattr(core, mod_name)
-    keys, q = flat_edge_case(dtype, n_keys, 1 << 18 if n_keys > 4096
+    keys, q = flat_edge_case(dtype, n_keys, 1 << 20 if n_keys > 4096
                              else 20_000)
     idx = mod.build(keys, **kw, device=cuda)
     qd = torch.from_numpy(q).to(cuda)
     plain = mod.search_plain(idx, qd)
     want_page = mod.leaf_page_of_plain(idx, qd) if mod_name == "fast_tree" \
         else None
-    if mod_name == "sorted_array":
-        emulated = fs.flat_binary_plain(idx.keys_pad, qd, n_pad=idx.n_pad,
-                                        cutoff=idx.linear_cutoff, n=idx.n)
-    else:
-        nodes = getattr(idx, {"css_tree": "dir_keys", "kary": "tree",
-                              "fast_tree": "pages"}[mod_name])
-        leaf = (idx.leaf_pad, idx.leaf_width) if mod_name != "kary" else ()
-        emulated = fs.flat_descent_plain(
-            qd, nodes, mod.descent_args(idx), *leaf,
-            ending="leaf" if leaf else "rank", n=idx.n)
+    emulated = flat_emulated(fs, mod, mod_name, idx, qd)
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
@@ -1393,6 +1403,60 @@ def test_flat_kernel_equals_plain(cuda, name, dtype, n_keys, monkeypatch):
     launched = wrapper.launches
     assert mod.search(idx, qd[:0]).shape == (0,)
     assert wrapper.launches == launched                 # Q = 0: no launch
+
+
+# widths whose rows are not 16-byte aligned (w 127, 15, 3, 1; leaf blocks
+# of 129 and 17 keys) beside aligned ones, a leaf width of 16, FAST at page
+# depths 1 and 2, and cutoffs 1, 8 and 64
+FLAT_WIDTHS = {
+    "binary_c64": ("sorted_array", dict(linear_cutoff=64)),
+    "css_w1": ("css_tree", dict(node_width=1)),
+    "css_w3": ("css_tree", dict(node_width=3)),
+    "css_w15_lw16": ("css_tree", dict(node_width=15, leaf_width=16)),
+    "css_w127": ("css_tree", dict(node_width=127)),
+    "css_w128_binary": ("css_tree", dict(node_width=128, intra="binary")),
+    "kary_w15": ("kary", dict(node_width=15)),
+    "kary_w128": ("kary", dict(node_width=128)),
+    "fast_w15_pd1": ("fast_tree", dict(node_width=15, page_depth=1)),
+    "fast_w127_pd2": ("fast_tree", dict(node_width=127, page_depth=2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int64,
+                                   np.float64])
+@pytest.mark.parametrize("name", list(FLAT_WIDTHS))
+def test_flat_kernel_widths_and_key_types(cuda, name, dtype):
+    """The redesigned kernels at unaligned widths and 8-byte keys: over
+    300,000 keys, 3,000 and 40,000 queries (the staged levels read in
+    place, one query a thread, by blocks of 32 and 256 threads spread over
+    the SMs) and 2^20 (a persistent grid stages them), each search one
+    launch with no host sync, bit for bit with the wrapper's plain version
+    over the same stage and samples and with numpy; FAST's descent alone
+    too."""
+    from repro_torch import core
+    from repro_torch.kernels import flat_search as fs
+    mod_name, kw = FLAT_WIDTHS[name]
+    mod = getattr(core, mod_name)
+    base = np.float32 if np.dtype(dtype).kind == "f" else np.int32
+    keys, q = flat_edge_case(base, 300_000, 1 << 20, seed=33)
+    keys, q = keys.astype(dtype), q.astype(dtype)
+    idx = mod.build(keys, **kw, device=cuda)
+    wrapper = fs.flat_binary if mod_name == "sorted_array" \
+        else fs.flat_descent
+    for n_q in (3_000, 40_000, q.size):
+        qd = torch.from_numpy(q[:n_q]).to(cuda)
+        want = flat_emulated(fs, mod, mod_name, idx, qd)
+        wrapper.launches = 0
+        got = sync_free(lambda: mod.search(idx, qd))
+        assert wrapper.launches == 1
+        assert torch.equal(got, want), f"{name} {n_q}"
+        assert np.array_equal(got.cpu().numpy(), flat_rank(keys, q[:n_q]))
+        if mod_name == "fast_tree":
+            page = sync_free(lambda: mod.leaf_page_of(idx, qd))
+            assert torch.equal(page, fs.flat_descent_plain(
+                qd, idx.pages, mod.descent_args(idx), ending="descent",
+                stage=idx.stage))
 
 
 @pytest.mark.cuda
@@ -1445,7 +1509,9 @@ def test_csb_kernel_equals_plain_through_splits(cuda, dtype, n_keys,
 @pytest.mark.parametrize("cfg", [
     dict(kind="binary"), dict(kind="css", node_width=16, intra="binary"),
     dict(kind="css"), dict(kind="kary", node_width=127),
-    dict(kind="fast", node_width=15)],
+    dict(kind="fast", node_width=15), dict(kind="binary", linear_cutoff=8),
+    dict(kind="css", node_width=16), dict(kind="css", intra="binary"),
+    dict(kind="fast", node_width=127)],
     ids=lambda c: "-".join(map(str, c.values())))
 def test_flat_kernel_inside_a_graph(cuda, cfg):
     """specialize=True: the capture records the kind's one kernel launch,
@@ -1467,6 +1533,41 @@ def test_flat_kernel_inside_a_graph(cuda, cfg):
 
 
 @pytest.mark.cuda
+def test_flat_descent_alone_inside_a_graph_and_the_table_ends(cuda):
+    """FAST's leaf_page_of replayed from a CUDA graph equals the call; a
+    css directory of depth 0 (one leaf block) and css w 1 over 2^24 keys
+    (23 levels, the deepest table the reference builds there) equal their
+    plain versions and numpy, the deep one past the persistent grid."""
+    from repro_torch.core import css_tree, fast_tree
+    from repro_torch.engine.capture import Captures, Specialized
+    from repro_torch.kernels import flat_search as fs
+    keys, q = flat_edge_case(np.int32, 300_000, 50_000, seed=34)
+    f = fast_tree.build(keys, node_width=127, page_depth=2, device=cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    spec = Specialized(lambda x: fast_tree.leaf_page_of(f, x), device=cuda,
+                       captures=Captures())
+    want = fast_tree.leaf_page_of(f, qd)
+    sync_free(lambda: spec(qd))                         # capture
+    fs.flat_descent.launches = 0
+    got = [sync_free(lambda: spec(qd)) for _ in range(2)]
+    assert fs.flat_descent.launches == 2 and spec.captures.n == 1
+    assert all(torch.equal(g, want) for g in got)
+    assert torch.equal(want, fast_tree.leaf_page_of_plain(f, qd))
+    small = np.sort(keys[:100])
+    for ks, w in ((small, 128), (np.arange(0, 1 << 25, 2, dtype=np.int32),
+                                 1)):
+        c = css_tree.build(ks, node_width=w, device=cuda)
+        assert c.depth == (0 if w == 128 else 23)
+        qq = torch.from_numpy(np.concatenate([q, ks[::97]])).to(cuda)
+        got = sync_free(lambda: css_tree.search(c, qq))
+        assert torch.equal(got, fs.flat_descent_plain(
+            qq, c.dir_keys, css_tree.descent_args(c), c.leaf_pad,
+            c.leaf_width, ending="leaf", n=c.n, stage=c.stage))
+        assert np.array_equal(got.cpu().numpy(),
+                              flat_rank(ks, qq.cpu().numpy()))
+
+
+@pytest.mark.cuda
 def test_flat_kernels_refuse_what_they_cannot_take(cuda):
     from repro_torch.core import css_tree, sorted_array
     from repro_torch.kernels import flat_search as fs
@@ -1476,16 +1577,22 @@ def test_flat_kernels_refuse_what_they_cannot_take(cuda):
     q16 = torch.zeros(4, dtype=torch.int16, device=cuda)
     with pytest.raises(TypeError, match="int32, float32"):
         fs.flat_descent(q16, c.dir_keys, d, c.leaf_pad, c.leaf_width,
-                        ending="leaf", n=c.n)
+                        ending="leaf", n=c.n, stage=c.stage)
     qf = torch.zeros(4, dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError, match="must be torch.float32"):
         fs.flat_descent(qf, c.dir_keys, d, c.leaf_pad, c.leaf_width,
-                        ending="leaf", n=c.n)
+                        ending="leaf", n=c.n, stage=c.stage)
     b = sorted_array.build(keys, device=cuda)
     on_cpu = sorted_array.build(keys, device="cpu")
     with pytest.raises(ValueError, match="contiguous on the queries'"):
         fs.flat_binary(on_cpu.keys_pad, qf.int(), n_pad=b.n_pad, cutoff=1,
-                       n=b.n)
+                       n=b.n, stage=b.stage)
+    with pytest.raises(ValueError, match="BinaryStage"):
+        fs.flat_binary(b.keys_pad, qf.int(), n_pad=b.n_pad, cutoff=2,
+                       n=b.n, stage=b.stage)
+    with pytest.raises(ValueError, match="DescentStage"):
+        fs.flat_descent(qf.int(), c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                        ending="leaf", n=c.n, stage=b.stage)
     qd = torch.from_numpy(keys[::2].copy()).to(cuda)
     strided = sorted_array.search(b, torch.from_numpy(keys).to(cuda)[::2])
     assert torch.equal(strided, sorted_array.search(b, qd))

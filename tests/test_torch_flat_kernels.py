@@ -80,6 +80,22 @@ def same(got: torch.Tensor, want, what=""):
     np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
 
 
+def stage_of(idx):
+    """The kernel's stage of a CPU index, built as ``build`` builds it for
+    an index on the card (on the CPU the kind's search runs its plain
+    composition and the index holds none)."""
+    if isinstance(idx, pt_sorted.SortedArrayIndex):
+        return fs.binary_stage(idx.keys_pad, idx.n_pad, idx.linear_cutoff,
+                               device="cpu")
+    if isinstance(idx, pt_kary.KaryTreeIndex):
+        return fs.descent_stage(idx.tree, pt_kary.descent_args(idx),
+                                n=idx.n, device="cpu")
+    css = isinstance(idx, pt_css.CSSTreeIndex)
+    mod, nodes = (pt_css, idx.dir_keys) if css else (pt_fast, idx.pages)
+    return fs.descent_stage(nodes, mod.descent_args(idx), idx.leaf_pad,
+                            idx.leaf_width, n=idx.n, device="cpu")
+
+
 def rank_of(keys, q) -> np.ndarray:
     """numpy's searchsorted-left, NaN queries at 0 as a count of keys < q
     gives them (numpy sorts NaN past every key)."""
@@ -88,20 +104,21 @@ def rank_of(keys, q) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- binary
-@pytest.mark.parametrize("cutoff", [1, 8])
+@pytest.mark.parametrize("cutoff", [1, 8, 64])
 def test_flat_binary_args_match_the_reference(data, cutoff):
     keys, q, qt = data
     ref = ref_sorted.build(keys, linear_cutoff=cutoff)
     pt = pt_sorted.build(keys, linear_cutoff=cutoff, device="cpu")
     got = fs.flat_binary(pt.keys_pad, qt, n_pad=pt.n_pad,
-                         cutoff=pt.linear_cutoff, n=pt.n)
+                         cutoff=pt.linear_cutoff, n=pt.n, stage=stage_of(pt))
     same(got, ref_sorted.search(ref, q))
     same(got, rank_of(keys, q))
     same(pt_sorted.search(pt, q), got)
 
 
 # -------------------------------------------------------- css, kary, fast
-CSS = [(128, "vector"), (128, "binary"), (16, "vector"), (16, "binary")]
+CSS = [(128, "vector"), (128, "binary"), (16, "vector"), (16, "binary"),
+       (1, "vector"), (3, "vector"), (15, "vector"), (127, "vector")]
 
 
 @pytest.mark.parametrize("w,intra", CSS, ids=[f"w{w}-{i}" for w, i in CSS])
@@ -113,9 +130,8 @@ def test_css_descent_args_match_the_reference(data, w, intra):
     assert d.page_row == tuple(o // w for o in pt.level_offsets)
     assert d.page_rows == (1,) * pt.depth and d.level_row == (0,) * pt.depth
     assert d.starts == 2**pt.depth - 1 and d.intra == intra
-    assert d.group == (1 if intra == "binary" else 4)
     got = fs.flat_descent(qt, pt.dir_keys, d, pt.leaf_pad, pt.leaf_width,
-                          ending="leaf", n=pt.n)
+                          ending="leaf", n=pt.n, stage=stage_of(pt))
     same(got, ref_css.search(ref, q))
     same(got, rank_of(keys, q))
     same(pt_css.search(pt, q), got)
@@ -127,7 +143,8 @@ def test_kary_descent_args_match_the_reference(data):
     pt = pt_kary.build(keys, node_width=127, device="cpu")
     d = pt_kary.descent_args(pt)
     assert pt.depth == 2 and d.page_row == (0, 1) and d.starts == 0b11
-    got = fs.flat_descent(qt, pt.tree, d, ending="rank", n=pt.n)
+    got = fs.flat_descent(qt, pt.tree, d, ending="rank", n=pt.n,
+                          stage=stage_of(pt))
     same(got, ref_kary.search(ref, q))
     same(got, rank_of(keys, q))
 
@@ -154,10 +171,11 @@ def test_fast_descent_args_match_the_reference(data, w, pd):
         lvl += gd
     assert d.depth == pt.depth
     got = fs.flat_descent(qt, pt.pages, d, pt.leaf_pad, pt.leaf_width,
-                          ending="leaf", n=pt.n)
+                          ending="leaf", n=pt.n, stage=stage_of(pt))
     same(got, ref_fast.search(ref, q))
     same(got, rank_of(keys, q))
-    page = fs.flat_descent(qt, pt.pages, d, ending="descent")
+    page = fs.flat_descent(qt, pt.pages, d, ending="descent",
+                           stage=stage_of(pt))
     same(page, ref_fast.leaf_page_of(ref, q))
     same(pt_fast.leaf_page_of(pt, q), page)
 
@@ -209,21 +227,175 @@ def test_subnormals_follow_ieee():
                   1e-40, 2e-38, np.nan], np.float32)
     qt, want = torch.from_numpy(q), rank_of(keys, q)
     b = pt_sorted.build(keys, linear_cutoff=8, device="cpu")
-    same(fs.flat_binary(b.keys_pad, qt, n_pad=b.n_pad, cutoff=8, n=b.n), want)
+    same(fs.flat_binary(b.keys_pad, qt, n_pad=b.n_pad, cutoff=8, n=b.n,
+                        stage=stage_of(b)), want)
     for intra in ("vector", "binary"):
         c = pt_css.build(keys, node_width=2, intra=intra, device="cpu")
         same(fs.flat_descent(qt, c.dir_keys, pt_css.descent_args(c),
-                             c.leaf_pad, c.leaf_width, ending="leaf", n=c.n),
-             want)
+                             c.leaf_pad, c.leaf_width, ending="leaf", n=c.n,
+                             stage=stage_of(c)), want)
     k = pt_kary.build(keys, node_width=3, device="cpu")
     same(fs.flat_descent(qt, k.tree, pt_kary.descent_args(k), ending="rank",
-                         n=k.n), want)
+                         n=k.n, stage=stage_of(k)), want)
     f = pt_fast.build(keys, node_width=1, page_depth=2, device="cpu")
     same(fs.flat_descent(qt, f.pages, pt_fast.descent_args(f), f.leaf_pad,
-                         f.leaf_width, ending="leaf", n=f.n), want)
+                         f.leaf_width, ending="leaf", n=f.n,
+                         stage=stage_of(f)), want)
     t = pt_csb.CSBTree.build(keys, w=2, device="cpu")
     same(fs.csb_search(qt, *t.snapshot()[:3], root=t.root, height=t.height),
          np.isin(q, keys))
+
+
+# ------------------------------------------------- the stage and samples
+@pytest.mark.parametrize("w", [15, 16, 128])
+def test_kary_stage_widths_match_the_reference(data, w):
+    """The k-ary tree at a narrow, an aligned and a wide node, through the
+    plain version over its stage (live nodes, samples)."""
+    keys, q, qt = data
+    ref = ref_kary.build(keys, node_width=w)
+    pt = pt_kary.build(keys, node_width=w, device="cpu")
+    got = fs.flat_descent(qt, pt.tree, pt_kary.descent_args(pt),
+                          ending="rank", n=pt.n, stage=stage_of(pt))
+    same(got, ref_kary.search(ref, q))
+    same(got, rank_of(keys, q))
+
+
+def test_descent_stage_arrays():
+    """The stage of a css w 128 directory over 40,000 keys (2 levels, 311
+    live leaf blocks), held to the arrays it is built from: each level's
+    live nodes (a node whose first key is the sentinel is dead), each
+    live node's sample row (keys 15, 31, ..., 111, then a sentinel pad),
+    each live leaf block's (keys 15, ..., 127 of its 129), and the staged
+    levels under the budget; FAST's page-group boundary; kary's live
+    nodes past the real ranks."""
+    keys = np.arange(0, 80_000, 2, dtype=np.int32)
+    c = pt_css.build(keys, node_width=128, device="cpu")
+    st, d = stage_of(c), pt_css.descent_args(c)
+    rows = c.dir_keys.numpy().reshape(-1, 128)
+    assert st.live == (1, 3) and st.sample_width == 8
+    assert st.sample_row == (0, 1)
+    smp = st.sample.numpy()
+    for lev, j, row in ((0, 0, 0), (1, 0, 1), (1, 2, 3)):
+        got = smp[(st.sample_row[lev] + j) * 8:][:8]
+        assert np.array_equal(got[:7], rows[row, 15:112:16])
+        assert got[7] == I32.max
+    leaf = smp[st.leaf_sample_at:].reshape(-1, 8)
+    blocks = c.leaf_pad.numpy().reshape(-1, 129)
+    assert leaf.shape[0] == -(-keys.size // 129) == 311
+    assert np.array_equal(leaf, blocks[:311, 15:128:16])
+    assert (st.stage_levels, st.stage_rows) == (2, 130)   # 69,160 bytes
+    assert np.array_equal(st.table[:6], [0, 1, 1, 1, 0, 0])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fs, "STAGE_BYTES", 129 * 532)
+        root = fs.descent_stage(c.dir_keys, d, c.leaf_pad, 129, n=c.n,
+                                device="cpu")
+    assert (root.stage_levels, root.stage_rows) == (1, 1)
+    f = pt_fast.build(keys, node_width=15, page_depth=2, device="cpu")
+    fst = stage_of(f)
+    assert (fst.stage_levels, fst.stage_rows) == (3, 273)
+    assert fst.sample.numel() == 0 and fst.sample_width == 0
+    with pytest.MonkeyPatch.context() as mp:   # the first page group alone
+        mp.setattr(fs, "STAGE_BYTES", 272 * 64)
+        group = fs.descent_stage(f.pages, pt_fast.descent_args(f),
+                                 f.leaf_pad, 16, n=f.n, device="cpu")
+    assert (group.stage_levels, group.stage_rows) == (2, 17)
+    k = pt_kary.build(keys, node_width=127, device="cpu")
+    assert k.depth == 3 and stage_of(k).live == (1, 3, -(-keys.size // 128))
+
+
+def test_binary_stage_arrays():
+    """flat_binary's stage: the probe keys of its first levels in
+    Eytzinger order and the last key of every 32-byte window up to the
+    first sentinel; the levels shrink with the budget and the ranks do
+    not move."""
+    keys = np.sort(np.random.default_rng(5).integers(
+        -10**6, 10**6, 5_000)).astype(np.int32)
+    b = pt_sorted.build(keys, linear_cutoff=1, device="cpu")
+    st, kp = stage_of(b), b.keys_pad.numpy()
+    assert (b.n_pad, st.top, st.last) == (8192, 12, 0)
+    assert st.levels == 13
+    assert st.stage[0] == kp[4095]
+    assert np.array_equal(st.stage.numpy()[1:3], kp[[2047, 6143]])
+    assert np.array_equal(st.sample.numpy(), kp[7:5000 // 8 * 8:8])
+    q = torch.from_numpy(np.concatenate([keys[::7], [I32.min, I32.max],
+                                         keys[-3:] + 1]).astype(np.int32))
+    want = rank_of(keys, q.numpy())
+    for budget in (0, 64, 4096):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fs, "STAGE_BYTES", budget)
+            for cut in (1, 3, 8, 64):
+                s = fs.binary_stage(b.keys_pad if cut == 1 else
+                                    pt_sorted.build(keys, linear_cutoff=cut,
+                                                    device="cpu").keys_pad,
+                                    b.n_pad, cut, device="cpu")
+                assert s.levels == min(max(budget // 4 + 1, 1).bit_length()
+                                       - 1, 13 - s.last)
+                got = fs.flat_binary_plain(
+                    b.keys_pad, q, n_pad=b.n_pad, cutoff=cut, n=b.n,
+                    stage=s)
+                ref = ref_sorted.search(ref_sorted.build(
+                    keys, linear_cutoff=cut), q.numpy()) if cut in (1, 8) \
+                    else pt_sorted.search_plain(pt_sorted.build(
+                        keys, linear_cutoff=cut, device="cpu"), q)
+                same(got, np.asarray(ref), f"budget {budget} cut {cut}")
+    same(fs.flat_binary_plain(b.keys_pad, q, n_pad=b.n_pad, cutoff=1,
+                              n=b.n, stage=st), want)
+
+
+def test_table_ends_follow_numpy():
+    """A directory of depth 0 (one leaf block) and deep ones (css w 1 over
+    40,000 keys: 15 levels; FAST w 1), through the plain versions over
+    their stages, against numpy."""
+    rng = np.random.default_rng(12)
+    keys = np.sort(rng.integers(-10**6, 10**6, 40_000)).astype(np.int32)
+    q = np.concatenate([rng.integers(-2 * 10**6, 2 * 10**6, 2_000),
+                        keys[::41], [I32.min, I32.max]]).astype(np.int32)
+    qt = torch.from_numpy(q)
+    for ks, kind, w in ((keys[:100], pt_css, 128), (keys[:100], pt_fast, 127),
+                        (keys, pt_css, 1), (keys, pt_fast, 1)):
+        idx = kind.build(ks, node_width=w, device="cpu")
+        assert idx.depth == (0 if ks.size == 100 else 15)
+        same(kind.search(idx, qt), rank_of(ks, q), f"{kind.__name__} w{w}")
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+def test_eight_byte_keys_follow_numpy(dtype):
+    """int64 / float64 keys, as the entry points take them (a block of 8
+    keys, a window of 4), against numpy: every flat kind at widths around
+    the block, with duplicate runs, the sentinel and, for floats, NaN,
+    +-0.0 and subnormals."""
+    rng = np.random.default_rng(9)
+    if dtype == np.int64:
+        big = np.iinfo(np.int64)
+        keys = np.concatenate([[big.min, big.max - 1],
+                               rng.integers(-2**40, 2**40, 2_998)])
+        q = np.concatenate([rng.integers(-2**41, 2**41, 700),
+                            [big.min, big.max, big.max - 1, 0]])
+    else:
+        keys = np.concatenate([[0.0, -0.0, 5e-324, -5e-324, 1e-310],
+                               rng.normal(size=2_995) * 1e3])
+        q = np.concatenate([rng.normal(size=700) * 1e3,
+                            [np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324,
+                             1e-310, -1e-311]])
+    keys = np.sort(keys.astype(dtype))
+    keys[1::7] = keys[::7][:keys[1::7].size]
+    keys = np.sort(keys)
+    q = np.concatenate([q, keys[::5]]).astype(dtype)
+    qt, want = torch.from_numpy(q), rank_of(keys, q)
+    for cut in (1, 8, 64):
+        b = pt_sorted.build(keys, linear_cutoff=cut, device="cpu")
+        same(fs.flat_binary(b.keys_pad, qt, n_pad=b.n_pad, cutoff=cut,
+                            n=b.n, stage=stage_of(b)), want, f"binary c{cut}")
+    for w, intra in ((1, "vector"), (7, "vector"), (8, "vector"),
+                     (9, "vector"), (127, "vector"), (128, "binary")):
+        c = pt_css.build(keys, node_width=w, intra=intra, device="cpu")
+        same(pt_css.search(c, qt), want, f"css w{w} {intra}")
+    for w in (8, 127):
+        k = pt_kary.build(keys, node_width=w, device="cpu")
+        same(pt_kary.search(k, qt), want, f"kary w{w}")
+    for w, pd in ((7, 1), (9, 2)):
+        f = pt_fast.build(keys, node_width=w, page_depth=pd, device="cpu")
+        same(pt_fast.search(f, qt), want, f"fast w{w} pd{pd}")
 
 
 # -------------------------------------------------------- wrapper surface
@@ -247,20 +419,32 @@ def test_wrappers_take_zero_queries_and_refuse_other_devices():
     d = pt_css.descent_args(c)
     empty = torch.zeros(0, dtype=torch.int32)
     assert fs.flat_descent(empty, c.dir_keys, d, c.leaf_pad, c.leaf_width,
-                           ending="leaf", n=c.n).shape == (0,)
+                           ending="leaf", n=c.n,
+                           stage=stage_of(c)).shape == (0,)
     b = pt_sorted.build(keys, device="cpu")
     assert fs.flat_binary(b.keys_pad, empty, n_pad=b.n_pad, cutoff=1,
-                          n=b.n).shape == (0,)
+                          n=b.n, stage=stage_of(b)).shape == (0,)
     t = pt_csb.CSBTree.build(keys, device="cpu")
     assert t.search(empty).dtype == torch.bool
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fs.flat_descent(meta, c.dir_keys, d, c.leaf_pad, c.leaf_width,
-                        ending="leaf", n=c.n)
+                        ending="leaf", n=c.n, stage=stage_of(c))
     with pytest.raises(ValueError, match="unsupported device"):
-        fs.flat_binary(b.keys_pad, meta, n_pad=b.n_pad, cutoff=1, n=b.n)
+        fs.flat_binary(b.keys_pad, meta, n_pad=b.n_pad, cutoff=1, n=b.n,
+                       stage=stage_of(b))
     with pytest.raises(ValueError, match="unknown ending"):
-        fs.flat_descent(empty, c.dir_keys, d, ending="bogus")
+        fs.flat_descent(empty, c.dir_keys, d, ending="bogus",
+                        stage=stage_of(c))
+    # an index built on the CPU holds no stage (its search runs the plain
+    # composition); a wrapper handed none says so before anything else
+    assert c.stage is None and b.stage is None
+    with pytest.raises(ValueError, match="needs the index's DescentStage"):
+        fs.flat_descent(meta, c.dir_keys, d, c.leaf_pad, c.leaf_width,
+                        ending="leaf", n=c.n, stage=None)
+    with pytest.raises(ValueError, match="needs the array's BinaryStage"):
+        fs.flat_binary(b.keys_pad, meta, n_pad=b.n_pad, cutoff=1, n=b.n,
+                       stage=None)
     before = (fs.flat_binary.launches, fs.flat_descent.launches,
               fs.csb_search.launches)
     pt_css.search(c, keys)                  # the CPU runs the plain version
