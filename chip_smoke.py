@@ -26,7 +26,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      and values against np.searchsorted on the host; then CUDA-event times
      of the lookup, its stages and each kernel at the main path's shapes,
      each kernel held against its plain version on those inputs, and one
-     lookup under torch.profiler (device time by op, summed kernel time);
+     lookup under torch.profiler (device time by op, summed kernel time;
+     no cummax op may appear in it: the device plan's run starts are a
+     left search of the sorted pages);
   5. coverage runs against the oracle: 32,768 keys (NitroGen top), 2^20
      float32 keys, a duplicate-heavy key set, plan="host";
   6. the page-scan kernel in each of count, sum and full mode, with and
@@ -209,7 +211,9 @@ Phases, in order; any failure exits non-zero with its traceback:
      plain version's ms and the bound from these queries beside
      torch.searchsorted's. Then CSBTree over 2^20 of the keys (w = 8),
      4,096 inserts, a 2^20-query search against np.isin (its kernel the
-     same, beside torch.isin); a float32 pass over 2^20 keys for every
+     same, beside torch.isin), the kernel == its plain version over the
+     same stage at 2^20 queries (staged in shared memory) and 4,096 (the
+     stage read in place), each path named; a float32 pass over 2^20 keys for every
      kind (and the vector bottom at 4,096 keys a block) against numpy.
      b. ops.fast_page_search on the fast index with the 2^20 queries (one
         page-kernel launch and one descent-kernel launch, == the plain
@@ -494,6 +498,20 @@ def device_profile(fn, top: int = 8) -> dict:
             "ops_ms": {e.key: e.device_time_total / 1e3 for e in ops[:top]},
             "kernels_top_ms_count": {e.key[:60]: [
                 e.self_device_time_total / 1e3, e.count] for e in heavy}}
+
+
+def profiled_events(fn) -> dict:
+    """Every event of one call of `fn` under torch.profiler (its aten ops
+    and its device kernels, whose names need not name their op), by name,
+    with its count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()}
 
 
 def device_ms(fn, reps: int = 20, tries: int = 3) -> float | None:
@@ -834,6 +852,11 @@ def main_path(dev, rng):
     }
     stages["queries_per_s"] = N_QUERIES / (stages["lookup_ms"] * 1e-3)
     stages["profile"] = device_profile(lambda: idx.lookup(q_dev))
+    events = profiled_events(lambda: idx.lookup(q_dev))
+    stages["cummax_events"] = {k: n for k, n in events.items()
+                               if "cummax" in k.lower()}
+    check(events and not stages["cummax_events"],
+          f"the lookup runs a cummax: {stages['cummax_events']}")
 
     levels = ops.kary_levels(impl.top, 128)
     flat, offsets = kk.flatten_levels(levels)
@@ -3789,6 +3812,7 @@ FLOAT_KIND_CONFIGS = KIND_CONFIGS + (
 N_KIND_RANGES = 1 << 18
 N_FLOAT_KEYS = 1 << 20
 N_CSB_KEYS, CSB_INSERTS = 1 << 20, 4096
+CSB_SMALL_BATCH = 4096             # too few to fill the persistent grid
 # the largest trees the reference's VMEM guard admits: (name, node_width,
 # lane, tile_rows, keys)
 KARY_GUARD_CASES = (("w127_n16383", 127, 128, 8, 16_383),
@@ -4172,8 +4196,11 @@ def csb_path(dev, rng, keys_sorted) -> dict:
     """CSBTree.build over 2^20 of phase 4's keys (w = 8), 4,096 inserts of
     new keys, then a search of 2^20 queries under sync-debug "error"
     against np.isin: one csb_search launch, equal to the plain version;
-    its times beside torch.isin's."""
+    its times beside torch.isin's. The kernel against its plain version
+    over the snapshot's stage at 2^20 queries (a persistent grid stages
+    it in shared memory) and at 4,096 (read in place), each path named."""
     from repro_torch.core import CSBTree
+    from repro_torch.kernels import flat_search as fs
     sub = np.sort(rng.choice(keys_sorted, N_CSB_KEYS, replace=False))
     t0 = time.perf_counter()
     tree = CSBTree.build(sub, w=8)
@@ -4199,25 +4226,42 @@ def csb_path(dev, rng, keys_sorted) -> dict:
           f"CSBTree.search launched {launches}")
     check(np.array_equal(found.cpu().numpy(), np.isin(q, allk)),
           "CSBTree.search != np.isin")
-    snap = tree.snapshot()
+    snap, stage = tree.snapshot(), tree.stage
     plain = tree.search_plain(q_dev)
     same = torch.equal(found, plain)
     check(same, "csb_search kernel != plain")
+    paths, errs = {}, [max_abs_err(found, plain)]
+    for n_q in (N_QUERIES, CSB_SMALL_BATCH):
+        qs = q_dev[:n_q]
+        got = fs.csb_search(qs, *snap[:3], root=snap[3], height=snap[4],
+                            stage=stage)
+        want = fs.csb_search_plain(qs, *snap[:3], root=snap[3],
+                                   height=snap[4], stage=stage)
+        paths[str(n_q)] = "staged" if fs.csb_search.staged else "in place"
+        errs.append(max_abs_err(got, want))
+        check(torch.equal(got, want), f"csb_search kernel != plain over the "
+              f"stage at {n_q} queries ({paths[str(n_q)]})")
+    check(paths == {str(N_QUERIES): "staged",
+                    str(CSB_SMALL_BATCH): "in place"},
+          f"csb_search's paths: {paths}")
     all_d = torch.from_numpy(allk).to(dev)
     b = bound(*csb_work(snap, q_dev))
     return {"keys": N_CSB_KEYS, "inserts": int(new.size),
             "height": tree.height, "nodes": tree._n_nodes,
+            "stage_levels": stage.levels, "stage_nodes": stage.nodes,
+            "stage_bytes": stage.nbytes, "paths": paths,
             "build_s": build_s, "insert_us": insert_us,
             "snapshot_upload_ms": upload_ms,
             "search_ms": cuda_ms(lambda: tree.search(q_dev), reps=5),
             "hits": int(found.sum()),
             "kernel": {
                 "wrapper": "csb_search", "launches": launches["csb_search"],
-                "kernel_vs_plain": same, "max_abs_err": max_abs_err(found,
-                                                                    plain),
+                "kernel_vs_plain": same, "max_abs_err": max(errs),
                 "ms": cuda_ms(lambda: tree.search(q_dev)),
                 "graph_amortised_ms": graph_amortised_ms(
                     lambda: tree.search(q_dev)),
+                "graph_amortised_ms_4096": graph_amortised_ms(
+                    lambda: tree.search(q_dev[:CSB_SMALL_BATCH])),
                 "device_ms": device_ms(lambda: tree.search(q_dev), reps=5),
                 "plain_ms": cuda_ms(lambda: tree.search_plain(q_dev),
                                     reps=3, warmup=1),

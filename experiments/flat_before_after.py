@@ -2,6 +2,7 @@
 """The flat kinds' kernels of one checkout of the port, timed on the card.
 
     python3 experiments/flat_before_after.py --root DIR [--out FILE]
+        [--run-starts]
 
 Imports the port (DIR/src) and DIR/chip_smoke.py's timers from the
 checkout DIR, so that two commits run the same measurements in one call:
@@ -26,10 +27,27 @@ the css w128 lookup through build_index (CUDA-event ms: phase 15a's
 ``lookup_ms``), the wholesale fold of the css store (the default kind,
 delta capacity 1,024: chip_smoke.py phase 16c's ``fold_ms``, here three
 folds of a sealed delta of 1,024 fresh keys, each a rebuild of its base
-through build_index), csb_search (kernel 9) over 2^20 of the keys and NitroGen's
-generated kernel (kernel 6, 3 levels of 3 separators, binary bottom) over
-the 2^24. Every result is checked against numpy. Prints one JSON line
-with the card's name and power limit (and writes it to FILE).
+through build_index), csb_search (kernel 9: chip_smoke.py phase 15a's
+CSBTree over 2^20 of the keys, w 8, its build and 4,096 inserts of new
+keys: ``insert_us`` a key, ``snapshot_upload_ms`` of the snapshot after
+them, the search's graph_amortised_ms at 2^20, 32,768 and 4,096 queries)
+and NitroGen's generated kernel (kernel 6, 3 levels of 3 separators,
+binary bottom) over the 2^24; and phase 4's main path: the tiered
+lookup of 2^20 queries over build_index's default tiered index of the
+2^24 keys (``lookup_ms``, CUDA events; ``lookup_graph_ms``, every launch
+counted), its device plan alone (``device_plan_ms``), the specialized
+lookup's, and the lookup's heaviest kernels under torch.profiler with
+the cummax events (ops and kernels) in it. Every result is checked
+against numpy. Prints one JSON line with the card's name and power limit
+(and writes it to FILE).
+
+With --run-starts it also times, on the lookup's sorted page ids, three
+ways to the run start of each one (the first index of its run), each
+checked against the others: the running max of the run-start indices
+(``torch.cummax``), the left search of the pages in themselves
+(``torch.searchsorted``) and a hand-written CUDA pass (each element
+gallops back to its run's first index, then bisects), built here with
+nvcc.
 """
 from __future__ import annotations
 
@@ -43,6 +61,141 @@ import time
 import numpy as np
 
 SMALL = (4096, 32_768)
+RUN_START_CU = r"""
+#include <cuda_runtime.h>
+// the first index of sp[i]'s run in the sorted sp: gallop back, bisect
+__global__ void run_start(const int* __restrict__ sp, int n,
+                          int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int v = sp[i];
+  int hi = i, step = 1, lo = i - 1;      // sp[hi] == v; sp[lo] probed
+  while (lo >= 0 && sp[lo] == v) {
+    hi = lo;
+    step <<= 1;
+    lo = hi - step;
+  }
+  if (lo < -1) lo = -1;                  // sp[lo] < v, or lo before 0
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (sp[mid] == v) hi = mid; else lo = mid;
+  }
+  out[i] = hi;
+}
+extern "C" int run_start_launch(const void* sp, int n, void* out,
+                                void* stream) {
+  run_start<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(sp), n, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def profiled_events(fn) -> dict:
+    """Every event of one call of ``fn`` under torch.profiler (its aten ops
+    and device kernels), with its count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.device_type == DeviceType.CUDA)
+            for e in prof.key_averages()}
+
+
+def main_path(cs, keys, rng, dev) -> dict:
+    """Phase 4's lookup over ``keys`` (build_index's default tiered index)
+    and its device plan; returns the times, the profile and the sorted
+    page ids the plan sorts (for --run-starts)."""
+    import torch
+    from repro_torch import IndexConfig, build_index
+    from repro_torch.engine import schedule
+    vals = rng.integers(-2**31, 2**31 - 1, keys.size).astype(np.int32)
+    q = np.concatenate([rng.choice(keys, cs.N_QUERIES // 2),
+                        rng.integers(-2**31 + 1, 2**31 - 1,
+                                     cs.N_QUERIES // 2).astype(np.int32)])
+    q = rng.permutation(q)
+    qd = torch.from_numpy(q).to(dev)
+    rank = np.searchsorted(keys, q).astype(np.int32)
+    out = {}
+    for spec in (False, True):
+        idx = build_index(keys, vals, IndexConfig(kind="tiered",
+                                                  specialize=spec))
+        res = idx.lookup(qd)
+        if not np.array_equal(res.rank.cpu().numpy(), rank):
+            raise AssertionError(f"tiered lookup (specialize={spec}) "
+                                 "!= np.searchsorted")
+        tag = "spec_" if spec else ""
+        out[tag + "lookup_ms"] = cs.cuda_ms(lambda: idx.lookup(qd))
+        if spec:
+            break
+        out["lookup_graph_ms"] = cs.graph_amortised_ms(lambda: idx.lookup(qd))
+        impl = idx.impl
+        pids = impl.page_of(qd)
+        g_cap = schedule.ladder_grid(cs.N_QUERIES, impl.tile, impl.num_pages)
+        out["device_plan_ms"] = cs.cuda_ms(lambda: schedule.device_plan(
+            pids, impl.tile, g_cap, impl.num_pages))
+        out["device_plan_graph_ms"] = cs.graph_amortised_ms(
+            lambda: schedule.device_plan(pids, impl.tile, g_cap,
+                                         impl.num_pages))
+        out["profile"] = cs.device_profile(lambda: idx.lookup(qd))
+        events = profiled_events(lambda: idx.lookup(qd))
+        out["kernels_a_lookup"] = sum(n for n, dev in events.values()
+                                      if dev)
+        out["cummax_events"] = {k: n for k, (n, _) in events.items()
+                                if "cummax" in k.lower()}
+        sp = torch.sort(pids).values
+        del idx, impl
+        torch.cuda.empty_cache()
+    return out, sp
+
+
+def run_starts(cs, sp) -> dict:
+    """The three ways to each sorted page id's run start, timed (every
+    launch counted) and checked against each other."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    src = _build.BUILD_DIR / "run_start_variant.cu"
+    lib = src.with_suffix(".so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(RUN_START_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).run_start_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    n = sp.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=sp.device)
+
+    def by_cummax():
+        new_run = torch.ones(n, dtype=torch.bool, device=sp.device)
+        new_run[1:] = sp[1:] != sp[:-1]
+        return torch.cummax(idx * new_run, dim=0).values
+
+    def by_search():
+        return torch.searchsorted(sp, sp, out_int32=True)
+
+    def by_pass():
+        out = torch.empty_like(sp)
+        _build.check(fn(sp.data_ptr(), n, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream),
+                     "run_start")
+        return out
+
+    want = by_cummax()
+    out = {}
+    for name, f in (("cummax", by_cummax), ("searchsorted", by_search),
+                    ("hand_pass", by_pass)):
+        if not torch.equal(f(), want):
+            raise AssertionError(f"run starts by {name} != cummax's")
+        out[name] = [cs.graph_amortised_ms(f) for _ in range(2)]
+    out["runs"] = int(torch.unique_consecutive(sp).numel())
+    return out
 CONFIGS = (
     ("binary_c1", "sorted_array", dict(linear_cutoff=1)),
     ("binary_c8", "sorted_array", dict(linear_cutoff=8)),
@@ -60,6 +213,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="the checkout to time")
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--run-starts", action="store_true",
+                    help="also time the three ways to the plan's run starts")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [os.path.join(root, "src"), root]
@@ -150,13 +305,40 @@ def main() -> int:
     del ng
     torch.cuda.empty_cache()
     sub = np.sort(rng.choice(keys, cs.N_CSB_KEYS, replace=False))
+    t0 = time.perf_counter()
     tree = core.CSBTree.build(sub, w=8)
-    cq = torch.from_numpy(cs.mixed_queries(rng, sub, cs.N_QUERIES)).to(dev)
+    out["csb_build_s"] = time.perf_counter() - t0
+    new = cs.fresh_keys(rng, sub, cs.I32.min + 1, cs.I32.max - 1,
+                        cs.CSB_INSERTS)
+    t0 = time.perf_counter()
+    for k in new:
+        if not tree.insert(k):
+            raise AssertionError("a new key read as present")
+    out["csb_insert_us"] = (time.perf_counter() - t0) * 1e6 / new.size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree.snapshot()
+    torch.cuda.synchronize()
+    out["csb_snapshot_upload_ms"] = (time.perf_counter() - t0) * 1e3
+    held = np.union1d(sub, new)
+    cq = torch.from_numpy(cs.mixed_queries(rng, held, cs.N_QUERIES)).to(dev)
     found = tree.search(cq)
     if not np.array_equal(found.cpu().numpy(), np.isin(cq.cpu().numpy(),
-                                                        sub)):
+                                                        held)):
         raise AssertionError("csb != np.isin")
+    out["csb_height"] = tree.height
     out["csb_w8_ms"] = cs.graph_amortised_ms(lambda: tree.search(cq))
+    for q_n in SMALL:
+        qs = cq[:q_n]
+        out[f"csb_w8_ms_{q_n}"] = cs.graph_amortised_ms(
+            lambda: tree.search(qs))
+    del tree
+    torch.cuda.empty_cache()
+    out["main_path"], sp = main_path(cs, keys, rng, dev)
+    print("main_path", json.dumps(out["main_path"]), flush=True)
+    if args.run_starts:
+        out["run_starts"] = run_starts(cs, sp)
+        print("run_starts", json.dumps(out["run_starts"]), flush=True)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

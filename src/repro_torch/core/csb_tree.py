@@ -17,9 +17,11 @@ Layout (host numpy arrays, as the reference keeps them):
 The build and the updates are host-side and structural, as in the
 reference. ``search`` runs on the tree's device: the snapshot of the live
 nodes is uploaded once after a build or an insert, never by a search, so a
-search makes no host sync. On the card a search is one launch of
-``kernels/flat_search.py``'s ``csb_search``; on the CPU it runs
-``search_plain``, a PyTorch composition, over slices of the batch.
+search makes no host sync. On the card the snapshot also holds the
+kernel's stage (``flat_search.csb_stage``: the first inner levels copied
+in breadth-first order, built on the host with the snapshot), and a search
+is one launch of ``kernels/flat_search.py``'s ``csb_search``; on the CPU it
+runs ``search_plain``, a PyTorch composition, over slices of the batch.
 """
 from __future__ import annotations
 
@@ -208,13 +210,24 @@ class CSBTree:
     def snapshot(self):
         """(keys, child, leaf_keys, root, height) with the arrays on the
         tree's device: the live nodes, child ids as int32. Uploaded once
-        after each build or insert (page-locked, non-blocking)."""
+        after each build or insert (page-locked, non-blocking), with the
+        kernel's stage on the card (``stage``)."""
         if self._snap is None:
             n, dev = self._n_nodes, self.device
+            stage = flat_search.csb_stage(
+                self.keys[:n], self.child[:n], self.root, self.height,
+                device=dev) if dev.type == "cuda" else None
             self._snap = (upload_async(self.keys[:n], dev),
                           upload_async(self.child[:n].astype(np.int32), dev),
-                          upload_async(self.leaf_keys[:n], dev))
-        return (*self._snap, self.root, self.height)
+                          upload_async(self.leaf_keys[:n], dev), stage)
+        return (*self._snap[:3], self.root, self.height)
+
+    @property
+    def stage(self) -> Optional[flat_search.CSBStage]:
+        """The snapshot's ``csb_search`` stage; None on the CPU, whose
+        search runs the plain composition."""
+        self.snapshot()
+        return self._snap[3]
 
     def search(self, queries) -> torch.Tensor:
         """Batched membership search -> found, bool [Q]. Alg 3.2: child
@@ -224,7 +237,7 @@ class CSBTree:
         if q.device.type == "cpu":
             return self.search_plain(q)
         return flat_search.csb_search(q, keys, child, leaf_keys, root=root,
-                                      height=height)
+                                      height=height, stage=self.stage)
 
     def search_plain(self, queries) -> torch.Tensor:
         """The PyTorch composition of ``search`` on the tree's device."""

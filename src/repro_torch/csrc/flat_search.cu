@@ -66,17 +66,26 @@
 //     and one of keys_pad for the last: one sector of the keys a query
 //     from device memory. A cutoff wider than the window counts its tail
 //     block 16 bytes a load: 0.073 ms, half of searchsorted's;
-//   * csb_search: a group of lanes a query (2 at w 8) follows `child`,
-//     keeps its node on a ragged path (base < 0) and returns whether the
-//     leaf holds q (a count of the keys equal to it), four rounds of loads
-//     in flight; its lanes vote by ballot, so its level loop is
-//     warp-uniform and lanes past the batch vote false.
+//   * csb_search: one thread a query follows `child`, keeps its node on a
+//     ragged path (base < 0) and returns whether the leaf holds q (a count
+//     of the keys equal to it). The tree's first inner levels are copied
+//     once a snapshot into a stage in breadth-first order (each staged
+//     node's key row, sentinel padded to whole 16-byte pieces, and its
+//     link: its first child's place in the stage, or at the last staged
+//     level its child group's id), which a persistent grid copies into
+//     shared memory (five levels, 128 KB, of a 2^20-key tree at w 8) and a
+//     smaller batch reads in place. Below the stage a level issues the
+//     node's row (16-byte loads: two at w 8 and 4-byte keys) and its
+//     `child` entry together: one round trip a level, then one for the
+//     leaf: 0.040 ms for 2^20 queries against 0.066 for the first design.
 // flat_descent keeps two queries a thread in flight under the persistent
-// grid (kDescentQueries) and one in place, flat_binary one: the faster on
-// the H100; lane groups of 4 a query, or 4 queries a thread, were slower
-// at every width (PERF.md §6). Past that, each query's chain of dependent loads bounds
-// them: a few round trips to L2 a level, and the sectors of the last
-// levels and the leaf blocks from device memory (PERF.md §7).
+// grid (kDescentQueries) and one in place, flat_binary and csb_search one:
+// the faster on the H100; lane groups of 4 a query, or 4 queries a thread,
+// were slower at every width, and csb_search's register cap for a second
+// resident block spilled and lost (PERF.md §6). Past that, each query's
+// chain of dependent loads bounds them: a few round trips to L2 a level,
+// and the sectors of the last levels and the leaf blocks from device
+// memory (PERF.md §7).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,10 +99,9 @@ constexpr int kThreads = 256;        // a block of a grid-stride launch
 constexpr int kStageThreads = 512;   // a block of a persistent launch
 constexpr int kMaxLevels = 64;       // any tree of fanout >= 2 over < 2^63 keys
 constexpr long long kMaxBlocks = 1 << 20;   // a grid-stride loop does the rest
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRounds = 4;           // csb_search's rounds of loads in flight
 constexpr int kUnroll = 5;           // 16-byte loads a lane issues at once
 constexpr int kDescentQueries = 2;   // queries a thread keeps in flight
+constexpr int kCsbBlocks = 1;        // csb_search's resident blocks an SM
 
 enum Ending { kRank = 0, kLeafCount = 1, kDescent = 2 };
 
@@ -137,14 +145,20 @@ __device__ __forceinline__ Vec<T> load_vec(const T* p) {
   return u.v;
 }
 
-// #{x in [from[i], to[i]) : a[x] < q[i]} for each of a thread's I queries
-// (ranges of at most `most` keys, a bound the whole warp shares): the
-// aligned 16-byte pieces that cover a range, masked to it, counted by
-// __popc; a piece that would run past the array's `size` keys is read key
-// by key. The loads of kUnroll pieces a query (a block of kBlock keys at
-// any alignment) are issued before their compares. `a` is 16-byte
-// aligned.
-template <typename T, int I>
+// k < q, or k == q for kEqual
+template <bool kEqual, typename T>
+__device__ __forceinline__ bool hit(T k, T q) {
+  return kEqual ? k == q : k < q;
+}
+
+// #{x in [from[i], to[i]) : a[x] < q[i]} (kEqual: a[x] == q[i]) for each
+// of a thread's I queries (ranges of at most `most` keys, a bound the whole
+// warp shares): the aligned 16-byte pieces that cover a range, masked to
+// it, counted by __popc; a piece that would run past the array's `size`
+// keys is read key by key. The loads of kUnroll pieces a query (a block of
+// kBlock keys at any alignment) are issued before their compares. `a` is
+// 16-byte aligned.
+template <typename T, int I, bool kEqual = false>
 __device__ __forceinline__ void count_range(const T* __restrict__ a,
                                             long long size,
                                             const long long (&from)[I],
@@ -183,11 +197,14 @@ __device__ __forceinline__ void count_range(const T* __restrict__ a,
         if (at + V <= size) {
 #pragma unroll
           for (int t = 0; t < V; ++t)
-            below |= static_cast<unsigned>(v[u][i].k[t] < q[i]) << t;
+            below |= static_cast<unsigned>(hit<kEqual>(v[u][i].k[t], q[i]))
+                     << t;
         } else {
           for (int t = 0; t < V; ++t)
             if (at + t < size && (mask >> t & 1u))
-              below |= static_cast<unsigned>(__ldg(a + at + t) < q[i]) << t;
+              below |= static_cast<unsigned>(hit<kEqual>(__ldg(a + at + t),
+                                                         q[i]))
+                       << t;
         }
         c[i] += __popc(below & mask);
       }
@@ -285,17 +302,6 @@ __device__ __forceinline__ void staged_counts(const T* const (&rows)[I],
 #pragma unroll
     for (int i = 0; i < I; ++i)
       c[i] += on[i] && x < n && sorted_row::entry<false>(rows[i], x) < q[i];
-}
-
-// The first key of each of this warp's groups' query slots, and the
-// stride between a grid's sweeps, for loops whose condition is the same on
-// every lane of a warp (csb_search's ballots).
-__device__ __forceinline__ long long warp_first(int per_warp) {
-  return ((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >>
-          5) * per_warp;
-}
-__device__ __forceinline__ long long grid_queries(int per_warp) {
-  return ((static_cast<long long>(gridDim.x) * blockDim.x) >> 5) * per_warp;
 }
 
 // ------------------------------------------------------------ flat_binary
@@ -547,83 +553,107 @@ flat_descent_kernel(const T* __restrict__ q, long long n_q,
 }
 
 // ------------------------------------------------------------- csb_search
-// The lanes of a query's group: `group` lanes of one warp, aligned.
-struct Group {
-  int sub;          // this lane's place in the group
-  unsigned mask;    // the group's bits in a ballot
-  __device__ explicit Group(int group) {
-    const int lane = threadIdx.x & 31;
-    sub = lane & (group - 1);
-    mask = (group == 32 ? kFull : (1u << group) - 1u) << (lane - sub);
-  }
-};
-
-// #{i < width : pred(row[i])}, counted by the group: lane `sub` reads keys
-// sub, sub + G, ... and the group adds its bits of each round's ballot,
-// kRounds rounds' loads in flight before their ballots. Every lane of the
-// warp calls it with the same width (the ballot takes the whole warp); a
-// lane with `live` false counts nothing and reads nothing.
-template <typename T, typename Pred>
-__device__ __forceinline__ int group_count(const T* row, int width,
-                                           bool live, const Group& g,
-                                           int group, Pred pred) {
+// #{x < pieces * V : row[x] < q} (kEqual: == q) of row s of `rows`, rows
+// of `pieces` 16-byte pieces of V keys: kUnroll pieces issued before their
+// compares, from shared memory (kShared) or through the read-only path
+template <bool kShared, bool kEqual, typename T>
+__device__ __forceinline__ int piece_count(const T* rows, int s, int pieces,
+                                           T q) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
   int c = 0;
-  for (int k = 0; k < width; k += kRounds * group) {
-    bool hit[kRounds];
+  for (int h0 = 0; h0 < pieces; h0 += kUnroll) {
+    Vec<T> v[kUnroll];
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const int i = k + r * group + g.sub;
-      hit[r] = live && i < width && pred(__ldg(row + i));
-    }
+    for (int u = 0; u < kUnroll; ++u)
+      if (h0 + u < pieces) {
+        const T* at = rows + (static_cast<long long>(s) * pieces + h0 + u) * V;
+        v[u] = kShared ? *reinterpret_cast<const Vec<T>*>(at) : load_vec(at);
+      }
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r)
-      c += __popc(__ballot_sync(kFull, hit[r]) & g.mask);
+    for (int u = 0; u < kUnroll; ++u)
+      if (h0 + u < pieces)
+#pragma unroll
+        for (int t = 0; t < V; ++t) c += hit<kEqual>(v[u].k[t], q);
   }
   return c;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// #{x < w : row[x] < q} (kEqual: == q) of node row r of w keys in `a`
+// (`size` keys): a row of whole 16-byte pieces (every row aligned: two at
+// w 8 and 4-byte keys) piece by piece, any other row through count_range's
+// aligned pieces, masked to the row.
+template <bool kEqual, typename T>
+__device__ __forceinline__ int node_count(const T* __restrict__ a,
+                                          long long size, int r, int w, T q) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  if (w % V == 0) return piece_count<false, kEqual>(a, r, w / V, q);
+  const long long from[1] = {static_cast<long long>(r) * w},
+                  to[1] = {from[0] + w};
+  const T qv[1] = {q};
+  const bool on[1] = {true};
+  int c[1];
+  count_range<T, 1, kEqual>(a, size, from, to, w, qv, on, c);
+  return c[0];
+}
+
+// One thread a query. The stage (`chunks` 16-byte pieces: stage_nodes rows
+// of `pieces` pieces, then their int32 links) holds the first stage_levels
+// inner levels: stage node 0 is the root; below a staged node of an upper
+// level the query goes to stage node link + c, below one of the last
+// staged level to node id link + c. Every staged node is inner, and each
+// node's whole child group (c up to the keys of its row below the
+// sentinel) is staged, so the query leaves the stage on the node the plain
+// descent reaches. Below the stage a level issues the node's row and its
+// child id together.
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kStageThreads, kCsbBlocks)
 csb_search_kernel(const T* __restrict__ q, long long n_q,
                   const T* __restrict__ keys, const int* __restrict__ child,
                   const T* __restrict__ leaf_keys, int n_nodes, int w,
-                  int root, int height, int group, bool* __restrict__ out) {
-  const Group g(group);
-  const int per_warp = 32 / group;
-  const long long stride = grid_queries(per_warp);
-  for (long long base = warp_first(per_warp); base < n_q; base += stride) {
-    const long long qi = base + (threadIdx.x & 31) / group;
-    const bool live = qi < n_q;
-    const T qv = live ? q[qi] : T(0);
-    int nid = root;
-    for (int h = 0; h < height - 1; ++h) {
-      const int r = clamp_row(nid, n_nodes);
-      const unsigned c =
-          group_count(keys + static_cast<long long>(r) * w, w, live, g,
-                      group, [qv](T k) { return k < qv; });
-      const int b = __ldg(child + r);
-      nid = b < 0 ? nid : static_cast<int>(static_cast<unsigned>(b) + c);
+                  int root, int height, const int4* __restrict__ stage,
+                  int stage_levels, int stage_nodes, int pieces,
+                  bool* __restrict__ out) {
+  const int row_chunks = stage_nodes * pieces;
+  const int4* st = stage;
+  if (kStaged) {
+    extern __shared__ int4 smem[];
+    const int chunks = row_chunks + (stage_nodes + 3) / 4;
+    for (int t = threadIdx.x; t < chunks; t += blockDim.x)
+      smem[t] = __ldg(stage + t);
+    __syncthreads();
+    st = smem;
+  }
+  const T* rows = reinterpret_cast<const T*>(st);
+  const int* links = reinterpret_cast<const int*>(st + row_chunks);
+  const long long size = static_cast<long long>(n_nodes) * w;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n_q; i += step) {
+    const T qv = q[i];
+    int nid = stage_levels > 0 ? 0 : root;
+    for (int l = 0; l < stage_levels; ++l) {
+      const int link = kStaged ? links[nid] : __ldg(links + nid);
+      const int c = piece_count<kStaged, false>(rows, nid, pieces, qv);
+      nid = static_cast<int>(static_cast<unsigned>(link) +
+                             static_cast<unsigned>(c));
     }
-    const T* leaf =
-        leaf_keys + static_cast<long long>(clamp_row(nid, n_nodes)) * w;
-    const int hits = group_count(leaf, w, live, g, group,
-                                 [qv](T k) { return k == qv; });
-    if (live && g.sub == 0) out[qi] = hits != 0;
+    for (int h = stage_levels; h < height - 1; ++h) {
+      const int r = clamp_row(nid, n_nodes);
+      const int b = __ldg(child + r);          // beside the row's loads
+      const int c = node_count<false>(keys, size, r, w, qv);
+      if (b >= 0)
+        nid = static_cast<int>(static_cast<unsigned>(b) +
+                               static_cast<unsigned>(c));
+    }
+    out[i] = node_count<true>(leaf_keys, size, clamp_row(nid, n_nodes), w,
+                              qv) != 0;
   }
 }
 
 // ---------------------------------------------------------------- launches
-bool is_group(int group) {
-  return group >= 1 && group <= 32 && (group & (group - 1)) == 0;
-}
-
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-int blocks_for(long long threads) {
-  const long long want = (threads + kThreads - 1) / kThreads;
-  return static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
 }
 
 // The launch of `kernel` over `threads` threads' work: with `smem` > 0
@@ -790,19 +820,43 @@ int launch_descent_checked(
   return launch_descent<T>(a);
 }
 
+// A persistent grid that stages when the batch fills it, else in place.
+// *staged (host memory, may be null) says which.
 template <typename T>
 int launch_csb(const void* q, long long n_q, const void* keys,
                const void* child, const void* leaf_keys, int n_nodes, int w,
-               int root, int height, int group, void* out, void* stream) {
-  if (n_q < 0 || n_nodes < 1 || w < 1 || height < 1 || !is_group(group)) {
+               int root, int height, const void* stage, int stage_levels,
+               int stage_nodes, int stride, bool* out, void* stream,
+               int* staged) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  if (n_q < 0 || n_nodes < 1 || w < 1 || height < 1 || stage_levels < 0 ||
+      stage_levels > height - 1 || stage_nodes < 0 ||
+      (stage_levels > 0 &&
+       (stage_nodes < 1 || stride < w || stride % V ||
+        static_cast<long long>(stage_nodes) * (stride / V) > (1 << 24))) ||
+      !aligned(keys) || !aligned(leaf_keys) || !aligned(stage))
     return cudaErrorInvalidValue;
-  }
+  if (staged) *staged = 0;
   if (n_q == 0) return cudaSuccess;
-  csb_search_kernel<T><<<blocks_for(n_q * group), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  if (stage_levels == 0) stage_nodes = 0;
+  const int pieces = stage_levels ? stride / V : 0;
+  const size_t smem =
+      stage_levels ? 16 * static_cast<size_t>(stage_nodes * pieces +
+                                              (stage_nodes + 3) / 4)
+                   : 0;
+  int staging, blocks, threads;
+  size_t bytes;
+  auto kernel = csb_search_kernel<T, true>;
+  if (const cudaError_t err = plan_launch(kernel, n_q, smem, &staging,
+                                          &blocks, &threads, &bytes))
+    return static_cast<int>(err);
+  if (!staging) kernel = csb_search_kernel<T, false>;
+  kernel<<<blocks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), n_q, static_cast<const T*>(keys),
       static_cast<const int*>(child), static_cast<const T*>(leaf_keys),
-      n_nodes, w, root, height, group, static_cast<bool*>(out));
+      n_nodes, w, root, height, static_cast<const int4*>(stage),
+      stage_levels, stage_nodes, pieces, out);
+  if (staged) *staged = staging;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,7 +865,8 @@ int launch_csb(const void* q, long long n_q, const void* keys,
 // C entry points, one a key type (i32, f32, i64, f64). Pointers are device
 // pointers (16-byte aligned: the index's arrays), except flat_descent's
 // level table `table` (host memory, 5 x depth ints: page_row, page_rows,
-// level_row, live, sample_row, copied into the launch's arguments); the
+// level_row, live, sample_row, copied into the launch's arguments) and
+// csb_search's `staged` (host memory, or null: 1 if the launch staged); the
 // stream is the caller's. Each returns cudaGetLastError() after the launch
 // (0: launched; nothing is launched for n_q == 0).
 #define FLAT_SEARCH_ENTRIES(SUFFIX, T)                                       \
@@ -840,9 +895,11 @@ int launch_csb(const void* q, long long n_q, const void* keys,
   extern "C" int csb_search_##SUFFIX(                                        \
       const void* q, long long n_q, const void* keys, const void* child,     \
       const void* leaf_keys, int n_nodes, int w, int root, int height,       \
-      int group, void* out, void* stream) {                                  \
+      const void* stage, int stage_levels, int stage_nodes, int stride,      \
+      void* out, void* stream, int* staged) {                                \
     return launch_csb<T>(q, n_q, keys, child, leaf_keys, n_nodes, w, root,   \
-                         height, group, out, stream);                        \
+                         height, stage, stage_levels, stage_nodes, stride,   \
+                         static_cast<bool*>(out), stream, staged);           \
   }
 
 FLAT_SEARCH_ENTRIES(i32, int32_t)

@@ -305,8 +305,10 @@ def plan_method(q_n: int, num_pages: int | None) -> str:
 def _plan_sort(page_of: torch.Tensor, tile: int, grid: int) -> DevicePlan:
     """Packed-sort construction: one stable value sort of the int64 key
     ``page * Q + index`` (order-isomorphic to a stable sort by page), run
-    starts via a running max, steps via a cumsum over tile starts — the
-    host plan's step numbering exactly."""
+    starts by a left search of the sorted pages in themselves (the first
+    index of each one's run: the reference's running max, without a scan
+    over the batch), steps via a cumsum over tile starts — the host plan's
+    step numbering exactly."""
     q_n = page_of.shape[0]
     dev = page_of.device
     step_pages = torch.zeros(grid, dtype=torch.int32, device=dev)
@@ -319,9 +321,7 @@ def _plan_sort(page_of: torch.Tensor, tile: int, grid: int) -> DevicePlan:
     packed = torch.sort(page_of.long() * q_n + idx, stable=True).values
     order = packed % q_n
     sp = (packed // q_n).int()
-    new_run = torch.ones(q_n, dtype=torch.bool, device=dev)
-    new_run[1:] = sp[1:] != sp[:-1]
-    run_start = torch.cummax(idx * new_run, dim=0).values
+    run_start = torch.searchsorted(sp, sp, out_int32=True)
     pos = (idx - run_start) % tile                       # lane within the step
     step = torch.cumsum(pos == 0, dim=0, dtype=torch.int32) - 1
     dest = torch.empty(q_n, dtype=torch.int32, device=dev).scatter_(

@@ -15,7 +15,7 @@ which the port ran as a chain of PyTorch ops (about three launches and a
   row's address differs, which ``Descent`` (the index's level table,
   built once an index on the host) gives the kernel;
 * ``csb_search``: ``repro/core/csb_tree.py:213`` ``_search``, membership
-  through the CSB+-tree's child groups.
+  through the CSB+-tree's child groups, one thread a query.
 
 Each wrapper runs the kernel for a CUDA tensor (on the current stream,
 output from ``torch.empty``, no host sync, so graph capture records it)
@@ -30,16 +30,18 @@ ending).
 
 The kernels read each index through a stage built once an index
 (``binary_stage``, ``descent_stage``, held by the index beside its
-arrays): ``flat_binary`` the probe keys of its first levels in Eytzinger
-order and a sample of every 32-byte window's last key (read through
-``csrc/staged_bound.cuh``'s steps, as kernel 6 reads its own);
-``flat_descent``
-the number of levels whose rows it copies into shared memory, each
-level's live nodes (past them a node is all sentinel and counts 0) and,
-for each live node and live leaf block wider than ``whole_keys``, the
-last key of each of its 64-byte blocks. The plain versions read the same
-arrays through the same windows, so that the CPU tests hold them to the
-reference.
+arrays; ``csb_stage``, built by each ``CSBTree.snapshot``): ``flat_binary``
+the probe keys of its first levels in Eytzinger order and a sample of
+every 32-byte window's last key (read through ``csrc/staged_bound.cuh``'s
+steps, as kernel 6 reads its own); ``flat_descent`` the number of levels
+whose rows it copies into shared memory, each level's live nodes (past
+them a node is all sentinel and counts 0) and, for each live node and live
+leaf block wider than ``whole_keys``, the last key of each of its 64-byte
+blocks; ``csb_search`` a copy of the tree's first inner levels in
+breadth-first order, each staged node's key row and its link (its first
+child's place in the copy, or past the copy its child group's id). The
+plain versions read the same arrays through the same windows, so that the
+CPU tests hold them to the reference.
 
 The key types are int32, float32, int64 and float64; ranks are int32.
 """
@@ -67,6 +69,9 @@ _I32_MAX = 2**31 - 1
 # flat_descent's rows, padded as sorted_row::padded_stride pads them, or
 # flat_binary's probe keys (experiments/flat_variants.py times others)
 STAGE_BYTES = 96 * 1024
+# csb_search's: its first inner levels (five, 128 KB, of a 2^20-key tree
+# at w 8: one block an SM, as its registers allow anyway)
+CSB_STAGE_BYTES = 160 * 1024
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
@@ -74,7 +79,8 @@ _ARGTYPES = {
     "flat_descent": [_P, _LL, _P, _I, _I, _I, _I, _P, ctypes.c_ulonglong,
                      _I, _I, _I, _P, _LL, _I, _P, _I, _I, _LL, _I, _I, _I,
                      _P, _P],
-    "csb_search": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "csb_search": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                   _P, _P, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -84,20 +90,6 @@ def _fn(kernel: str, dtype: torch.dtype):
         fn.argtypes = _ARGTYPES[kernel]
         fn.restype = ctypes.c_int
     return fn
-
-
-ROUNDS = 4                          # kRounds in the source
-MAX_GROUP = 4
-
-
-def group_lanes(width: int) -> int:
-    """``csb_search``'s lanes that read a node of ``width`` keys together:
-    the power of two that covers the node in ``ROUNDS`` rounds of loads
-    (which the kernel keeps in flight at once), at most ``MAX_GROUP``
-    (w <= 4: 1; w 5-8: 2; wider: 4). Fewer lanes a query keep more
-    queries in flight, which set the time on the H100."""
-    quarter = 1 << max(-(-int(width) // ROUNDS) - 1, 0).bit_length()
-    return min(MAX_GROUP, quarter)
 
 
 @dataclass(frozen=True)
@@ -706,53 +698,193 @@ flat_descent.mode_launches = {"css": 0, "kary": 0, "fast": 0,
                               "fast_descent": 0}
 
 
+@dataclass(frozen=True, eq=False)
+class CSBStage:
+    """What ``csb_search`` reads of one CSB+-tree snapshot beyond its
+    arrays: the first ``levels`` inner levels, ``nodes`` nodes copied in
+    breadth-first order from the root, in one 16-byte aligned buffer
+    ``buf``: each staged node's key row, sentinel padded to ``stride`` keys
+    (whole 16-byte pieces), then each one's int32 link. Below a staged node
+    of an upper level the search goes to staged node ``link + c`` (c the
+    row's keys below the query), below one of the last staged level to
+    node id ``link + c`` of the snapshot: the link is the first copied
+    child, or the node's child group. Every staged node is inner (its
+    child id >= 0), and each one's children ``0 .. m`` are copied, m the
+    keys of its row below the sentinel (no query counts more), so the
+    search leaves the copy on the node the plain descent reaches."""
+    buf: torch.Tensor
+    levels: int
+    nodes: int
+    stride: int
+    root: int
+    height: int
+    n_nodes: int
+    dtype: torch.dtype
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """The staged key rows, [nodes, stride]."""
+        if not self.nodes:
+            return torch.empty((0, self.stride), dtype=self.dtype,
+                               device=self.buf.device)
+        n = self.nodes * self.stride * self.dtype.itemsize
+        return self.buf[:n].view(self.dtype).view(self.nodes, self.stride)
+
+    @property
+    def link(self) -> torch.Tensor:
+        """The staged nodes' links, int32 [nodes]."""
+        if not self.nodes:
+            return torch.empty(0, dtype=torch.int32, device=self.buf.device)
+        at = self.nodes * self.stride * self.dtype.itemsize
+        return self.buf[at:at + 4 * self.nodes].view(torch.int32)
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+
+def csb_stage_bytes(nodes: int, stride_bytes: int) -> int:
+    """Bytes of a stage of ``nodes`` rows of ``stride_bytes``: the rows,
+    then the links padded to a whole 16-byte piece."""
+    return nodes * stride_bytes + -(-4 * nodes // 16) * 16
+
+
+def csb_stage(keys, child, root: int, height: int, *,
+              device) -> CSBStage:
+    """``csb_search``'s stage of a snapshot's host arrays ``keys`` [N, w]
+    and ``child`` [N], on ``device``: the largest number of inner levels
+    from the root whose nodes all have a child group and whose copy fits
+    ``CSB_STAGE_BYTES``. Node ids are clamped as ``util.take`` clamps them,
+    and a child id ``base + c`` is formed in int32, as the plain descent
+    forms it."""
+    keys, child = _host(keys), _host(child).astype(np.int64)
+    if keys.ndim != 2 or keys.shape[0] < 1 or child.shape != keys.shape[:1]:
+        raise ValueError("want keys [N, w] and child [N], N >= 1")
+    n, w = keys.shape
+    item = keys.dtype.itemsize
+    v = 16 // item
+    stride = -(-w // v) * v
+    ids, levels, kids, total = np.clip([root], 0, n - 1), [], [], 0
+    while len(levels) < height - 1:
+        base = child[ids]
+        if (base < 0).any() or csb_stage_bytes(
+                total + ids.size, stride * item) > CSB_STAGE_BYTES:
+            break
+        levels.append(ids)
+        total += ids.size
+        # children 0 .. m of a node, m its keys below the sentinel
+        kids.append((~dead(keys[ids])).sum(1) + 1)
+        c = np.arange(kids[-1].sum()) - np.repeat(
+            np.cumsum(kids[-1]) - kids[-1], kids[-1])
+        ids = np.clip((np.repeat(base, kids[-1]) + c).astype(np.int32), 0,
+                      n - 1)
+    staged = np.concatenate(levels) if levels else np.zeros(0, np.int64)
+    rows = np.full((total, stride), sentinel_for(keys.dtype), keys.dtype)
+    rows[:, :w] = keys[staged]
+    link, at = np.empty(total, np.int64), 0
+    for lev, ids in enumerate(levels):
+        if lev + 1 < len(levels):        # the first copied child's place
+            link[at:at + ids.size] = at + ids.size + np.cumsum(kids[lev]) \
+                - kids[lev]
+        else:                            # past the copy: the child group
+            link[at:at + ids.size] = child[ids]
+        at += ids.size
+    buf = np.zeros(csb_stage_bytes(total, stride * item), np.uint8)
+    buf[:rows.nbytes] = rows.reshape(-1).view(np.uint8)
+    buf[rows.nbytes:rows.nbytes + 4 * total] = link.astype(np.int32).view(
+        np.uint8)
+    return CSBStage(buf=upload_async(buf, torch.device(device)),
+                    levels=len(levels), nodes=total, stride=stride,
+                    root=int(root), height=int(height), n_nodes=n,
+                    dtype=torch.from_numpy(keys[:0]).dtype)
+
+
+_NO_CSB_STAGE = ("csb_search needs the snapshot's CSBStage (csb_stage: "
+                 "CSBTree.snapshot builds it on the card) for its root, "
+                 "height and node count")
+
+
+def _check_csb(stage: CSBStage, keys: torch.Tensor, root: int,
+               height: int) -> None:
+    if not isinstance(stage, CSBStage) or stage.root != root \
+            or stage.height != height or stage.n_nodes != keys.shape[0]:
+        raise ValueError(_NO_CSB_STAGE)
+    if stage.buf.device != keys.device or stage.dtype != keys.dtype \
+            or stage.stride < keys.shape[1]:
+        raise ValueError("the stage must lie on the keys' device, in their "
+                         "dtype and width")
+
+
 def csb_search_plain(q: torch.Tensor, keys: torch.Tensor,
                      child: torch.Tensor, leaf_keys: torch.Tensor, *,
-                     root: int, height: int) -> torch.Tensor:
+                     root: int, height: int,
+                     stage: CSBStage | None = None) -> torch.Tensor:
     """Plain version: the kernel's loop in PyTorch, over slices of the
     batch: from ``root``, ``height - 1`` steps to child ``child[node] + c``
     (c the node's keys below q), staying put where ``child`` is negative,
     then whether the leaf holds q. Rows are clamped as ``util.take``
-    clamps them."""
+    clamps them. With a ``stage``, the first ``stage.levels`` steps read
+    it, as the kernel reads it: from staged node 0, the next one (or,
+    past the last staged level, the node id) is ``link + c``."""
+    levels = 0
+    if stage is not None:
+        _check_csb(stage, keys, root, height)
+        levels, rows, link = stage.levels, stage.rows, stage.link
+
     def run(qq):
         nid = torch.full(qq.shape, root, dtype=torch.int32, device=qq.device)
-        for _ in range(height - 1):
+        if levels:
+            nid = torch.zeros_like(nid)
+        for _ in range(levels):
+            c = (rows[nid.long()] < qq[:, None]).sum(-1, dtype=torch.int32)
+            nid = link[nid.long()] + c
+        for _ in range(levels, height - 1):
             c = (take(keys, nid) < qq[:, None]).sum(-1, dtype=torch.int32)
             base = take(child, nid)
             nid = torch.where(base < 0, nid, base + c)
         return (take(leaf_keys, nid) == qq[:, None]).any(-1)
 
-    return by_chunks(keys.shape[1], run, q)
+    return by_chunks(max(keys.shape[1], stage.stride if levels else 0), run,
+                     q)
 
 
 def csb_search(q: torch.Tensor, keys: torch.Tensor, child: torch.Tensor,
-               leaf_keys: torch.Tensor, *, root: int,
-               height: int) -> torch.Tensor:
+               leaf_keys: torch.Tensor, *, root: int, height: int,
+               stage: CSBStage | None = None) -> torch.Tensor:
     """Membership of each query in a CSB+-tree's snapshot (``keys`` and
-    ``leaf_keys`` [N, w], ``child`` int32 [N], -1 at a leaf): bool [Q]."""
+    ``leaf_keys`` [N, w], ``child`` int32 [N], -1 at a leaf): bool [Q].
+    ``stage`` is the snapshot's ``csb_stage`` (the card needs it; on the
+    CPU the plain version reads it when given). ``csb_search.staged``
+    says whether the last launch staged it in shared memory (a persistent
+    grid) or read it in place."""
     if q.device.type == "cpu":
         return csb_search_plain(q, keys, child, leaf_keys, root=root,
-                                height=height)
-    q = _device_args(q, keys, child, leaf_keys)
+                                height=height, stage=stage)
+    if not isinstance(stage, CSBStage):
+        raise ValueError(_NO_CSB_STAGE)
+    q = _device_args(q, keys, child, leaf_keys, stage.buf)
     if keys.dtype != q.dtype or leaf_keys.dtype != q.dtype \
             or child.dtype != torch.int32:
         raise TypeError(f"keys must be {q.dtype} and child int32")
     if keys.dim() != 2 or leaf_keys.shape != keys.shape \
             or child.shape != keys.shape[:1] or keys.shape[0] < 1:
         raise ValueError("want keys and leaf_keys [N, w], child [N], N >= 1")
+    _check_csb(stage, keys, root, height)
     out = torch.empty(q.shape, dtype=torch.bool, device=q.device)
     if q.shape[0] == 0:
         return out
-    w = keys.shape[1]
+    staged = ctypes.c_int(0)
     err = _fn("csb_search", q.dtype)(
         q.data_ptr(), q.shape[0], keys.data_ptr(), child.data_ptr(),
-        leaf_keys.data_ptr(), keys.shape[0], w, root, height,
-        group_lanes(w), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        leaf_keys.data_ptr(), keys.shape[0], keys.shape[1], root, height,
+        stage.buf.data_ptr(), stage.levels, stage.nodes, stage.stride,
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(staged))
     _build.check(err, "csb_search")
     csb_search.launches += 1
+    csb_search.staged = bool(staged.value)
     return out
 
 
 csb_search.launches = 0
-
+csb_search.staged = False

@@ -1506,6 +1506,100 @@ def test_csb_kernel_equals_plain_through_splits(cuda, dtype, n_keys,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int64,
+                                   np.float64])
+def test_csb_kernel_staged_and_in_place(cuda, dtype, monkeypatch):
+    """The redesigned csb_search over ~450,000 keys (w 8, 4,096 inserts,
+    height 7, 5 levels staged): at 4,096 and 32,768 queries it reads its
+    stage in place, at 2^20 a
+    persistent grid stages it in shared memory, and with a stage of
+    nothing (a budget of 0) it reads every level in place; each search one
+    launch with no host sync, bit for bit with the wrapper's plain version
+    over the same stage, with the plain descent and (real queries) with
+    np.isin, for each key type."""
+    from repro_torch.core import CSBTree
+    from repro_torch.kernels import flat_search as fs
+    base = np.float32 if np.dtype(dtype).kind == "f" else np.int32
+    keys, q = flat_edge_case(base, 1 << 20, 1 << 20, seed=34)
+    keys, q = np.unique(keys).astype(dtype), q.astype(dtype)
+    rng = np.random.default_rng(35)
+    tree = CSBTree.build(keys[::2], w=8)
+    for k in rng.choice(keys[1::2], 4096, replace=False):
+        tree.insert(k)
+    assert tree.height == 7
+    assert tree.stage.levels == 5
+    sent = np.iinfo(dtype).max if np.dtype(dtype).kind == "i" else np.inf
+    held = np.sort(tree.iter_keys())
+    qd = torch.from_numpy(q).to(cuda)
+    snap = tree.snapshot()
+    stages = {"port": tree.stage}
+    monkeypatch.setattr(fs, "CSB_STAGE_BYTES", 0)
+    stages["none"] = fs.csb_stage(*(a.cpu() for a in snap[:2]), snap[3],
+                                  snap[4], device=cuda)
+    assert stages["none"].levels == 0
+    for name, st in stages.items():
+        for n_q in (4096, 32_768, q.size):
+            qs = qd[:n_q]
+            fs.csb_search.launches = 0
+            got = sync_free(lambda: fs.csb_search(
+                qs, *snap[:3], root=snap[3], height=snap[4], stage=st))
+            assert fs.csb_search.launches == 1
+            assert fs.csb_search.staged == (name == "port"
+                                             and n_q == q.size)
+            assert torch.equal(got, fs.csb_search_plain(
+                qs, *snap[:3], root=snap[3], height=snap[4], stage=st))
+            assert torch.equal(got, tree.search_plain(qs))
+            real = q[:n_q] != sent
+            assert np.array_equal(got.cpu().numpy()[real],
+                                  np.isin(q[:n_q], held)[real])
+    with pytest.raises(ValueError, match="needs the snapshot's CSBStage"):
+        fs.csb_search(qd, *snap[:3], root=snap[3], height=snap[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["sort", "histogram"])
+def test_device_plan_card_equals_cpu_and_runs_no_cummax(cuda, method):
+    """The device plan on the card bit for bit with the CPU's (dest,
+    step_pages, steps_used) at 2^20 queries over 8,192 pages (sort) and
+    over 64 (histogram), with no host sync; a tiered search (2^20 queries
+    over 2^22 keys, the k-ary top) runs no cummax: none of its profiled
+    ops or kernels (torch.cummax's kernel, a scan, does not name it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(36)
+    pages = 8192 if method == "sort" else 64
+    page_of = np.minimum(rng.zipf(1.2, 1 << 20) - 1, pages - 1).astype(
+        np.int32)
+    tile = 128
+    g_cap = schedule.ladder_grid(page_of.size, tile, pages)
+    pd = torch.from_numpy(page_of).to(cuda)
+    got = sync_free(lambda: schedule.device_plan(pd, tile, g_cap, pages,
+                                                 method=method))
+    want = schedule.device_plan(torch.from_numpy(page_of), tile, g_cap,
+                                pages, method=method)
+    for f in ("dest", "step_pages", "steps_used"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    if method == "histogram":
+        return
+    keys = np.arange(1 << 22, dtype=np.int64) * 7 - (1 << 24)
+    idx = tiered.build(keys.astype(np.int32), leaf_width=512, device=cuda)
+    assert idx.num_pages == 8192 and idx.top_kind == "kary"
+    qd = torch.from_numpy(rng.integers(-(1 << 24), 1 << 25, 1 << 20)
+                          .astype(np.int32)).to(cuda)
+    tiered.search(idx, qd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rank = tiered.search(idx, qd)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+    assert not [k for k in names if "cummax" in k.lower()]
+    assert np.array_equal(rank.cpu().numpy(), np.searchsorted(
+        keys.astype(np.int32), qd.cpu().numpy()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [
     dict(kind="binary"), dict(kind="css", node_width=16, intra="binary"),
     dict(kind="css"), dict(kind="kary", node_width=127),

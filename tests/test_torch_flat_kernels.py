@@ -11,7 +11,9 @@ queries (seeded) go through the reference's searcher (jitted, as its
 found flags must be bit-identical, and equal numpy. Shapes are
 ``chip_smoke.py``'s phase 15 configurations at a few thousand keys, with
 both intra-node searches, cutoffs 1 and 8, page depths 1-3 and a CSB+-tree
-through a root split. Subnormal floats stay out of the JAX comparisons
+through a root split; ``csb_search_plain`` also reads the kernel's stage
+(``csb_stage``) as the kernel reads it, held to the reference on trees at
+w 2, 8 and 16 through their splits. Subnormal floats stay out of the JAX comparisons
 (XLA's CPU backend flushes them in compares) and are held to numpy."""
 import numpy as np
 import pytest
@@ -217,6 +219,141 @@ def test_csb_search_args_match_the_reference_through_a_root_split():
     assert heights[0] == 2 and heights[-1] > heights[0]
 
 
+def csb_queries(rng, keys: np.ndarray) -> np.ndarray:
+    """Every key, its neighbours, random queries over the keys' span, and
+    the edges: below every key, the sentinel, for floats +-inf, NaN and
+    both zeros (N_Q of them: one reference jit a tree shape)."""
+    pick = rng.choice(keys, min(keys.size, N_Q // 4), replace=False)
+    if keys.dtype == np.int32:
+        edge = [I32.min, I32.max - 1, I32.max, 0, keys[0] - 1]
+        near = np.concatenate([pick - 1, pick + 1])
+        spread = rng.integers(int(keys[0]) - 50, int(keys[-1]) + 50, N_Q)
+    else:
+        edge = [-np.inf, np.inf, np.nan, -0.0, 0.0, keys[0] - 1.0]
+        near = np.concatenate([pick - 0.5, pick + 0.25])
+        spread = rng.uniform(keys[0] - 50, keys[-1] + 50, N_Q)
+    q = np.concatenate([edge, pick, near, spread]).astype(keys.dtype)
+    return q[:N_Q]
+
+
+def csb_growth(dtype, w: int, rng):
+    """A root leaf half full, then inserts that fill and split it (a root
+    split), split leaves, grow the root and, where a parent is full, fall
+    back to a rebuild: the inserts of each stage."""
+    first = (np.arange(0, 5 * max(w // 2, 1), 5)).astype(dtype)
+    fill = np.append(first + 1, first[-1] + 2).astype(dtype)
+    pool = rng.permutation(np.arange(1, 40 * w * w, 3))
+    return first, [fill, pool[:4 * w].astype(dtype),
+                   pool[4 * w:4 * w + 30 * w * w // 4].astype(dtype)]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("w", [2, 8, 16])
+def test_csb_staged_descent_matches_the_reference(w, dtype, monkeypatch):
+    """The kernel's staged descent, emulated by the plain version over
+    ``csb_stage``, against the plain descent and the reference's
+    ``_search``, after each stage of a tree's growth (a root split, leaf
+    splits, a rebuild where a parent fills), and at stage budgets that
+    hold nothing, the root alone or a level and a half (the top does not
+    fit) beside the port's."""
+    rng = np.random.default_rng(31 + w)
+    first, stages = csb_growth(dtype, w, rng)
+    ref = ref_csb.CSBTree.build(first, w=w)
+    pt = pt_csb.CSBTree.build(first, w=w, device="cpu")
+    builds = []
+    real_build = pt_csb.CSBTree.build.__func__
+    monkeypatch.setattr(pt_csb.CSBTree, "build", classmethod(
+        lambda cls, *a, **k: builds.append(1) or real_build(cls, *a, **k)))
+    heights = [pt.height]
+    for new in stages:
+        for k in new:
+            assert ref.insert(k) == pt.insert(k)
+        snap = pt.snapshot()
+        keys_d, child, leaf_keys, root, height = snap
+        assert (root, height) == ref.snapshot()[3:]
+        heights.append(height)
+        q = csb_queries(rng, np.sort(pt.iter_keys()))
+        qt = torch.from_numpy(q)
+        want = ref.search(q)
+        plain = fs.csb_search_plain(qt, *snap[:3], root=root, height=height)
+        same(plain, want)
+        row = -(-w * q.itemsize // 16) * 16
+        budgets = [fs.CSB_STAGE_BYTES, 0, fs.csb_stage_bytes(1, row),
+                   fs.csb_stage_bytes(w + 2, row)]
+        for budget in budgets:
+            monkeypatch.setattr(fs, "CSB_STAGE_BYTES", budget)
+            st = fs.csb_stage(keys_d, child, root, height, device="cpu")
+            assert st.nbytes <= budget and st.levels <= height - 1
+            assert st.levels == 0 or st.nodes >= 1
+            same(fs.csb_search(qt, *snap[:3], root=root, height=height,
+                               stage=st), want, f"budget {budget}")
+        monkeypatch.setattr(fs, "CSB_STAGE_BYTES", budgets[0])
+    assert heights[0] == 1 and heights[1] == 2 and heights[-1] >= 3
+    assert builds, "no insert fell back to a rebuild"
+
+
+def test_csb_stage_holds_the_top_in_breadth_first_order():
+    """The stage of a bulk-loaded tree: every inner level down to the
+    budget, each node's key row (sentinel padded to whole 16-byte pieces)
+    and its link (the first copied child, then the child group), read
+    back against a walk of the host tree."""
+    keys = np.arange(0, 3 * 4_000, 3, dtype=np.int32)
+    t = pt_csb.CSBTree.build(keys, w=8, device="cpu")
+    assert t.stage is None                  # the CPU's search is plain
+    snap = t.snapshot()
+    st = fs.csb_stage(*snap[:2], t.root, t.height, device="cpu")
+    assert t.height == 5 and st.levels == 4 and st.stride == 8
+    level, order, links = [t.root], [], []
+    for lev in range(st.levels):
+        order += level
+        nxt = []
+        for nid in level:
+            kids = [int(t.child[nid]) + c for c in range(t.nlen[nid] + 1)]
+            links.append(len(order) + len(nxt) if lev + 1 < st.levels
+                         else int(t.child[nid]))
+            nxt += kids
+        level = nxt
+    assert st.nodes == len(order)
+    np.testing.assert_array_equal(st.rows.numpy(), t.keys[order])
+    np.testing.assert_array_equal(st.link.numpy(), links)
+    assert st.nbytes == fs.csb_stage_bytes(len(order), 32) and \
+        st.nbytes % 16 == 0
+    for w, dtype, stride in ((3, np.int32, 4), (5, np.float32, 8),
+                             (3, np.int64, 4), (16, np.float64, 16)):
+        small = pt_csb.CSBTree.build(np.arange(200).astype(dtype), w=w,
+                                     device="cpu")
+        s = fs.csb_stage(*small.snapshot()[:2], small.root, small.height,
+                         device="cpu")
+        assert s.stride == stride and s.rows.dtype == torch.from_numpy(
+            np.zeros(0, dtype)).dtype
+        assert (s.rows[:, w:] == fs.sentinel_for(dtype)).all()
+
+
+def test_csb_stage_stops_at_a_ragged_node_and_clamps():
+    """A hand-made tree whose root's child group holds a leaf beside inner
+    nodes (a ragged path: the node stays) and a child group that runs past
+    the arrays (clamped): the stage holds the root alone, and the staged
+    descent equals the plain one and the reference's ``_search``."""
+    sent = I32.max
+    keys = np.full((8, 2), sent, np.int32)
+    keys[0], keys[2], keys[3] = [10, 20], [15, sent], [25, 30]
+    leaf = np.full((8, 2), sent, np.int32)
+    leaf[1], leaf[4], leaf[5], leaf[6], leaf[7] = \
+        [5, 10], [11, 15], [16, 20], [21, 25], [26, 30]
+    child = np.array([1, -1, 4, 6, -1, -1, -1, -1], np.int32)
+    q = np.concatenate([np.arange(-3, 45), [I32.min, sent - 1, sent]]
+                       ).astype(np.int32)
+    st = fs.csb_stage(keys, child, 0, 3, device="cpu")
+    assert st.levels == 1 and st.nodes == 1 and st.link.tolist() == [1]
+    args = [torch.from_numpy(a) for a in (keys, child, leaf)]
+    got = fs.csb_search(torch.from_numpy(q), *args, root=0, height=3,
+                        stage=st)
+    same(got, fs.csb_search_plain(torch.from_numpy(q), *args, root=0,
+                                  height=3))
+    same(got, ref_csb._search(keys, child, leaf, q, root=0, height=3))
+    assert got.numpy()[q == 30] and not got.numpy()[q == 31]
+
+
 # ----------------------------------------------------- subnormals, numpy
 def test_subnormals_follow_ieee():
     """Subnormal keys and queries, against numpy (IEEE, as the kernels
@@ -400,8 +537,10 @@ def test_eight_byte_keys_follow_numpy(dtype):
 
 # -------------------------------------------------------- wrapper surface
 def test_group_lanes_and_tables_are_cached():
-    assert [fs.group_lanes(w) for w in (1, 4, 5, 8, 9, 16, 127, 129,
-                                        500)] == [1, 1, 2, 2, 4, 4, 4, 4, 4]
+    # csb_search reads a node by whole 16-byte pieces, no lane group: a
+    # staged row of w keys is padded to them, a stage's links to one more
+    assert [fs.csb_stage_bytes(n, 32) for n in (0, 1, 4, 5, 406)] == \
+        [0, 48, 144, 192, 14_624]
     a = fs.level_descent("css", (0, 128, 16_640), 128)
     assert a is fs.level_descent("css", (0, 128, 16_640), 128)
     assert all(x.dtype == np.int32 and x.flags.c_contiguous

@@ -21,22 +21,36 @@ from repro_torch.kernels import page_search as pt_page
 torch.set_num_threads(1)
 
 PATTERNS = ["uniform", "zipf", "dups", "single"]
+# the device plan's run starts at their edges: runs of one lane, of a
+# tile, and one lane either side of one, two and three tiles (in request
+# order shuffled); only page 0 and page P-1; a batch one lane past a whole
+# number of tiles, and one of whole tiles
+PLAN_PATTERNS = PATTERNS + ["long_runs", "ends", "tail", "whole"]
+PLAN_Q = {"tail": 64 * 37 + 1, "whole": 64 * 40}     # else 3000
+RUNS = [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 2]
 
 
 def page_batch(pattern, q_n=3000, num_pages=41, seed=17):
     rng = np.random.default_rng(seed)
+    if pattern == "long_runs":
+        counts = RUNS + [q_n - sum(RUNS)]
+        pages = rng.choice(num_pages, len(counts), replace=False)
+        return rng.permutation(np.repeat(pages, counts)).astype(np.int32)
     return {
         "uniform": rng.integers(0, num_pages, q_n),
         "zipf": np.minimum(rng.zipf(1.3, q_n) - 1, num_pages - 1),
         "dups": rng.integers(0, 4, q_n),
         "single": np.full(q_n, 7),
+        "ends": rng.choice([0, num_pages - 1], q_n),
+        "tail": rng.integers(0, num_pages, q_n),
+        "whole": rng.integers(0, 3, q_n),
     }[pattern].astype(np.int32)
 
 
 @pytest.mark.parametrize("method", ["sort", "histogram"])
-@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("pattern", PLAN_PATTERNS)
 def test_device_plan_matches_reference(pattern, method):
-    q_n, num_pages, tile = 3000, 41, 64
+    q_n, num_pages, tile = PLAN_Q.get(pattern, 3000), 41, 64
     page_of = page_batch(pattern, q_n, num_pages)
     cap = pt.ladder_grid(q_n, tile, num_pages)
     assert cap == ref.ladder_grid(q_n, tile, num_pages)
